@@ -1,0 +1,8 @@
+"""``python -m rappas_tpu_torch`` runs the command-line interface."""
+
+import sys
+
+from rappas_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())
