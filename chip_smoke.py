@@ -4,25 +4,35 @@
 Run from the repository root on a machine with an NVIDIA H100 and the
 CUDA toolkit:
 
-    python3 chip_smoke.py [--seed 0] [--cli-reads 100000] [--json-out F]
+    python3 chip_smoke.py [--seed 0] [--cli-reads 50000] [--json-out F]
 
 It needs one card, builds the CUDA kernels from ``rappas_tpu_torch/csrc``
-(into ``rappas_tpu_torch/_build/``) and drives ``-p p`` placement at the
-width of BASELINE config 1 (k=8, E=300 edge slots, a direct table
-``D[4^8 + 1, 300]`` f32 of 79 MB, 150 bp reads) on a DB made from the
-seed:
+(into ``rappas_tpu_torch/_build/``) and drives ``-p p`` placement on DBs
+made from the seed, at the widths of three BASELINE configurations:
 
-1. kernel phase -- every kernel of the path (K1 accumulate_packed, K2
-   accumulate_codes, K3 finalize_wire, K4 ambiguous_pass) at B=16384
-   against its plain PyTorch version on the card, with CUDA-event times
-   beside the plain version's, one library call's where PyTorch has one,
-   and the least time the card could take (its bound);
-2. engine phase -- 20 batches of 16384 reads (1% carry one N) through
-   ``PlacementEngine.score_async``; every kernel must launch; 512 reads
-   are held against the same engine on the CPU;
-3. CLI phase -- ``python -m rappas_tpu_torch.cli -p p`` on 100k reads with
-   duplicates and N's; the jplace is parsed and its placements held
-   against the CPU engine.
+* config 1, the direct layout (k=8, E=300 edge slots, a table
+  ``D[4^8 + 1, 300]`` f32 of 79 MB, 150 bp reads):
+  1. kernel phase -- K1 accumulate_packed, K2 accumulate_codes, K3
+     finalize_wire and K4 ambiguous_pass at B=16384 against their plain
+     PyTorch versions on the card, with CUDA-event times beside the plain
+     version's, one library call's where PyTorch has one, and the least
+     time the card could take (its bound);
+  2. engine phase -- 10 batches of 16384 reads (1% carry one N) through
+     ``PlacementEngine.score_async``; every kernel must launch; 512 reads
+     are held against the same engine on the CPU;
+  3. CLI phase -- ``python -m rappas_tpu_torch.cli -p p`` on 50k reads
+     with duplicates and N's; the jplace is parsed and its placements
+     held against the CPU engine;
+* config 5, the postings layout (k=12, a 4000-taxon star: E=7999; 2M
+  light k-mers with 1-7 postings, 10k heavy ones with 32-199, as
+  ``scripts/scale_check.py:21-48`` builds it, with every 12-mer of a
+  400 kb reference among the keys): the same three phases for P1
+  dense_side, P2 ambiguous_postings and P3 finalize_postings_wire
+  (B=8192), the CLI with ``--table auto``; half of each batch is
+  sampled from the reference (every window hits), half is uniform;
+* config 4, protein postings (amino k=8, E=150, 500k keys with 4
+  postings, as ``bench.py:447-479``; no direct index: rows come from the
+  native key probe): an engine phase of 16384-read batches of 100 aa.
 
 Standard output ends with the card's name and power limit, one JSON line
 of kernel results and one JSON line ``{"ok": true, "device": ...}``.  Any
@@ -45,8 +55,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 B_KERNEL = 16384
+B_POSTINGS = 8192
 READ_LEN = 150
 K_KEEP = 7
+#: bases of the config-5 reference whose 12-mers are all DB keys
+REF_LEN = 400_000
 
 
 class SmokeFailure(Exception):
@@ -93,22 +106,109 @@ def config1_db(seed: int):
                        deltas=deltas)
 
 
-def random_reads(rng, n: int, n_ambiguous: int, short_share: float = 0.0):
-    """ASCII reads uint8[n, READ_LEN] (0xFF padded) and lengths;
-    ``n_ambiguous`` random reads carry one N; a ``short_share`` of the
-    reads is cut to 120..149 bp."""
+def config5_reference(seed: int):
+    """The config-5 reference sequence, ASCII uint8[REF_LEN]: every one of
+    its 12-mers is a key of :func:`config5_db`, so a read sampled from it
+    hits on every window, as a read of the placed clade does."""
     import numpy as np
 
-    mat = np.frombuffer(b"ACGT", np.uint8)[
-        rng.integers(0, 4, (n, READ_LEN))].copy()
-    lens = np.full(n, READ_LEN, np.int32)
+    rng = np.random.default_rng(seed + 7)
+    return np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, REF_LEN)]
+
+
+def config5_db(seed: int):
+    """BASELINE config 5 widths from the seed (the recipe of
+    ``scripts/scale_check.py:21-48``): k=12, a 4000-taxon star tree
+    (E = 7999 edge slots), 2,000,000 light k-mers with 1-7 postings and
+    10,000 heavy ones with 32-199 (about 9.15M postings).  The keys are
+    the 12-mers of :func:`config5_reference` and, for the rest, uniform
+    draws; which keys are heavy is drawn uniformly over all of them."""
+    import numpy as np
+
+    from rappas_tpu_torch.alphabet import DNA
+    from rappas_tpu_torch.db import PhyloKmerDB, build_csr
+    from rappas_tpu_torch.tree import parse_newick
+
+    k, n_taxa, n_light, n_heavy = 12, 4000, 2_000_000, 10_000
+    rng = np.random.default_rng(seed)
+    labels = ",".join(f"T{i}:0.1" for i in range(2 * n_taxa - 2))
+    tree = parse_newick(f"({labels})root;")
+    tree.reset_jplace_edge_ids()
+    E = 2 * n_taxa - 1
+    thr = PhyloKmerDB.threshold(k, 1.5, 4)
+    ref = DNA.char_to_code[config5_reference(seed)].astype(np.int64)
+    ref_keys = np.unique(np.lib.stride_tricks.sliding_window_view(ref, k)
+                         @ (4 ** np.arange(k - 1, -1, -1, dtype=np.int64)))
+    drawn = rng.choice(4 ** k, size=n_light + n_heavy, replace=False)
+    drawn = drawn[~np.isin(drawn, ref_keys)]
+    keys = np.concatenate([ref_keys,
+                           drawn[:n_light + n_heavy - ref_keys.size]])
+    rng.shuffle(keys)
+    lens = np.concatenate([rng.integers(1, 8, n_light),
+                           rng.integers(32, 200, n_heavy)])
+    codes = np.repeat(keys, lens)
+    edges = rng.integers(1, E, codes.shape[0]).astype(np.int32)
+    scores = (thr + 0.01 + rng.random(codes.shape[0]) * 2.5
+              ).astype(np.float32)
+    keys, offsets, e, deltas = build_csr(codes.astype(np.int64), edges,
+                                         scores, thr)
+    return PhyloKmerDB(k=k, omega=1.5, alphabet=DNA, thr_log10=thr,
+                       tree=tree, keys=keys, offsets=offsets, edges=e,
+                       deltas=deltas)
+
+
+def config4_db(seed: int):
+    """BASELINE config 4 widths from the seed (``bench.py:447-479``'s
+    recipe): amino k=8 (a 20^8 key space), 150 edge slots, 500,000 keys
+    with 4 postings each."""
+    import numpy as np
+
+    from rappas_tpu_torch.alphabet import AA
+    from rappas_tpu_torch.db import PhyloKmerDB, build_csr
+    from rappas_tpu_torch.tree import parse_newick
+
+    rng = np.random.default_rng(seed + 11)
+    n_edges, n_keys, mean_post = 150, 500_000, 4
+    labels = ",".join(f"L{i}:0.1" for i in range(n_edges - 1))
+    tree = parse_newick(f"({labels})root;")
+    tree.reset_jplace_edge_ids()
+    thr = PhyloKmerDB.threshold(8, 1.5, 20)
+    keys = np.unique(rng.integers(0, 20 ** 8, int(n_keys * 1.2),
+                                  np.int64))[:n_keys]
+    codes = np.repeat(keys, mean_post)
+    edges = rng.integers(1, n_edges, codes.shape[0]).astype(np.int32)
+    scores = (thr + 0.01 + rng.random(codes.shape[0]) * 2.5
+              ).astype(np.float32)
+    keys, offsets, e, deltas = build_csr(codes, edges, scores, thr)
+    return PhyloKmerDB(k=8, omega=1.5, alphabet=AA, thr_log10=thr,
+                       tree=tree, keys=keys, offsets=offsets, edges=e,
+                       deltas=deltas)
+
+
+def random_reads(rng, n: int, n_ambiguous: int, short_share: float = 0.0,
+                 length: int = READ_LEN, letters: bytes = b"ACGT",
+                 ref=None):
+    """ASCII reads uint8[n, length] (0xFF padded) and lengths: uniform
+    letters, or with a reference ``ref`` (ASCII) half of them sampled
+    from it at random offsets; ``n_ambiguous`` random reads carry one N
+    (X for protein); a ``short_share`` of the reads is cut to 80-99% of
+    ``length``."""
+    import numpy as np
+
+    mat = np.frombuffer(letters, np.uint8)[
+        rng.integers(0, len(letters), (n, length))].copy()
+    if ref is not None:
+        pick = rng.choice(n, n // 2, replace=False)
+        start = rng.integers(0, ref.size - length + 1, pick.size)
+        mat[pick] = ref[start[:, None] + np.arange(length)]
+    lens = np.full(n, length, np.int32)
     short = np.flatnonzero(rng.random(n) < short_share)
-    lens[short] = rng.integers(120, READ_LEN, short.size)
+    lens[short] = rng.integers(int(length * 0.8), length, short.size)
     for i, ln in zip(short, lens[short]):
         mat[i, ln:] = 0xFF
     amb = rng.choice(n, n_ambiguous, replace=False)
     mat[amb, (rng.random(n_ambiguous) * lens[amb]).astype(np.int64)] = \
-        ord("N")
+        ord("N" if letters == b"ACGT" else "X")
     return mat, lens
 
 
@@ -307,25 +407,167 @@ def kernel_phase(db, seed: int, device: str = "cuda") -> dict:
     return out
 
 
-def engine_phase(db, seed: int, device: str = "cuda") -> dict:
+def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
+    """P1-P3 at B=8192 on one batch of the engine's own host inputs (half
+    the reads sampled from the reference ``ref``), each against its plain
+    version on the card."""
     import numpy as np
     import torch
 
     from rappas_tpu_torch.place import kernels as K
-    from rappas_tpu_torch.place.engine import PlacementEngine, pack_reads
+    from rappas_tpu_torch.place.engine import unpack_wire
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed + 4)
+    mat, lens = random_reads(rng, B_POSTINGS, B_POSTINGS // 100, ref=ref)
+    host, plan = eng.postings_inputs(eng.encode_batch(mat), mat, lens)
+    host.pop("scratch_off", None)
+    plan = plan.to(dev)
+    d = {n: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+         for n, a in host.items()}
+    H, pairs = eng.heavy_dense, eng.pairs
+    E, P = H.shape[1], pairs.shape[1] // 2
+    miss = pairs.shape[0] - 1
+    out = {}
+
+    # P1 ------------------------------------------------------------ #
+    n_slots = d["hoff"].numel() - 1
+    slots = torch.repeat_interleave(torch.arange(n_slots, device=dev),
+                                    (d["hoff"][1:] - d["hoff"][:-1]).long())
+    acc_c = K.dense_side(H, d["hrows"], d["hoff"])
+    want = K.scatter_slots(K.gather_rows(H, d["hrows"]), slots, n_slots)
+    torch.cuda.synchronize()
+    err = float((acc_c - want).abs().max()) if n_slots else 0.0
+    check(torch.allclose(acc_c, want, rtol=1e-5, atol=1e-6),
+          f"P1 dense_side disagrees with its plain version "
+          f"(max abs err {err})")
+    n_h = d["hrows"].numel()
+    b, why = bound(n_h * 4 + (n_slots + 1) * 4 +
+                   torch.unique(d["hrows"]).numel() * E * 4 +
+                   n_slots * E * 4, n_h * E)
+    hrows_long, hoff_long = d["hrows"].long(), d["hoff"][:-1].long()
+    out["dense_side"] = dict(
+        max_abs_err=err, bound_ms=b, bound_by=why, slots=n_slots,
+        heavy_hits=n_h,
+        ms=cuda_ms(lambda: K.dense_side(H, d["hrows"], d["hoff"])),
+        plain_ms=cuda_ms(lambda: K.scatter_slots(
+            K.gather_rows(H, d["hrows"]), slots, n_slots)),
+        library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
+            hrows_long, H, hoff_long, mode="sum")))
+
+    # P2 ------------------------------------------------------------ #
+    spec = [d[n] for n in ("alt_lrows", "alt_hrows", "win_off", "win_slot",
+                           "win_inv_w", "win_is_mean")]
+    alt_win = torch.repeat_interleave(
+        torch.arange(spec[3].numel(), device=dev),
+        (spec[2][1:] - spec[2][:-1]).long())
+    errs = []
+    for mean in (1, 0):
+        spec[5] = torch.full_like(d["win_is_mean"], mean)
+        got = K.ambiguous_postings_(acc_c.clone(), H, pairs, *spec)
+        want = K.ambiguous_pass(
+            K.alt_delta_rows_postings(pairs, H, spec[0], spec[1]), alt_win,
+            spec[3], spec[4], spec[5], acc_c)
+        torch.cuda.synchronize()
+        errs.append(float((got - want).abs().max()))
+        check(errs[-1] <= 2e-4, f"P2 ambiguous_postings (mean {mean}) "
+              f"disagrees with its plain version (max abs err {errs[-1]})")
+        check(torch.equal(got > 0, want > 0),
+              "P2 ambiguous_postings: matched edges differ")
+        if mean:
+            acc_amb = got
+    spec[5] = d["win_is_mean"]
+    n_alt, n_w = spec[0].numel(), spec[3].numel()
+    lr, hr = spec[0][spec[0] != miss], spec[1][spec[1] != H.shape[0] - 1]
+    # operations the function needs: P scatter adds onto an alternative's
+    # heavy row, then exp2, add and max per alternative and column, and
+    # about 3 per window and column (log, floor, add into the slot); the
+    # kernel's scan of every posting per column is its own cost, not work
+    # the function needs
+    b, why = bound(torch.unique(hr).numel() * E * 4 +
+                   torch.unique(lr).numel() * 2 * P * 4 + n_alt * 8 +
+                   n_w * 13 + 4 +
+                   2 * torch.unique(spec[3]).numel() * E * 4,
+                   (n_alt * 3 + 3 * n_w) * E + n_alt * P)
+    scratch = acc_c.clone()
+    out["ambiguous_postings"] = dict(
+        max_abs_err=max(errs), bound_ms=b, bound_by=why, windows=n_w,
+        alternatives=n_alt,
+        ms=cuda_ms(lambda: K.ambiguous_postings_(scratch, H, pairs, *spec)),
+        plain_ms=cuda_ms(lambda: K.ambiguous_pass(
+            K.alt_delta_rows_postings(pairs, H, spec[0], spec[1]), alt_win,
+            spec[3], spec[4], spec[5], acc_c)),
+        library_ms=None)
+
+    # P3 ------------------------------------------------------------ #
+    args = (pairs, d["lrows"], acc_amb, d["slot_of"], d["lengths"])
+    thr_t = torch.tensor(np.float32(eng.thr), device=dev)
+    Kk = min(K_KEEP, E)
+    want = K.pack_wire(*K.finalize_postings(*args, thr_t, eng.k, K_KEEP),
+                       wide=eng.wide)
+    ref = unpack_wire(want.cpu().numpy(), Kk, eng.wide)
+    counts = eng._light_counts[host["lrows"]].sum(axis=1)
+    errs = []
+    for name, pl in (("plan", plan),
+                     ("global scratch", K.postings_plan(counts, 0).to(dev))):
+        got = K.finalize_postings_wire(*args, eng.thr, eng.k, K_KEEP, pl)
+        torch.cuda.synchronize()
+        res = unpack_wire(got.cpu().numpy(), Kk, eng.wide)
+        diff = same_placements(res, ref)
+        check(diff is None, f"P3 finalize_postings_wire ({name}) vs its "
+              f"plain version: {diff}")
+        fin = np.isfinite(ref.top_scores)
+        errs.append(float(np.abs(res.top_scores - ref.top_scores)[fin].max())
+                    if fin.any() else 0.0)
+    lrows_real = d["lrows"][d["lrows"] != miss]
+    n_b = counts[counts > 1].astype(np.float64)
+    b, why = bound(torch.unique(lrows_real).numel() * 2 * P * 4 +
+                   d["lrows"].numel() * 4 + B_POSTINGS * 8 +
+                   n_slots * E * 4 + got.numel() * 4,
+                   float((n_b * np.ceil(np.log2(n_b))).sum()) +
+                   n_slots * E)
+    out["finalize_postings_wire"] = dict(
+        max_abs_err=max(errs), bound_ms=b, bound_by=why,
+        window_columns=int(host["lrows"].shape[1]),
+        postings_per_read_mean=float(counts.mean()),
+        postings_per_read_max=int(counts.max()), smem_pairs=plan.smem_pairs,
+        ms=cuda_ms(lambda: K.finalize_postings_wire(
+            *args, eng.thr, eng.k, K_KEEP, plan)),
+        plain_ms=cuda_ms(lambda: K.pack_wire(*K.finalize_postings(
+            *args, thr_t, eng.k, K_KEEP), wide=eng.wide), reps=5),
+        library_ms=None)
+    return out
+
+
+def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
+                 n_batches: int = 10, length: int = READ_LEN,
+                 letters: bytes = b"ACGT", n_ambiguous: int | None = None,
+                 ref=None, device: str = "cuda") -> dict:
+    """``n_batches`` batches back to back through ``score_async`` (a few
+    in flight); every kernel in ``names`` must launch; the first batch's
+    first 512 reads are held against the same engine on the CPU."""
+    import numpy as np
+    import torch
+
+    from rappas_tpu_torch import native
+    from rappas_tpu_torch.place import kernels as K
+    from rappas_tpu_torch.place.engine import PlacementEngine
 
     rng = np.random.default_rng(seed + 2)
-    n_batches = 20
-    batches = [random_reads(rng, B_KERNEL, B_KERNEL // 100, 0.05)
+    n_amb = batch // 100 if n_ambiguous is None else n_ambiguous
+    batches = [random_reads(rng, batch, n_amb, 0.05, length, letters, ref)
                for _ in range(n_batches)]
+    t0 = time.perf_counter()
     eng = PlacementEngine(db, device=device)
+    setup_s = time.perf_counter() - t0
     eng.score(*batches[0])                    # warm-up
     torch.cuda.synchronize()
     K.reset_launches()
+    native.PROBE_CALLS["probe_rows"] = 0
     t0 = time.perf_counter()
     pend, results = [], []
-    issue_s = 0.0      # host time inside score_async: encode, pack,
-    for mat, lens in batches:      # expand, stage, enqueue
+    issue_s = 0.0      # host time inside score_async: encode, lookups,
+    for mat, lens in batches:      # expansion, stage, enqueue
         t1 = time.perf_counter()
         pend.append(eng.score_async(mat, lens))
         issue_s += time.perf_counter() - t1
@@ -334,11 +576,55 @@ def engine_phase(db, seed: int, device: str = "cuda") -> dict:
     results.extend(p.result() for p in pend)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = {n: K.LAUNCHES[n] for n in names}
+    probes = native.PROBE_CALLS["probe_rows"]
     for name, n in launches.items():
         check(n > 0, f"engine phase: kernel {name} was never launched")
-    # host side of score_async on one batch, step by step
-    mat, lens = batches[1]
+    steps = {}
+    if eng.table == "postings":
+        # the postings host side on one batch, each step timed once on
+        # the host clock: encode, window -> row lookup, ambiguity
+        # expansion, and all of postings_inputs (which repeats both)
+        mat, lens = batches[1]
+        t1 = time.perf_counter()
+        codes = eng.encode_batch(mat)
+        steps["encode"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        eng._rows_from_codes(codes, lens)
+        steps["row_lookup"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        eng._expand_ambiguities_host(codes, mat, lens)
+        steps["ambiguity_expansion"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        host, _ = eng.postings_inputs(codes, mat, lens)
+        steps["postings_inputs"] = time.perf_counter() - t1
+        per_read = eng._light_counts[host["lrows"]].sum(axis=1)
+        steps["postings_per_read_mean"] = float(per_read.mean())
+        steps["postings_per_read_max"] = int(per_read.max())
+    cpu = PlacementEngine(db, device="cpu")
+    mat, lens = batches[0]
+    ref = cpu.score(mat[:512], lens[:512])
+    r0 = results[0]
+    sub = type(r0)(*(x[:512] for x in r0))
+    diff = same_placements(sub, ref)
+    check(diff is None, f"engine phase: card vs CPU engine: {diff}")
+    return {"table": eng.table, "reads_per_s": n_batches * batch / dt,
+            "seconds": dt, "score_async_s": issue_s, "setup_s": setup_s,
+            "batches": n_batches, "batch_size": batch, "launches": launches,
+            "probe_rows_calls": probes, "host_steps_s": steps}
+
+
+def host_steps(db, seed: int) -> dict:
+    """The direct engine's host steps on one 16384-read batch, each timed
+    once on the host clock: ASCII encode, the per-read split and 2-bit
+    packing, the ambiguity expansion."""
+    import numpy as np
+
+    from rappas_tpu_torch.place.engine import PlacementEngine, pack_reads
+
+    eng = PlacementEngine(db, device="cpu")
+    mat, lens = random_reads(np.random.default_rng(seed + 5), B_KERNEL,
+                             B_KERNEL // 100, 0.05)
     steps = {}
     t1 = time.perf_counter()
     codes = eng.encode_batch(mat)
@@ -353,21 +639,11 @@ def engine_phase(db, seed: int, device: str = "cuda") -> dict:
     t1 = time.perf_counter()
     eng._expand_ambiguities_host(codes, mat, lens)
     steps["ambiguity_expansion"] = time.perf_counter() - t1
-    cpu = PlacementEngine(db, device="cpu")
-    mat, lens = batches[0]
-    ref = cpu.score(mat[:512], lens[:512])
-    r0 = results[0]
-    sub = type(r0)(*(x[:512] for x in r0))
-    diff = same_placements(sub, ref)
-    check(diff is None, f"engine phase: card vs CPU engine: {diff}")
-    return {"reads_per_s": n_batches * B_KERNEL / dt, "seconds": dt,
-            "score_async_s": issue_s, "host_steps_s": steps,
-            "batches": n_batches,
-            "batch_size": B_KERNEL, "launches": launches}
+    return steps
 
 
 def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
-              device: str = "cuda") -> dict:
+              names, ref=None, device: str = "cuda") -> dict:
     import numpy as np
 
     from rappas_tpu_torch import cli
@@ -376,7 +652,7 @@ def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
 
     rng = np.random.default_rng(seed + 3)
     n_unique = n_reads - n_reads // 10
-    mat, lens = random_reads(rng, n_unique, n_unique // 100, 0.05)
+    mat, lens = random_reads(rng, n_unique, n_unique // 100, 0.05, ref=ref)
     src = np.concatenate([np.arange(n_unique),
                           rng.integers(0, n_unique, n_reads - n_unique)])
     fasta = work / "reads.fasta"
@@ -384,13 +660,13 @@ def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
         for i, s in enumerate(src.tolist()):
             f.write(b">r%d src=%d\n" % (i, s) +
                     mat[s, :lens[s]].tobytes() + b"\n")
-    wd = work / "cli"
+    wd = work / f"cli_{db_path.stem}"
     K.reset_launches()
     t0 = time.perf_counter()
     rc = cli.main(["-p", "p", "-d", str(db_path), "-q", str(fasta),
-                   "-w", str(wd), "--device", device])
+                   "-w", str(wd), "--table", "auto", "--device", device])
     dt = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = {n: K.LAUNCHES[n] for n in names}
     check(rc == 0, f"CLI exited with {rc}")
     for name, n in launches.items():
         check(n > 0, f"CLI phase: kernel {name} was never launched")
@@ -430,10 +706,30 @@ def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
 
 
 # ---------------------------------------------------------------------- #
+DIRECT = ("accumulate_packed", "accumulate_codes", "finalize_wire",
+          "ambiguous_pass")
+POSTINGS = ("dense_side", "ambiguous_postings", "finalize_postings_wire")
+#: kernel -> (source in csrc/, the JAX functions it replaces)
+SOURCES = {
+    "accumulate_packed": ("accumulate.cu",
+                          "rappas_tpu/place/engine.py:253,195"),
+    "accumulate_codes": ("accumulate.cu",
+                         "rappas_tpu/place/engine.py:175,195"),
+    "finalize_wire": ("finalize.cu", "rappas_tpu/place/engine.py:453,68"),
+    "ambiguous_pass": ("ambiguous.cu",
+                       "rappas_tpu/place/engine.py:907,967,1005"),
+    "dense_side": ("postings.cu", "rappas_tpu/place/engine.py:484,773"),
+    "ambiguous_postings": ("ambiguous.cu",
+                           "rappas_tpu/place/engine.py:950,967,1433"),
+    "finalize_postings_wire": ("postings.cu",
+                               "rappas_tpu/place/engine.py:654,684,68"),
+}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--cli-reads", type=int, default=100_000)
+    ap.add_argument("--cli-reads", type=int, default=50_000)
     ap.add_argument("--json-out", default=None,
                     help="also write the results to this file")
     args = ap.parse_args()
@@ -445,6 +741,7 @@ def main() -> int:
     try:
         from rappas_tpu_torch import _kernels
         from rappas_tpu_torch.db import PhyloKmerDB
+        from rappas_tpu_torch.place.engine import PlacementEngine
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
@@ -463,45 +760,86 @@ def main() -> int:
                 "spill" in line):
             print(line.strip())
 
+    def make_db(name, recipe, work):
+        t0 = time.perf_counter()
+        db = recipe(args.seed)
+        path = work / f"{name}.rptpu"
+        db.save(path)
+        db = PhyloKmerDB.load(path)
+        print(f"{name} DB: k={db.k}, {db.n_edge_slots} edge slots, "
+              f"{db.n_kmers} k-mers, {db.nnz} postings "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        return db, path
+
+    def show(tag, r):
+        print(f"{tag}: {json.dumps(r)}", flush=True)
+
     results = {"card": card}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
-        t0 = time.perf_counter()
-        db = config1_db(args.seed)
-        db_path = work / "config1.rptpu"
-        db.save(db_path)
-        db = PhyloKmerDB.load(db_path)
-        print(f"DB: k={db.k}, {db.n_edge_slots} edge slots, "
-              f"{db.n_kmers} k-mers, {db.nnz} postings "
-              f"({time.perf_counter() - t0:.1f} s)", flush=True)
-
+        # config 1: direct layout ---------------------------------- #
+        db, path = make_db("config1", config1_db, work)
         kern = kernel_phase(db, args.seed)
         for name, r in kern.items():
-            print(f"kernel {name}: {json.dumps(r)}", flush=True)
-        eng = engine_phase(db, args.seed)
-        print(f"engine: {eng['reads_per_s']:.0f} reads/s "
-              f"({json.dumps(eng)})", flush=True)
-        cl = cli_phase(db, db_path, work, args.cli_reads, args.seed)
-        print(f"cli: {cl['reads_per_s']:.0f} reads/s ({json.dumps(cl)})",
-              flush=True)
-    results.update(kernels=kern, engine=eng, cli=cl)
+            show(f"kernel {name}", r)
+        eng = engine_phase(db, args.seed, DIRECT)
+        eng["host_steps_s"] = host_steps(db, args.seed)
+        show("config1 engine", eng)
+        cl = cli_phase(db, path, work, args.cli_reads, args.seed, DIRECT)
+        show("config1 cli", cl)
+        results["config1"] = {"engine": eng, "cli": cl}
 
-    sources = {"accumulate_packed": ("accumulate.cu",
-                                     "rappas_tpu/place/engine.py:253,195"),
-               "accumulate_codes": ("accumulate.cu",
-                                    "rappas_tpu/place/engine.py:175,195"),
-               "finalize_wire": ("finalize.cu",
-                                 "rappas_tpu/place/engine.py:453,68"),
-               "ambiguous_pass": ("ambiguous.cu",
-                                  "rappas_tpu/place/engine.py:907,967,1005")}
+        # config 5: postings layout, large tree --------------------- #
+        db, path = make_db("config5", config5_db, work)
+        t0 = time.perf_counter()
+        peng = PlacementEngine(db, device="cuda")
+        check(peng.table == "postings" and peng._rof_np is not None,
+              f"config 5 resolved to {peng.table}, not postings with a "
+              "direct index")
+        print(f"config5 engine set-up {time.perf_counter() - t0:.1f} s: "
+              f"light table {tuple(peng.pairs.shape)} "
+              f"{peng.pairs.nbytes / 1e6:.0f} MB, heavy_dense "
+              f"{tuple(peng.heavy_dense.shape)} "
+              f"{peng.heavy_dense.nbytes / 1e6:.0f} MB on the card, "
+              f"direct index {peng._rof_np.nbytes / 1e6:.0f} MB on the "
+              "host", flush=True)
+        ref = config5_reference(args.seed)
+        pk = postings_kernel_phase(peng, args.seed, ref)
+        del peng
+        for name, r in pk.items():
+            show(f"kernel {name}", r)
+        kern.update(pk)
+        eng5 = engine_phase(db, args.seed, POSTINGS, batch=B_POSTINGS,
+                            ref=ref)
+        show("config5 engine", eng5)
+        cl5 = cli_phase(db, path, work, args.cli_reads, args.seed,
+                        POSTINGS, ref)
+        show("config5 cli", cl5)
+        results["config5"] = {"engine": eng5, "cli": cl5}
+        del db
+
+        # config 4: protein postings, native key probe -------------- #
+        db, path = make_db("config4", config4_db, work)
+        eng4 = engine_phase(db, args.seed, ("finalize_postings_wire",),
+                            n_batches=4, length=100,
+                            letters=b"ARNDCQEGHILKMFPSTWYV")
+        check(eng4["table"] == "postings" and eng4["probe_rows_calls"] > 0,
+              f"config 4: table {eng4['table']}, probe_rows calls "
+              f"{eng4['probe_rows_calls']}")
+        show("config4 engine", eng4)
+        results["config4"] = {"engine": eng4}
+    results["kernels"] = kern
+
     rows = []
-    for name, (src, replaces) in sources.items():
+    for name, (src, replaces) in SOURCES.items():
         r = kern[name]
+        cfg = "config1" if name in DIRECT else "config5"
         rows.append({
             "name": name, "route": "cuda",
             "source": f"rappas_tpu_torch/csrc/{src}",
-            "replaces": replaces, "launches": cl["launches"][name],
-            "engine_launches": eng["launches"][name],
+            "replaces": replaces,
+            "launches": results[cfg]["cli"]["launches"][name],
+            "engine_launches": results[cfg]["engine"]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -25,7 +25,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "_build"
-SOURCES = ("accumulate.cu", "finalize.cu", "ambiguous.cu")
+SOURCES = ("accumulate.cu", "finalize.cu", "ambiguous.cu", "postings.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -118,8 +118,13 @@ def lib() -> ctypes.CDLL:
                 "rp_accumulate_packed": [p, i, i, p, i64, p, i, i, i, f, p,
                                          p, p],
                 "rp_accumulate_codes": [p, i, i, p, i, i, i, i, f, p, p, p],
-                "rp_finalize_wire": [p, i, i, p, f, i, i, p, p],
+                "rp_finalize_wire": [p, i, i, p, f, i, i, i, i, p, p],
                 "rp_ambiguous_pass": [p, i, f, p, p, p, p, p, i, p, p],
+                "rp_dense_side": [p, i, p, p, i, p, p],
+                "rp_ambiguous_postings": [p, i, p, i, p, p, p, p, p, p, i,
+                                          p, p],
+                "rp_finalize_postings": [p, i, i, p, i, i, p, i, p, p, f, i,
+                                         i, i, p, p, p, i, i, p, p],
             }
             for name, argtypes in sigs.items():
                 fn = getattr(handle, name)

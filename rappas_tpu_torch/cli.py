@@ -3,9 +3,10 @@
 RAPPAS, ``ArgumentsParser_v2.java``) plus ``--device``.
 
 Ported so far: ``-p p`` placement on one device (``--dp`` 0 or 1, ``--mp``
-1) with a DB whose table resolves to the direct layout.  The options
-that reach code not ported yet exit with status 2 and name the ROADMAP
-item that ports them.
+1) with a DB whose table resolves to the direct or the postings layout
+(``--table auto``, ``direct`` or ``postings``).  The options that reach
+code not ported yet (``--table compact``, ``--precision u16``, ...) exit
+with status 2 and name the ROADMAP item that ports them.
 """
 
 from __future__ import annotations

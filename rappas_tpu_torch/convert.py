@@ -9,6 +9,8 @@ and numpy arrays, without importing that package.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -46,3 +48,46 @@ def device_tables(db: PhyloKmerDB, device) -> tuple:
     thr = torch.tensor(float(db.thr_log10), dtype=torch.float32,
                        device=device)
     return D, scale, thr
+
+
+class PostingsState(NamedTuple):
+    """The postings layout of a DB: device tables and host lookups."""
+    pairs: torch.Tensor        # int32[nl + 1, 2P] on the device
+    heavy_dense: torch.Tensor  # f32[nh + 1, E] on the device
+    light_counts: np.ndarray   # int32[nl + 1] real postings per row
+    light_keys: np.ndarray     # int64[nl] sorted
+    heavy_keys: np.ndarray     # int64[nh] sorted
+    rof: np.ndarray | None     # int32[S^k + 1] encoded row per k-mer
+
+
+def postings_device_tables(db: PhyloKmerDB, width: int, device,
+                           direct_index_limit: int = 1 << 30
+                           ) -> PostingsState:
+    """The postings layout of ``db`` (``rappas_tpu/place/engine.py:
+    1110-1166``, one light table, never height-split).
+
+    ``pairs[r]`` holds light k-mer ``r``'s postings as P edge ids then P
+    bit-cast f32 deltas (pads: ``LIGHT_PAD_EDGE`` and 0.0; the last row
+    is all pads, the miss row); ``heavy_dense`` holds the k-mers with
+    more than ``width`` postings as dense rows (last row zero).  ``rof``
+    maps a k-mer index to its encoded row (``r < nl`` light row ``r``,
+    ``nl`` miss, ``nl + 1 + h`` heavy row ``h``; index ``S^k`` is the
+    miss target of invalid windows) when it takes at most
+    ``direct_index_limit`` bytes, else None (the host searches the
+    sorted keys instead)."""
+    pt = db.postings_tables(width)
+    nl, nh = pt.light_keys.shape[0], pt.heavy_keys.shape[0]
+    pairs = np.concatenate(
+        [pt.light_edges, pt.light_deltas.view(np.int32)], axis=1)
+    light_counts = (pt.light_deltas > 0).sum(1).astype(np.int32)
+    space = db.alphabet.n_states ** db.k
+    rof = None
+    if space * 4 <= direct_index_limit:
+        rof = np.full(space + 1, nl, np.int32)
+        rof[pt.light_keys] = np.arange(nl, dtype=np.int32)
+        rof[pt.heavy_keys] = nl + 1 + np.arange(nh, dtype=np.int32)
+    return PostingsState(
+        pairs=torch.from_numpy(np.ascontiguousarray(pairs)).to(device),
+        heavy_dense=torch.from_numpy(pt.heavy_dense).to(device),
+        light_counts=light_counts, light_keys=pt.light_keys,
+        heavy_keys=pt.heavy_keys, rof=rof)

@@ -1,27 +1,39 @@
-// K4 ambiguous_pass: IUPAC-ambiguous k-mer windows scored and added into
-// the accumulator, IN PLACE.
+// K4 ambiguous_pass and P2 ambiguous_postings: IUPAC-ambiguous k-mer
+// windows scored and added into an accumulator, IN PLACE.  One template,
+// two row sources.
 //
-// Replaces (rappas_tpu/place/engine.py) alt_delta_rows (:907) +
-// ambiguous_contrib (:967) + ambiguous_pass (:1005).  For window w with
-// alternatives alt_rows[win_off[w] .. win_off[w+1]) (delta rows of D,
-// times scale):
+// K4 replaces (rappas_tpu/place/engine.py) alt_delta_rows (:907) +
+// ambiguous_contrib (:967) + ambiguous_pass (:1005): an alternative's row
+// is a row of the direct table D times scale, and window w adds into
+// acc[win_dest[w]] with win_dest = the window's read.
+//
+// P2 replaces alt_delta_rows_postings (:950) + ambiguous_contrib (:967) +
+// the scatter of window contributions into the dense slots (:1433-1438):
+// an alternative's row is heavy_dense[alt_hrows[i]] plus the scatter of
+// its light row's postings (pads carry LIGHT_PAD_EDGE and match no
+// column; a k-mer is light or heavy, never both, so one of the two terms
+// is zero), and window w adds into acc_c[win_dest[w]] with win_dest = the
+// slot of the window's read.
+//
+// For window w with alternatives win_off[w] .. win_off[w+1]:
 //
 //   mean mode: c = log10(sum_alt 10^delta / W)   (W = 1 / win_inv_w)
 //   max mode:  c = max_alt delta
-//   hit = max_alt delta > 0;  acc[win_read[w], e] += hit ? max(c, DELTA_TINY) : 0
+//   hit = max_alt delta > 0
+//   acc[win_dest[w], e] += hit ? max(c, DELTA_TINY) : 0
 //
 // (PlacementProcess.java:1129-1236; a hit is floored at DELTA_TINY so an
 // edge hit only at threshold still joins the candidate list.)  10^x is
 // exp2f(x * log2 10), log10 is log2f(.) / log2 10; the build uses no
 // fast math, so DELTA_TINY = 1e-30 (a normal f32) is never flushed.
 //
-// acc is updated with atomicAdd, because several windows of one read add
-// into one row: the order of those adds varies from run to run and
-// changes the f32 sum in its last bits.
+// The destination is updated with atomicAdd, because several windows of
+// one read add into one row: the order of those adds varies from run to
+// run and changes the f32 sum in its last bits.
 //
-// What bounds it on an H100: bytes (each alternative reads one E-wide row
-// of D); ambiguous windows are rare in real reads, so this kernel is
-// small next to K1/K2.
+// What bounds it on an H100: bytes (each alternative reads one E-wide
+// row; P2 also reads P posting pairs per alternative, the same words for
+// every thread, served by L1).  Ambiguous windows are rare in real reads.
 //
 // Design: one block per window, threads over E, a loop over the window's
 // alternatives (a few: 4 for N); an edge no alternative hits adds
@@ -39,26 +51,54 @@ constexpr float kInvLog2Of10 = 0.301029995663981195f;  // f32(1 / log2(10))
 constexpr float kDeltaTiny = 1e-30f;                   // db.DELTA_TINY
 constexpr float kSumFloor = 1e-30f;
 
+// K4: delta rows of the direct table
+struct DirectRows {
+  const float* D;
+  int E;
+  float scale;
+  const int32_t* alt_rows;
+  __device__ float operator()(int i, int e) const {
+    return __fmul_rn(__ldg(D + static_cast<int64_t>(alt_rows[i]) * E + e),
+                     scale);
+  }
+};
+
+// P2: heavy dense row plus the light row's postings scattered over E
+struct PostingsRows {
+  const float* H;
+  int E;
+  const int32_t* alt_hrows;
+  const int32_t* pairs;
+  int P;
+  const int32_t* alt_lrows;
+  __device__ float operator()(int i, int e) const {
+    float v = __ldg(H + static_cast<int64_t>(alt_hrows[i]) * E + e);
+    const int32_t* row = pairs + static_cast<int64_t>(alt_lrows[i]) * 2 * P;
+    for (int p = 0; p < P; ++p)
+      if (__ldg(row + p) == e)
+        v = __fadd_rn(v, __int_as_float(__ldg(row + P + p)));
+    return v;
+  }
+};
+
+template <class Rows>
 __global__ void __launch_bounds__(kThreads)
-ambiguous_pass_kernel(const float* __restrict__ D, int E, float scale,
-                      const int32_t* __restrict__ alt_rows,
-                      const int32_t* __restrict__ win_off,
-                      const int32_t* __restrict__ win_read,
-                      const float* __restrict__ win_inv_w,
-                      const uint8_t* __restrict__ win_is_mean,
-                      float* __restrict__ acc) {
+ambiguous_kernel(Rows rows, int E, const int32_t* __restrict__ win_off,
+                 const int32_t* __restrict__ win_dest,
+                 const float* __restrict__ win_inv_w,
+                 const uint8_t* __restrict__ win_is_mean,
+                 float* __restrict__ acc) {
   const int w = blockIdx.x;
   const int lo = win_off[w];
   const int hi = win_off[w + 1];
   const float inv_w = win_inv_w[w];
   const bool mean = win_is_mean[w] != 0;
-  float* out = acc + static_cast<int64_t>(win_read[w]) * E;
+  float* out = acc + static_cast<int64_t>(win_dest[w]) * E;
   for (int e = threadIdx.x; e < E; e += kThreads) {
     float sum = 0.f;
     float mx = -INFINITY;
     for (int i = lo; i < hi; ++i) {
-      const float d = __fmul_rn(
-          __ldg(D + static_cast<int64_t>(alt_rows[i]) * E + e), scale);
+      const float d = rows(i, e);
       sum = __fadd_rn(sum, exp2f(__fmul_rn(d, kLog2Of10)));
       mx = fmaxf(mx, d);
     }
@@ -75,7 +115,7 @@ ambiguous_pass_kernel(const float* __restrict__ D, int E, float scale,
 
 extern "C" {
 
-// D: f32[R, E]; alt_rows: int32[n_alt]; win_off: int32[n_win + 1]
+// K4.  D: f32[R, E]; alt_rows: int32[n_alt]; win_off: int32[n_win + 1]
 // ascending; win_read: int32[n_win]; win_inv_w: f32[n_win]; win_is_mean:
 // uint8[n_win]; acc: f32[B, E], updated in place.
 int rp_ambiguous_pass(const float* D, int E, float scale,
@@ -84,9 +124,25 @@ int rp_ambiguous_pass(const float* D, int E, float scale,
                       const uint8_t* win_is_mean, int n_win, float* acc,
                       cudaStream_t stream) {
   if (n_win > 0)
-    ambiguous_pass_kernel<<<n_win, kThreads, 0, stream>>>(
-        D, E, scale, alt_rows, win_off, win_read, win_inv_w, win_is_mean,
-        acc);
+    ambiguous_kernel<<<n_win, kThreads, 0, stream>>>(
+        DirectRows{D, E, scale, alt_rows}, E, win_off, win_read, win_inv_w,
+        win_is_mean, acc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// P2.  H: f32[nh + 1, E] heavy dense table; pairs: int32[nl + 1, 2P];
+// alt_lrows / alt_hrows: int32[n_alt] light row (nl = miss) and heavy row
+// (nh = the zero row) per alternative; win_slot: int32[n_win] slot of the
+// window's read; acc_c: f32[n_slots, E], updated in place.
+int rp_ambiguous_postings(const float* H, int E, const int32_t* pairs, int P,
+                          const int32_t* alt_lrows, const int32_t* alt_hrows,
+                          const int32_t* win_off, const int32_t* win_slot,
+                          const float* win_inv_w, const uint8_t* win_is_mean,
+                          int n_win, float* acc_c, cudaStream_t stream) {
+  if (n_win > 0)
+    ambiguous_kernel<<<n_win, kThreads, 0, stream>>>(
+        PostingsRows{H, E, alt_hrows, pairs, P, alt_lrows}, E, win_off,
+        win_slot, win_inv_w, win_is_mean, acc_c);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,6 +10,8 @@
 //
 // wire row (int32[K + ceil(K/2) + 1]): K scores bit-cast from f32, the K
 // edge ids as two u16 per word (low half first, 65535 = no edge), |L|.
+// When E >= 65535 the ids do not fit u16 and the row is the wide form
+// (int32[2K + 1]): K scores, K int32 edge ids (-1 = no edge), |L|.
 // LWR is not computed here: the host recomputes it from the exact
 // scores (unpack_wire), as the JAX engine does with its wire.
 //
@@ -38,7 +40,7 @@ constexpr unsigned kFull = 0xffffffffu;
 __global__ void __launch_bounds__(kWarps * 32)
 finalize_wire_kernel(const float* __restrict__ acc, int B, int E,
                      const int32_t* __restrict__ lengths, float thr, int k,
-                     int K, int W, int32_t* __restrict__ wire) {
+                     int K, int W, int wide, int32_t* __restrict__ wire) {
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (b >= B) return;  // whole warps leave; only warp-level sync below
@@ -79,14 +81,17 @@ finalize_wire_kernel(const float* __restrict__ acc, int B, int E,
     }
     if (lane == 0) {
       w[j] = __float_as_int(bv);
-      ew[j] = bv > -INFINITY ? static_cast<uint16_t>(bi) : 0xffff;
+      if (wide)
+        w[K + j] = bv > -INFINITY ? bi : -1;
+      else
+        ew[j] = bv > -INFINITY ? static_cast<uint16_t>(bi) : 0xffff;
     }
     pv = bv;
     pi = bi;
   }
   if (lane == 0) {
-    if (K & 1) ew[K] = 0xffff;
-    w[K + (K + 1) / 2] = n;
+    if (!wide && (K & 1)) ew[K] = 0xffff;
+    w[W - 1] = n;
   }
 }
 
@@ -94,15 +99,17 @@ finalize_wire_kernel(const float* __restrict__ acc, int B, int E,
 
 extern "C" {
 
-// acc: f32[B, E]; lengths: int32[B]; K = min(keep_at_most, E) <= E and
-// E < 65535; wire: int32[B, K + ceil(K/2) + 1].
+// acc: f32[B, E]; lengths: int32[B]; K = min(keep_at_most, E) <= E;
+// wire: int32[B, W].  K, W and wide come from the caller's one
+// definition of the wire (kernels.wire_format): W = K + ceil(K/2) + 1,
+// or 2K + 1 when wide (E >= 65535).
 int rp_finalize_wire(const float* acc, int B, int E, const int32_t* lengths,
-                     float thr, int k, int K, int32_t* wire,
+                     float thr, int k, int K, int W, int wide, int32_t* wire,
                      cudaStream_t stream) {
-  const int W = K + (K + 1) / 2 + 1;
   if (B > 0)
     finalize_wire_kernel<<<(B + kWarps - 1) / kWarps, kWarps * 32, 0,
-                           stream>>>(acc, B, E, lengths, thr, k, K, W, wire);
+                           stream>>>(acc, B, E, lengths, thr, k, K, W, wide,
+                                     wire);
   return static_cast<int>(cudaGetLastError());
 }
 

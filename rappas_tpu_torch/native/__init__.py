@@ -6,7 +6,10 @@ reference's equivalents are its Java inner loops):
 * ``ingest.cpp`` -- FASTA block parse, md5 dedup keys, padded matrix
   fill and the md5 -> first-occurrence map;
 * ``jplacefmt.cpp`` -- jplace ``"p"`` rows, whole placement lines and
-  TSV report lines, formatted per batch.
+  TSV report lines, formatted per batch;
+* ``keyprobe.cpp`` -- fused rolling-hash k-mer indexing and bucketed
+  sorted-key probe (the postings layout's row lookup when the k-mer
+  space is too big for a direct index: protein k >= 8).
 
 Each library is built at first use into ``rappas_tpu_torch/_build/``
 (listed in ``.gitignore``), keyed by the hash of its source; no network
@@ -202,6 +205,57 @@ def format_placement_rows(nodes: np.ndarray, scores: np.ndarray,
         if written >= 0:
             return buf.raw[:written], out_off
         cap *= 2
+
+
+# ------------------------------------------------------------------ #
+# fused k-mer index + key probe (protein big-key-space host path)
+# ------------------------------------------------------------------ #
+
+#: calls of :func:`probe_rows` (a run can show which row lookup it took)
+PROBE_CALLS = {"probe_rows": 0}
+
+
+def _kp_lib() -> ctypes.CDLL:
+    lib = load("keyprobe")
+    if not getattr(lib, "_kp_configured", False):
+        c = ctypes
+        lib.kp_rows.restype = None
+        lib.kp_rows.argtypes = [
+            c.c_void_p, c.c_void_p, c.c_longlong, c.c_longlong,
+            c.c_int, c.c_int, c.c_void_p, c.c_void_p, c.c_longlong,
+            c.c_void_p, c.c_int, c.c_int, c.c_void_p, c.c_int]
+        lib._kp_configured = True
+    return lib
+
+
+def probe_rows(codes: np.ndarray, lengths: np.ndarray, k: int,
+               n_states: int, keys: np.ndarray, vals: np.ndarray,
+               lo: np.ndarray, shift: int, miss: int,
+               n_threads: int = 0) -> np.ndarray:
+    """Fused rolling-hash k-mer indexing + bucketed key probe: one
+    native sweep replaces the numpy Horner + HostKeyIndex passes.
+    ``keys``/``vals``/``lo``/``shift`` follow the HostKeyIndex layout;
+    returns int32 [B, Q] encoded rows (``miss`` for absent/ambiguous/
+    past-length windows)."""
+    lib = _kp_lib()
+    codes = np.ascontiguousarray(codes, np.int8)
+    lengths = np.ascontiguousarray(lengths, np.int32)
+    keys = np.ascontiguousarray(keys, np.int64)
+    vals = np.ascontiguousarray(vals, np.int32)
+    lo = np.ascontiguousarray(lo, np.int32)
+    B, L = codes.shape
+    Q = L - k + 1
+    out = np.empty((B, max(Q, 0)), np.int32)
+    if Q <= 0:
+        return out
+    if n_threads <= 0:
+        n_threads = min(4, os.cpu_count() or 1)
+    lib.kp_rows(codes.ctypes.data, lengths.ctypes.data, B, L, k,
+                n_states, keys.ctypes.data, vals.ctypes.data,
+                keys.shape[0], lo.ctypes.data, shift, miss,
+                out.ctypes.data, n_threads)
+    PROBE_CALLS["probe_rows"] += 1
+    return out
 
 
 # ------------------------------------------------------------------ #

@@ -1,15 +1,18 @@
 """Placement engine on PyTorch: batched k-mer scoring on the device.
 
-Port of ``rappas_tpu/place/engine.py`` for the **direct** table layout.
-The phylo-kmer table is a dense delta matrix ``D[S^k + 1, E]`` on the
-device (``E`` = per-node score slots of the original tree, last row
-all-zero = miss target), and a batch of reads is scored at once:
+Port of ``rappas_tpu/place/engine.py`` for the **direct** and
+**postings** table layouts.
+
+Direct (small trees): the phylo-kmer table is a dense delta matrix
+``D[S^k + 1, E]`` on the device (``E`` = per-node score slots of the
+original tree, last row all-zero = miss target), and a batch of reads is
+scored at once:
 
     ``S[b, e] = Q_b * thr + sum_q D[kmer(b, q), e]``
 
 (``PlacementProcess.java:726-734``), then top-K and ``|L|`` per read;
 IUPAC-ambiguous windows add their mean / max contributions
-(``PlacementProcess.java:1129-1236``).  The device work runs in the four
+(``PlacementProcess.java:1129-1236``).  The device work runs in four
 CUDA kernels of :mod:`rappas_tpu_torch.place.kernels`:
 
 * K1 ``accumulate_packed`` -- reads with no ambiguous or invalid code
@@ -21,30 +24,46 @@ CUDA kernels of :mod:`rappas_tpu_torch.place.kernels`:
 K1 and K2 each write their own rows of one ``[B, E]`` accumulator, so a
 batch with a few ambiguous reads still sends the rest packed (the JAX
 engine packs a batch only when no read in it needs codes; the results
-are the same).  On ``device="cpu"`` the wrappers compute their plain
-PyTorch versions.
+are the same).
+
+Postings (large trees, protein; ``convert.postings_device_tables``):
+k-mers with at most ``postings_width`` postings live in one light table
+``pairs[nl + 1, 2P]`` (edge ids, then bit-cast deltas), the others in a
+dense ``heavy_dense[nh + 1, E]``.  The host maps every window to an
+encoded row (a direct index, or the native key probe for big k-mer
+spaces), gives each read with dense content (heavy hits, ambiguity
+windows) one slot, and left-packs each read's light hits.  Then:
+
+* P1 ``dense_side`` -- heavy hit rows summed per slot into ``acc_c``;
+* P2 ``ambiguous_postings_`` -- ambiguity windows added into ``acc_c``;
+* P3 ``finalize_postings_wire`` -- per read, sort and sum the light
+  postings, join the slot's dense row, top-K and ``|L|`` into the wire.
+
+The wire carries edge ids as u16 below 65535 edge slots and as int32 at
+or above (``kernels.WIDE_EDGES``).  On ``device="cpu"`` the wrappers
+compute their plain PyTorch versions.
 
 Host side (copied from the JAX engine): the ASCII -> code table, the
-ambiguity expansion and its cycling order, 2-bit packing, the table
-layout rule and the wire decode.  Per batch the host inputs travel in
-ONE pinned staging buffer with one H2D copy on the engine's stream, and
-the result comes back as one pinned copy of the wire words; ``result()``
-waits on the event recorded after it.
+ambiguity expansion and its cycling order, 2-bit packing, the k-mer
+lookups, the table layout rule and the wire decode.  Per batch the host
+inputs travel in ONE pinned staging buffer with one H2D copy on the
+engine's stream, and the result comes back as one pinned copy of the
+wire words; ``result()`` waits on the event recorded after it.
 
-Not ported yet (they raise ``NotImplementedError``): the compact and
-postings layouts, ``precision="u16"``, and ``E >= 65535`` edge slots
-(the u16 wire) -- ROADMAP queue 1.
+Not ported yet (they raise ``NotImplementedError``): the compact layout
+and ``precision="u16"`` -- ROADMAP queue 1.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from rappas_tpu_torch.convert import device_tables
+from rappas_tpu_torch.convert import device_tables, postings_device_tables
 from rappas_tpu_torch.db import PhyloKmerDB
 from rappas_tpu_torch.place import kernels
 
@@ -54,6 +73,7 @@ AMBIG_CODE = -1   # IUPAC ambiguity position
 _TORCH_DTYPES = {np.dtype(np.int8): torch.int8,
                  np.dtype(np.uint8): torch.uint8,
                  np.dtype(np.int32): torch.int32,
+                 np.dtype(np.int64): torch.int64,
                  np.dtype(np.float32): torch.float32}
 
 
@@ -65,17 +85,27 @@ class BatchResult(NamedTuple):
     n_matched: np.ndarray   # int32[B] = |L| per read
 
 
-def unpack_wire(words, K: int) -> BatchResult:
-    """Host-side decode of the wire words (``kernels.pack_wire``); LWR
-    recomputed with the same f32 FORMULA ``kernels.finalize`` uses (exp2
-    of the max-shifted scores, normalized; host exp2 vs device exp2 can
-    differ 1 ulp)."""
+def unpack_wire(words, K: int, wide: bool = False) -> BatchResult:
+    """Host-side decode of the wire words (``kernels.pack_wire``, the
+    wide form when ``wide``); LWR recomputed with the same f32 FORMULA
+    ``kernels.finalize`` uses (exp2 of the max-shifted scores,
+    normalized; host exp2 vs device exp2 can differ 1 ulp).  A row whose
+    ``|L|`` is negative is a read P3 could not sort (its plan gave it
+    too little room): that raises."""
     words = np.asarray(words)
-    K2 = (K + 1) // 2
     ts = words[:, :K].copy().view(np.float32)
-    edges = words[:, K:K + K2].copy().view(np.uint16)[:, :K]
-    nm = words[:, K + K2]
-    te = np.where(edges == 65535, -1, edges.astype(np.int32))
+    if wide:
+        te = words[:, K:2 * K].copy()
+        nm = words[:, 2 * K]
+    else:
+        K2 = (K + 1) // 2
+        edges = words[:, K:K + K2].copy().view(np.uint16)[:, :K]
+        nm = words[:, K + K2]
+        te = np.where(edges == 65535, -1, edges.astype(np.int32))
+    if nm.size and int(nm.min()) < 0:
+        raise RuntimeError(f"P3 could not sort read "
+                           f"{int(np.argmin(nm))}: its postings exceed "
+                           "the room its plan gave it")
     valid = te >= 0
     # -inf - -inf on fully-unplaced rows is nan inside np.where's
     # eagerly-evaluated branch; the mask discards it
@@ -92,17 +122,18 @@ class PendingBatch:
     while the D2H copy may be in flight) and the CUDA event recorded after
     that copy, or a finished :class:`BatchResult`."""
 
-    def __init__(self, out, wire: int = 0, event=None):
+    def __init__(self, out, wire: int = 0, event=None, wide: bool = False):
         self._out = out
         self._wire = wire
         self._event = event
+        self._wide = wide
 
     def result(self) -> BatchResult:
         if isinstance(self._out, BatchResult):
             return self._out
         if self._event is not None:
             self._event.synchronize()
-        return unpack_wire(self._out.numpy(), self._wire)
+        return unpack_wire(self._out.numpy(), self._wire, self._wide)
 
 
 def pack_reads(codes: np.ndarray) -> np.ndarray:
@@ -130,12 +161,127 @@ def window_offsets(alt_win: np.ndarray, n_win: int) -> np.ndarray:
     return off
 
 
+def host_kmer_indices(codes: np.ndarray, lengths: np.ndarray, k: int,
+                      n_states: int) -> np.ndarray:
+    """[B, Q] k-mer indices on host (-1 = window contains ambiguity or
+    padding).  int32 when the index space fits; >31-bit spaces run the
+    Horner recurrence as two int32 halves combined once in int64."""
+    B, L = codes.shape
+    Q = L - k + 1
+    amb = np.zeros((B, Q), bool)
+    for i in range(k):
+        amb |= codes[:, i:i + Q] < 0
+    amb |= np.arange(Q)[None, :] > (lengths[:, None] - k)
+
+    def horner(lo_pos, hi_pos, dtype):
+        acc = np.zeros((B, Q), dtype)
+        for i in range(lo_pos, hi_pos):
+            acc *= n_states
+            acc += np.maximum(codes[:, i:i + Q], 0).astype(dtype)
+        return acc
+
+    if n_states ** k <= 2 ** 31 - 1:
+        return np.where(amb, np.int32(-1), horner(0, k, np.int32))
+    k2 = k // 2
+    if n_states ** max(k2, k - k2) <= 2 ** 31 - 1:
+        hi = horner(0, k - k2, np.int32).astype(np.int64)
+        lo = horner(k - k2, k, np.int32).astype(np.int64)
+        idx = hi * np.int64(n_states ** k2) + lo
+    else:       # neither half fits (amino k >= 16): plain int64 pass
+        idx = horner(0, k, np.int64)
+    return np.where(amb, np.int64(-1), idx)
+
+
+def searchsorted_rows(keys: np.ndarray, kidx: np.ndarray) -> np.ndarray:
+    """Sorted-key lookup: hit -> position, miss -> len(keys) (the
+    trailing all-zero pad row)."""
+    n = keys.shape[0]
+    if n == 0:
+        return np.zeros(kidx.shape, np.int32)
+    pos = np.searchsorted(keys, kidx)
+    hit = (pos < n) & (keys[np.clip(pos, 0, n - 1)] == kidx)
+    return np.where(hit, pos, n).astype(np.int32)
+
+
+class HostKeyIndex:
+    """Bucketed sorted-key lookup for BIG key sets.
+
+    A one-time index maps the top key bits to the covering range of the
+    sorted key array (``lo[b] .. lo[b+1]``); per batch each query then
+    linear-scans its bucket (avg < 1 key with ``2^22`` buckets) with
+    vectorized gathers over the still-unresolved subset.  Queries landing
+    in rare oversized buckets (> ``scan_cap`` entries) fall back to one
+    classic searchsorted over just that subset, so worst-case cost is
+    never worse than the plain form.
+
+    Semantics identical to :func:`searchsorted_rows` (miss -> ``n``,
+    including the ``-1`` padding sentinel of ambiguous windows).
+    """
+
+    def __init__(self, keys: np.ndarray, n_buckets_log2: int = 22,
+                 scan_cap: int = 16):
+        self.keys = keys
+        self.n = int(keys.shape[0])
+        self.scan_cap = scan_cap
+        kmax = int(keys[-1]) if self.n else 0
+        self.shift = max(0, kmax.bit_length() - n_buckets_log2)
+        nb = (kmax >> self.shift) + 2 if self.n else 2
+        edges = (np.arange(nb, dtype=np.int64) << self.shift)
+        # int32 bucket table: halves the random-access footprint of the
+        # per-query probe
+        self.lo = np.searchsorted(keys, edges).astype(np.int32)
+
+    def __call__(self, kidx: np.ndarray) -> np.ndarray:
+        n = self.n
+        flat = kidx.ravel()
+        out = np.full(flat.shape, n, np.int32)
+        if n == 0:
+            return out.reshape(kidx.shape)
+        qi = np.flatnonzero((flat >= 0) & (flat <= int(self.keys[-1])))
+        q = flat[qi]
+        b = (q.astype(np.int64) >> self.shift)
+        lo = self.lo[b]
+        hi = self.lo[b + 1]
+        for _ in range(self.scan_cap):
+            active = lo < hi
+            if not active.any():
+                break
+            qi, q, lo, hi = qi[active], q[active], lo[active], hi[active]
+            kv = self.keys[lo]
+            is_hit = kv == q
+            out[qi[is_hit]] = lo[is_hit]
+            keep = ~(is_hit | (kv > q))   # sorted: kv > q => q absent
+            qi, q, lo, hi = qi[keep], q[keep], lo[keep] + 1, hi[keep]
+        else:
+            if qi.size:   # oversized buckets: classic search, subset only
+                pos = np.searchsorted(self.keys, q)
+                is_hit = (pos < n) & (self.keys[np.clip(pos, 0, n - 1)]
+                                      == q)
+                out[qi[is_hit]] = pos[is_hit]
+        return out.reshape(kidx.shape)
+
+
+#: keys below this size keep plain searchsorted (index build not worth it)
+_KEY_INDEX_MIN = 1 << 16
+
+
+def make_key_lookup(keys: np.ndarray):
+    """Callable ``kidx -> rows`` with :func:`searchsorted_rows` semantics,
+    bucket-indexed when the key set is big enough to pay for it."""
+    if keys.shape[0] >= _KEY_INDEX_MIN:
+        return HostKeyIndex(keys)
+    return functools.partial(searchsorted_rows, keys)
+
+
 class PlacementEngine:
     #: byte budget for the direct-indexed dense table (above it the JAX
     #: engine takes the compact table).  PLACEHOLDER: the JAX engine's
     #: value for a 16 GB TPU v5e, kept so that ``table="auto"`` resolves
     #: as it does there, until H100 measurements set it.
     DIRECT_BYTE_LIMIT = 8 << 30
+    #: byte budget for the postings layout's host k-mer -> row index
+    #: (int32[S^k + 1]); above it the host searches the sorted keys
+    DIRECT_INDEX_LIMIT = 1 << 30
     #: PLACEHOLDER, as above: the JAX engine's fast-gather zone edge on
     #: the v5e (``resolve_table`` picks direct below twice this size).
     LIGHT_SPLIT_BYTES = 96 << 20
@@ -162,19 +308,13 @@ class PlacementEngine:
                 "item 1)")
         table = self.resolve_table(db, table, precision,
                                    self.DIRECT_BYTE_LIMIT, postings_width)
-        if table != "direct":
-            item = {"compact": 4, "postings": 5}.get(table)
-            if item is None:
+        if table not in ("direct", "postings"):
+            if table != "compact":
                 raise ValueError(f"table must be auto/direct/compact/"
                                  f"postings, got {table!r}")
             raise NotImplementedError(
-                f"table={table!r} is not yet ported (ROADMAP queue 1 "
-                f"item {item})")
-        if db.n_edge_slots >= 65535:
-            raise NotImplementedError(
-                f"{db.n_edge_slots} edge slots do not fit the u16 wire; "
-                "the four-array result path is not yet ported (ROADMAP "
-                "queue 1 item 5)")
+                "table='compact' is not yet ported (ROADMAP queue 1 "
+                "item 4)")
         self.db = db
         self.k = db.k
         self.alphabet = db.alphabet
@@ -183,10 +323,24 @@ class PlacementEngine:
         self.ambiguities_with_max = ambiguities_with_max
         self.precision = precision
         self.table = table
-        self.D, scale, thr = device_tables(db, self.device)
-        self.scale = float(scale)
-        self.thr = float(thr)
-        self.n_rows = self.D.shape[0]
+        self.n_edges = db.n_edge_slots
+        #: the wire's K and whether it carries int32 edge ids
+        self.wire_k, self.wide, _ = kernels.wire_format(self.n_edges,
+                                                        keep_at_most)
+        self.thr = float(np.float32(db.thr_log10))
+        if table == "direct":
+            self.D, scale, _ = device_tables(db, self.device)
+            self.scale = float(scale)
+            self.n_rows = self.D.shape[0]
+        else:
+            ps = postings_device_tables(db, postings_width, self.device,
+                                        self.DIRECT_INDEX_LIMIT)
+            self.pairs, self.heavy_dense = ps.pairs, ps.heavy_dense
+            self._light_counts = ps.light_counts
+            self._light_keys_np = ps.light_keys
+            self._heavy_keys_np = ps.heavy_keys
+            self._rof_np = ps.rof
+            self._nl = ps.light_keys.shape[0]
         self._init_host_codec()
         self._stream = None
         if self.device.type == "cuda":
@@ -282,7 +436,7 @@ class PlacementEngine:
         B, L = matrix.shape
         if L < self.k:
             # no window fits: every read is unplaced
-            K = min(self.keep_at_most, self.db.n_edge_slots)
+            K = self.wire_k
             return PendingBatch(BatchResult(
                 np.full((B, K), -1, np.int32),
                 np.full((B, K), -np.inf, np.float32),
@@ -290,6 +444,8 @@ class PlacementEngine:
                 np.zeros(B, np.int32)))
         lengths = np.ascontiguousarray(lengths, np.int32)
         codes = self.encode_batch(matrix)
+        if self.table == "postings":
+            return self._score_postings(codes, matrix, lengths)
         host = {"lengths": lengths}
         # 2-bit packing fabricates k-mers from negative codes (they pack
         # as 0 == 'A'), so only reads clean inside their length go packed
@@ -324,9 +480,7 @@ class PlacementEngine:
             host["win_inv_w"] = win_inv_w.astype(np.float32)
             host["win_is_mean"] = is_mean.astype(np.uint8)
 
-        ctx = (torch.cuda.stream(self._stream) if self._stream is not None
-               else contextlib.nullcontext())
-        with ctx:
+        with self._on_stream():
             dev = self._stage(host)
             acc = torch.empty((B, self.D.shape[1]), dtype=torch.float32,
                               device=self.device)
@@ -346,15 +500,23 @@ class PlacementEngine:
                     dev["win_is_mean"])
             wire = kernels.finalize_wire(acc, dev["lengths"], self.thr,
                                          self.k, self.keep_at_most)
-            K = min(self.keep_at_most, self.D.shape[1])
-            if self._stream is None:
-                return PendingBatch(wire, wire=K)
-            out = torch.empty(wire.shape, dtype=torch.int32,
-                              pin_memory=True)
-            out.copy_(wire, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self._stream)
-            return PendingBatch(out, wire=K, event=done)
+            return self._fetch(wire)
+
+    def _on_stream(self):
+        return (torch.cuda.stream(self._stream) if self._stream is not None
+                else contextlib.nullcontext())
+
+    def _fetch(self, wire: torch.Tensor) -> PendingBatch:
+        """Start the one D2H copy of a batch's wire words (pinned, on the
+        engine's stream) and return its handle."""
+        if self._stream is None:
+            return PendingBatch(wire, wire=self.wire_k, wide=self.wide)
+        out = torch.empty(wire.shape, dtype=torch.int32, pin_memory=True)
+        out.copy_(wire, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(self._stream)
+        return PendingBatch(out, wire=self.wire_k, event=done,
+                            wide=self.wide)
 
     def _stage(self, arrays: dict) -> dict:
         """Host arrays -> device tensors of the same dtype and shape.  On
@@ -492,3 +654,161 @@ class PlacementEngine:
                 np.concatenate(win_read_parts),
                 np.concatenate(win_inv_w_parts),
                 np.full(n_win, is_mean, bool))
+
+    # -------------------------------------------------------------- #
+    # postings layout (large trees, protein): the host maps every window
+    # to an encoded row once, gathers the dense sources into slots and
+    # left-packs the light hits; the device runs P1, P2 and P3
+    def _score_postings(self, codes: np.ndarray, matrix: np.ndarray,
+                        lengths: np.ndarray) -> PendingBatch:
+        host, plan = self.postings_inputs(codes, matrix, lengths)
+        with self._on_stream():
+            dev = self._stage(host)
+            if "scratch_off" in dev:     # P3's plan, staged with the batch
+                plan = plan._replace(scratch_off=dev["scratch_off"])
+            acc_c = kernels.dense_side(self.heavy_dense, dev["hrows"],
+                                       dev["hoff"])
+            if "win_off" in dev:
+                kernels.ambiguous_postings_(
+                    acc_c, self.heavy_dense, self.pairs, dev["alt_lrows"],
+                    dev["alt_hrows"], dev["win_off"], dev["win_slot"],
+                    dev["win_inv_w"], dev["win_is_mean"])
+            wire = kernels.finalize_postings_wire(
+                self.pairs, dev["lrows"], acc_c, dev["slot_of"],
+                dev["lengths"], self.thr, self.k, self.keep_at_most, plan)
+            return self._fetch(wire)
+
+    def postings_inputs(self, codes: np.ndarray, matrix: np.ndarray,
+                        lengths: np.ndarray):
+        """The host arrays of one postings batch and P3's plan
+        (``rappas_tpu/place/engine.py:1391-1500``, one light table):
+
+        * ``lengths``, ``slot_of`` int32[B]: the read's dense slot, -1
+          for a read with no dense content;
+        * ``hrows`` int32[n_h], ``hoff`` int32[n_slots + 1]: heavy hit
+          rows, grouped by slot (``np.nonzero`` is row-major, so hits
+          come grouped by read, and slots ascend with reads);
+        * with ambiguity windows: ``alt_lrows``/``alt_hrows`` int32
+          [n_alt] (light row or ``nl``, heavy row or ``nh``),
+          ``win_off`` int32[n_win + 1], ``win_slot``, ``win_inv_w``,
+          ``win_is_mean``;
+        * ``lrows`` int32[B, W]: each read's light hit rows, left-packed
+          in window order (``nl`` pads), W the batch's most hits;
+        * ``scratch_off`` int64[B + 1] when a read's postings do not fit
+          one block's shared memory (``kernels.postings_plan``)."""
+        B = codes.shape[0]
+        nl = self._nl
+        rof = self._rows_from_codes(codes, lengths)
+
+        hb, hq = np.nonzero(rof > nl)
+        amb = (self._expand_ambiguities_host(codes, matrix, lengths)
+               if self.treat_ambiguities else None)
+        win_read = amb[2] if amb is not None else np.zeros(0, np.int32)
+        uniq_reads = np.unique(np.concatenate([hb, win_read]))
+        slot_of = np.full(B, -1, np.int32)
+        slot_of[uniq_reads] = np.arange(uniq_reads.size, dtype=np.int32)
+        hoff = np.zeros(uniq_reads.size + 1, np.int32)
+        np.cumsum(np.bincount(slot_of[hb], minlength=uniq_reads.size),
+                  out=hoff[1:])
+        host = {"lengths": lengths, "slot_of": slot_of,
+                "hrows": (rof[hb, hq] - (nl + 1)).astype(np.int32),
+                "hoff": hoff}
+        if amb is not None:
+            kidx, alt_win, win_read, win_inv_w, is_mean = amb
+            host["alt_lrows"], host["alt_hrows"] = self._map_alt_rows(kidx)
+            host["win_off"] = window_offsets(alt_win, win_read.shape[0])
+            host["win_slot"] = slot_of[win_read]
+            host["win_inv_w"] = win_inv_w.astype(np.float32)
+            host["win_is_mean"] = is_mean.astype(np.uint8)
+
+        # stable left-pack of the light hit windows; the dropped slots are
+        # misses, whose pad postings never reach a sum
+        hit = rof < nl
+        counts = hit.sum(axis=1)
+        W = int(counts.max()) if counts.size else 0
+        lrows = np.full((B, W), nl, np.int32)
+        if W:
+            bb, qq = np.nonzero(hit)
+            pos = np.cumsum(hit, axis=1) - 1
+            lrows[bb, pos[bb, qq]] = rof[bb, qq]
+        host["lrows"] = lrows
+        plan = kernels.postings_plan(
+            self._light_counts[lrows].sum(axis=1))
+        if plan.scratch_off is not None:
+            host["scratch_off"] = plan.scratch_off.numpy()
+        return host, plan
+
+    def _host_rows(self, kidx: np.ndarray) -> np.ndarray:
+        """Encoded row per window: ``r < nl`` light row, ``nl`` miss,
+        ``nl + 1 + h`` heavy row ``h`` (invalid windows -> miss)."""
+        if self._rof_np is not None:
+            space = self.alphabet.n_states ** self.k
+            return self._rof_np[np.where(kidx >= 0, kidx, space)]
+        # big key space (protein k >= 8): ONE combined bucketed search
+        # over all keys with encoded-row values
+        keys, vals = self._comb_lookup_arrays
+        pos = self._comb_lookup(kidx)                       # miss -> n
+        n = keys.shape[0]
+        return np.where(pos < n, vals[np.minimum(pos, n - 1)],
+                        np.int32(self._nl))
+
+    @functools.cached_property
+    def _comb_lookup_arrays(self):
+        """(sorted all-keys array, encoded-row values) for the combined
+        lookup (light and heavy keys are disjoint by construction)."""
+        nl = self._nl
+        nh = self._heavy_keys_np.shape[0]
+        comb = np.concatenate([self._light_keys_np,
+                               self._heavy_keys_np])
+        enc = np.concatenate([np.arange(nl, dtype=np.int32),
+                              nl + 1 + np.arange(nh, dtype=np.int32)])
+        srt = np.argsort(comb, kind="stable")
+        return comb[srt], enc[srt]
+
+    @functools.cached_property
+    def _comb_lookup(self):
+        return make_key_lookup(self._comb_lookup_arrays[0])
+
+    @functools.cached_property
+    def _native_probe(self):
+        """Fused native rolling-hash + key-probe callable
+        ``(codes, lengths) -> rof`` for the big-key-space lookup, or None
+        (small key sets, or no C++ toolchain: the numpy passes give the
+        same rows)."""
+        try:
+            from rappas_tpu_torch.native import probe_rows
+        except Exception:
+            return None
+        hki = self._comb_lookup
+        if not isinstance(hki, HostKeyIndex):
+            return None     # small key set: numpy path is already fast
+        keys, vals = self._comb_lookup_arrays
+        k, S, nl = self.k, self.alphabet.n_states, self._nl
+        lo, shift = hki.lo, hki.shift
+
+        def run(codes, lengths):
+            return probe_rows(codes, lengths, k, S, keys, vals, lo,
+                              shift, nl)
+        try:        # force the g++ build now; fall back on failure
+            run(np.zeros((1, k), np.int8), np.full(1, k, np.int32))
+        except Exception:
+            return None
+        return run
+
+    def _rows_from_codes(self, codes: np.ndarray,
+                         lengths: np.ndarray) -> np.ndarray:
+        """Encoded row per window straight from state codes: direct
+        index, fused native probe, or the numpy two-pass lookup."""
+        probe = self._native_probe if self._rof_np is None else None
+        if probe is not None:
+            return probe(codes, lengths)
+        return self._host_rows(host_kmer_indices(
+            codes, lengths, self.k, self.alphabet.n_states))
+
+    def _map_alt_rows(self, kidx: np.ndarray):
+        """Raw alternative k-mer indices -> (light rows, heavy rows):
+        ``nl`` / ``nh`` where the alternative is not in that table."""
+        rof = self._host_rows(kidx)
+        nl, nh = self._nl, self._heavy_keys_np.shape[0]
+        return (np.minimum(rof, nl).astype(np.int32),
+                np.where(rof > nl, rof - (nl + 1), nh).astype(np.int32))

@@ -1,28 +1,34 @@
-"""Device kernels of ``-p p`` placement on a direct table.
+"""Device kernels of ``-p p`` placement on the direct and postings tables.
 
 Two parts:
 
 * the **plain PyTorch versions**, under the names and with the semantics
-  of the jitted functions of ``rappas_tpu/place/engine.py``
-  (:func:`kmer_rows_packed`, :func:`kmer_rows`, :func:`accumulate`,
+  of the jitted functions of ``rappas_tpu/place/engine.py`` (direct:
+  :func:`kmer_rows_packed`, :func:`kmer_rows`, :func:`accumulate`,
   :func:`finalize`, :func:`pack_wire`, :func:`alt_delta_rows`,
-  :func:`ambiguous_contrib`, :func:`ambiguous_pass`).  They run on any
-  device; the tests hold them against the JAX functions, and
+  :func:`ambiguous_contrib`, :func:`ambiguous_pass`; postings:
+  :func:`gather_rows`, :func:`scatter_slots`, :func:`light_gather`,
+  :func:`alt_delta_rows_postings`, :func:`finalize_postings`).  They run
+  on any device; the tests hold them against the JAX functions, and
   ``chip_smoke.py`` holds the kernels against them on the card;
-* the **wrappers** of the four CUDA kernels of ``csrc/``
-  (:func:`accumulate_packed`, :func:`accumulate_codes`,
-  :func:`finalize_wire`, :func:`ambiguous_pass_`).  A wrapper given CPU
-  tensors computes its plain composition; given CUDA tensors it launches
-  its kernel on the current stream or raises -- it never falls back.
-  Each launch adds one to :data:`LAUNCHES`.
+* the **wrappers** of the seven CUDA kernels of ``csrc/`` (direct:
+  :func:`accumulate_packed`, :func:`accumulate_codes`,
+  :func:`finalize_wire`, :func:`ambiguous_pass_`; postings:
+  :func:`dense_side`, :func:`ambiguous_postings_`,
+  :func:`finalize_postings_wire`).  A wrapper given CPU tensors computes
+  its plain composition; given CUDA tensors it launches its kernel on the
+  current stream or raises -- it never falls back.  Each launch adds one
+  to :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from rappas_tpu_torch.db import DELTA_TINY
+from rappas_tpu_torch.db import DELTA_TINY, LIGHT_PAD_EDGE
 
 LOG2_10 = float(np.float32(np.log2(10.0)))
 INV_LOG2_10 = float(np.float32(1.0 / np.log2(10.0)))
@@ -30,7 +36,12 @@ INV_LOG2_10 = float(np.float32(1.0 / np.log2(10.0)))
 #: kernel launches, one count per kernel, added where the wrapper
 #: launches it (plain-version calls on CPU tensors do not count)
 LAUNCHES = {"accumulate_packed": 0, "accumulate_codes": 0,
-            "finalize_wire": 0, "ambiguous_pass": 0}
+            "finalize_wire": 0, "ambiguous_pass": 0, "dense_side": 0,
+            "ambiguous_postings": 0, "finalize_postings_wire": 0}
+
+#: wire rows carry edge ids as u16 below this many edge slots, as int32
+#: at or above it (65535 is the u16 "no edge" mark)
+WIDE_EDGES = 65535
 
 
 def reset_launches() -> None:
@@ -104,6 +115,13 @@ def finalize(acc: torch.Tensor, lengths: torch.Tensor, thr: torch.Tensor,
     vals, idx = torch.sort(masked, dim=1, descending=True, stable=True)
     K = min(keep_at_most, E)
     top_scores, top_idx = vals[:, :K], idx[:, :K]
+    return _top_out(top_scores, top_idx, n_matched)
+
+
+def _top_out(top_scores, top_idx, n_matched):
+    """(edges, scores, LWR, |L|) from the top-K scores: slots with a
+    -inf score hold edge -1; LWR over the valid slots with the max
+    shift."""
     valid = torch.isfinite(top_scores)
     shift = top_scores[:, :1]
     w = torch.where(valid, torch.exp2((top_scores - shift) * LOG2_10),
@@ -111,15 +129,21 @@ def finalize(acc: torch.Tensor, lengths: torch.Tensor, thr: torch.Tensor,
     lwr = w / torch.clamp_min(w.sum(dim=1, keepdim=True), 1e-30)
     top_edges = torch.where(valid, top_idx,
                             torch.full_like(top_idx, -1)).to(torch.int32)
-    return top_edges, top_scores, lwr, n_matched
+    return top_edges, top_scores, lwr, n_matched.to(torch.int32)
 
 
 def pack_wire(te: torch.Tensor, ts: torch.Tensor, lwr: torch.Tensor,
-              nm: torch.Tensor) -> torch.Tensor:
+              nm: torch.Tensor, wide: bool = False) -> torch.Tensor:
     """One int32 [B, K + ceil(K/2) + 1] array per batch: scores bit-cast
     from f32, edge ids two u16 per word (low half first, 65535 = no
-    edge), |L|.  LWR is dropped; the host recomputes it."""
+    edge), |L|.  LWR is dropped; the host recomputes it.  ``wide`` (for
+    ``E >= WIDE_EDGES`` edge slots, whose ids do not fit u16): int32
+    [B, 2K + 1], the K edge ids as int32 (-1 = no edge)."""
     B, K = te.shape
+    if wide:
+        return torch.cat([ts.contiguous().view(torch.int32),
+                          te.to(torch.int32), nm.to(torch.int32)[:, None]],
+                         dim=1)
     edges = torch.where(te < 0, torch.full_like(te, 65535),
                         te).to(torch.int64)
     if K % 2:
@@ -165,9 +189,146 @@ def ambiguous_pass(rows: torch.Tensor, alt_win: torch.Tensor,
                    win_read: torch.Tensor, win_inv_w: torch.Tensor,
                    win_is_mean: torch.Tensor,
                    acc: torch.Tensor) -> torch.Tensor:
-    """``acc`` plus the window contributions summed by read."""
+    """``acc`` plus the window contributions summed by read (by slot in
+    the postings layout: ``win_read`` is then the read's slot)."""
     contrib = ambiguous_contrib(rows, alt_win, win_inv_w, win_is_mean)
     return acc + torch.zeros_like(acc).index_add_(0, win_read, contrib)
+
+
+# ---- postings layout (large trees) ------------------------------------ #
+
+def gather_rows(H: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Plain row gather: ``H[rows]``."""
+    return H.index_select(0, rows)
+
+
+def scatter_slots(rows: torch.Tensor, slots: torch.Tensor,
+                  n_slots: int) -> torch.Tensor:
+    """The dense side's slot accumulator ``acc_c[n_slots, E]``: row
+    ``rows[i]`` added into slot ``slots[i]`` (the scatter of
+    ``finalize_postings_local`` :773-780, without its pad row)."""
+    return rows.new_zeros((n_slots, rows.shape[1])).index_add_(
+        0, slots, rows)
+
+
+def light_gather(pairs: torch.Tensor, lrows: torch.Tensor) -> torch.Tensor:
+    """Row gather from the (single-part) light table: ``pairs[lrows]``."""
+    return pairs.index_select(0, lrows.reshape(-1)).reshape(
+        *lrows.shape, pairs.shape[1])
+
+
+def alt_delta_rows_postings(pairs: torch.Tensor, heavy_dense: torch.Tensor,
+                            alt_lrows: torch.Tensor,
+                            alt_hrows: torch.Tensor) -> torch.Tensor:
+    """[n_alt, E] f32 delta rows of the ambiguity alternatives: the heavy
+    dense row plus the scattered light postings (misses take the heavy
+    table's zero row and the light table's all-pad row; pad slots carry
+    ``LIGHT_PAD_EDGE`` and drop out of the scatter)."""
+    E = heavy_dense.shape[1]
+    dense = heavy_dense.index_select(0, alt_hrows)
+    g = light_gather(pairs, alt_lrows)
+    P = g.shape[1] // 2
+    e = g[:, :P].to(torch.int64)
+    d = g[:, P:].contiguous().view(torch.float32)
+    keep = (e >= 0) & (e < E)
+    r = torch.arange(e.shape[0], device=e.device)[:, None].expand_as(e)
+    return dense.index_put_((r[keep], e[keep]), d[keep], accumulate=True)
+
+
+def finalize_postings(pairs: torch.Tensor, lrows: torch.Tensor,
+                      acc_c: torch.Tensor, slot_of: torch.Tensor,
+                      lengths: torch.Tensor, thr: torch.Tensor, k: int,
+                      keep_at_most: int):
+    """Postings-mode scoring -> (top edges, top scores, LWR, |L|), as
+    ``finalize_postings_local`` (``rappas_tpu/place/engine.py:684-904``)
+    computes it on one light table with the slot dense side.
+
+    Read ``b``'s light postings (the rows ``lrows[b]`` of ``pairs``: P
+    edge ids, then P bit-cast f32 deltas) are sorted by edge and summed
+    per edge with the cumsum-at-segment-ends form, run in f64 (pads
+    carry ``LIGHT_PAD_EDGE`` and sort to the tail); its dense row is
+    ``acc_c[slot_of[b]]`` (zero when ``slot_of[b] < 0``).  A light
+    edge's total is its segment sum plus the dense value there; the
+    top-K is taken in the union of the K best light totals and the K
+    best dense values (a stable sort puts light candidates first on
+    exact ties, then the lower edge), later duplicates dropped.  ``|L|``
+    counts the dense row's positive entries plus the light edges whose
+    dense value is <= 0."""
+    B, W = lrows.shape
+    P = pairs.shape[1] // 2
+    n_slots, E = acc_c.shape
+    K = min(keep_at_most, E)
+    dev = lrows.device
+    g = light_gather(pairs, lrows)
+    e = g[:, :, :P].reshape(B, W * P)
+    d = g[:, :, P:].contiguous().view(torch.float32).reshape(B, W * P)
+    if W * P < K:     # a light list shorter than K: pad it with pads
+        e = torch.cat([e, torch.full((B, K - W * P), int(LIGHT_PAD_EDGE),
+                                     dtype=e.dtype, device=dev)], dim=1)
+        d = torch.cat([d, d.new_zeros((B, K - W * P))], dim=1)
+    e_s, order = torch.sort(e, dim=1, stable=True)
+    # the running sums in f64: JAX's f32 cumsum gives a segment sum an
+    # error of about one ulp of the read's running total (:732-737),
+    # which on a long read (thousands of postings) passes 2e-4; the
+    # kernel sums each segment directly
+    d_s = d.gather(1, order).to(torch.float64)
+    cs = torch.cumsum(d_s, dim=1)
+    nxt = torch.cat([e_s[:, 1:], e_s.new_full((B, 1), -1)], dim=1)
+    is_end = e_s != nxt
+    is_start = torch.cat([torch.ones((B, 1), dtype=torch.bool, device=dev),
+                          e_s[:, 1:] != e_s[:, :-1]], dim=1)
+    prev_cs = torch.cat([cs.new_zeros((B, 1)), cs[:, :-1]], dim=1)
+    start_cs = torch.cummax(torch.where(
+        is_start, prev_cs, torch.full_like(prev_cs, float("-inf"))),
+        dim=1).values
+    seg = (cs - start_cs).to(torch.float32)
+    light_valid = is_end & (e_s != int(LIGHT_PAD_EDGE))
+    # dense value at each light edge: a flat gather from acc_c's rows
+    # (the read's slot row, or an appended zero row)
+    acc_z = torch.cat([acc_c, acc_c.new_zeros((1, E))]).reshape(-1)
+    srow = torch.where(slot_of >= 0, slot_of,
+                       torch.full_like(slot_of, n_slots)).to(torch.int64)
+    e_loc = e_s.clamp(0, E - 1).to(torch.int64)
+    dense_at = acc_z[srow[:, None] * E + e_loc]
+    light_total = seg + dense_at
+    l_all, li = torch.sort(torch.where(
+        light_valid, light_total,
+        torch.full_like(light_total, float("-inf"))),
+        dim=1, descending=True, stable=True)
+    l_scores, l_edges = l_all[:, :K], e_s.gather(1, li[:, :K])
+
+    h_all, hi = torch.sort(torch.where(
+        acc_c > 0, acc_c, torch.full_like(acc_c, float("-inf"))),
+        dim=1, descending=True, stable=True)
+    has = slot_of >= 0
+    sl = slot_of[has].to(torch.int64)
+    h_scores = torch.full((B, K), float("-inf"), device=dev)
+    h_edges = torch.zeros((B, K), dtype=e_s.dtype, device=dev)
+    h_scores[has] = h_all[sl, :K]
+    h_edges[has] = hi[sl, :K].to(e_s.dtype)
+
+    cedge = torch.cat([l_edges, h_edges], dim=1)
+    cscore, order = torch.sort(torch.cat([l_scores, h_scores], dim=1),
+                               dim=1, descending=True, stable=True)
+    cedge = cedge.gather(1, order)
+    M = cedge.shape[1]
+    earlier = torch.triu(torch.ones((M, M), dtype=torch.bool, device=dev),
+                         1)
+    isdup = ((cedge[:, :, None] == cedge[:, None, :]) &
+             earlier[None]).any(dim=1)
+    cscore = torch.where(isdup, torch.full_like(cscore, float("-inf")),
+                         cscore)
+    top_acc, ti = torch.sort(cscore, dim=1, descending=True, stable=True)
+    top_acc, top_edge = top_acc[:, :K], cedge.gather(1, ti[:, :K])
+
+    n_dense = torch.zeros(B, dtype=torch.int64, device=dev)
+    n_dense[has] = (acc_c > 0).sum(dim=1)[sl]
+    light_only = light_valid & (dense_at <= 0)
+    n_matched = n_dense + light_only.sum(dim=1)
+    Qf = (lengths - (k - 1)).to(torch.float32)
+    top_scores = torch.where(torch.isfinite(top_acc),
+                             Qf[:, None] * thr + top_acc, top_acc)
+    return _top_out(top_scores, top_edge, n_matched)
 
 
 # ====================================================================== #
@@ -284,26 +445,34 @@ def accumulate_codes(D: torch.Tensor, codes: torch.Tensor, k: int,
     return acc
 
 
+def wire_format(n_edges: int, keep_at_most: int) -> tuple[int, bool, int]:
+    """The wire of a DB with ``n_edges`` edge slots, the one place that
+    decides it: ``(K, wide, words per read)``.  ``K = min(keep_at_most,
+    n_edges)``; ``wide`` (int32 edge ids) when the ids do not fit u16;
+    the row width is :func:`pack_wire`'s.  The kernels take ``wide`` and
+    the width from here."""
+    K = min(keep_at_most, n_edges)
+    wide = n_edges >= WIDE_EDGES
+    return K, wide, (2 * K + 1 if wide else K + (K + 1) // 2 + 1)
+
+
 def finalize_wire(acc: torch.Tensor, lengths: torch.Tensor, thr: float,
                   k: int, keep_at_most: int) -> torch.Tensor:
     """K3 (``csrc/finalize.cu``): ``pack_wire(*finalize(...))`` -> int32
-    [B, K + ceil(K/2) + 1] with ``K = min(keep_at_most, E)``."""
+    [B, words] in the wire of :func:`wire_format`."""
     B, E = acc.shape
-    if E >= 65535:
-        raise ValueError("the wire format packs edge ids as u16: "
-                         f"{E} edge slots do not fit")
-    K = min(keep_at_most, E)
+    K, wide, n_words = wire_format(E, keep_at_most)
     if not _on_card(acc, lengths):
         thr_t = torch.tensor(thr, dtype=torch.float32)
-        return pack_wire(*finalize(acc, lengths, thr_t, k, keep_at_most))
+        return pack_wire(*finalize(acc, lengths, thr_t, k, keep_at_most),
+                         wide=wide)
     _check(acc, "acc", torch.float32, (B, E))
     _check(lengths, "lengths", torch.int32, (B,))
-    wire = torch.empty((B, K + (K + 1) // 2 + 1), dtype=torch.int32,
-                       device=acc.device)
+    wire = torch.empty((B, n_words), dtype=torch.int32, device=acc.device)
     from rappas_tpu_torch._kernels import lib
     _launch("finalize_wire", lib().rp_finalize_wire, acc.data_ptr(), B, E,
-            lengths.data_ptr(), float(thr), k, K, wire.data_ptr(),
-            _stream(acc))
+            lengths.data_ptr(), float(thr), k, K, n_words, int(wide),
+            wire.data_ptr(), _stream(acc))
     return wire
 
 
@@ -341,3 +510,162 @@ def ambiguous_pass_(acc: torch.Tensor, D: torch.Tensor, scale: float,
             win_read.data_ptr(), win_inv_w.data_ptr(),
             win_is_mean.data_ptr(), n_win, acc.data_ptr(), _stream(acc))
     return acc
+
+
+# ---- postings layout -------------------------------------------------- #
+
+#: sort slots per read that P3 keeps in one block's shared memory at
+#: most: 12 bytes each (the 64-bit key and the f32 total), under the 227
+#: KB a block can take with room for the candidate lists
+SMEM_PAIRS = 16384
+
+
+class PostingsPlan(NamedTuple):
+    """Where P3 sorts each read's light postings: ``smem_pairs`` sort
+    slots of shared memory per block, and for the reads that do not fit,
+    ``scratch_off`` int64[B + 1] offsets of their regions in a global
+    scratch of ``n_scratch`` slots (an empty range: shared memory; None:
+    every read in shared memory).  ``scratch_off`` lies where P3 runs."""
+    smem_pairs: int
+    scratch_off: torch.Tensor | None
+    n_scratch: int
+
+    def to(self, device) -> "PostingsPlan":
+        if self.scratch_off is None:
+            return self
+        return self._replace(scratch_off=self.scratch_off.to(device))
+
+
+def _pow2(n):
+    """Smallest power of two >= n, elementwise (0 stays 0)."""
+    n = np.asarray(n, np.int64)
+    return np.where(n > 0, 1 << np.ceil(np.log2(np.maximum(n, 1)))
+                    .astype(np.int64), 0)
+
+
+def postings_plan(pairs_per_read, smem_pairs: int = SMEM_PAIRS
+                  ) -> PostingsPlan:
+    """P3's plan from each read's count of real light postings: a read
+    sorts a power-of-two region at least that large, in shared memory
+    when it fits ``smem_pairs`` slots, else in the global scratch (its
+    offsets on the CPU: :meth:`PostingsPlan.to` moves them)."""
+    need = _pow2(pairs_per_read)
+    small = need <= smem_pairs
+    cap = int(need[small].max()) if small.any() else 0
+    if small.all():
+        return PostingsPlan(cap, None, 0)
+    off = np.zeros(need.shape[0] + 1, np.int64)
+    np.cumsum(np.where(small, 0, need), out=off[1:])
+    return PostingsPlan(cap, torch.from_numpy(off), int(off[-1]))
+
+
+def dense_side(heavy_dense: torch.Tensor, hrows: torch.Tensor,
+               hoff: torch.Tensor) -> torch.Tensor:
+    """P1 (``csrc/postings.cu``): ``scatter_slots(gather_rows(heavy_dense,
+    hrows), slots, n_slots)`` -> the slot accumulator f32[n_slots, E],
+    where slot ``s`` owns the heavy rows ``hrows[hoff[s] .. hoff[s + 1]]``
+    (``hoff`` int32[n_slots + 1], CSR offsets).  On the card each slot's
+    rows are summed in order by one block (no atomics)."""
+    n_slots = hoff.shape[0] - 1
+    E = heavy_dense.shape[1]
+    if not _on_card(heavy_dense, hrows, hoff):
+        slots = torch.repeat_interleave(
+            torch.arange(n_slots, device=hoff.device),
+            (hoff[1:] - hoff[:-1]).to(torch.int64))
+        return scatter_slots(gather_rows(heavy_dense, hrows), slots, n_slots)
+    _check(heavy_dense, "heavy_dense", torch.float32, tuple(heavy_dense.shape))
+    _check(hrows, "hrows", torch.int32, (hrows.shape[0],))
+    _check(hoff, "hoff", torch.int32, (n_slots + 1,))
+    acc_c = torch.empty((n_slots, E), dtype=torch.float32,
+                        device=heavy_dense.device)
+    from rappas_tpu_torch._kernels import lib
+    _launch("dense_side", lib().rp_dense_side, heavy_dense.data_ptr(), E,
+            hrows.data_ptr(), hoff.data_ptr(), n_slots, acc_c.data_ptr(),
+            _stream(heavy_dense))
+    return acc_c
+
+
+def ambiguous_postings_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
+                        pairs: torch.Tensor, alt_lrows: torch.Tensor,
+                        alt_hrows: torch.Tensor, win_off: torch.Tensor,
+                        win_slot: torch.Tensor, win_inv_w: torch.Tensor,
+                        win_is_mean: torch.Tensor) -> torch.Tensor:
+    """P2 (``csrc/ambiguous.cu``, K4's template with the postings row
+    source): ``ambiguous_pass(alt_delta_rows_postings(pairs, heavy_dense,
+    alt_lrows, alt_hrows), alt_win, win_slot, ...)`` added into ``acc_c``
+    IN PLACE; returns ``acc_c``.  Window ``w`` owns alternatives
+    ``win_off[w] .. win_off[w + 1]`` and adds into slot ``win_slot[w]``;
+    on the card the adds are atomic, as in K4."""
+    n_win = win_slot.shape[0]
+    if not _on_card(acc_c, heavy_dense, pairs, alt_lrows, alt_hrows,
+                    win_off, win_slot, win_inv_w, win_is_mean):
+        counts = (win_off[1:] - win_off[:-1]).to(torch.int64)
+        alt_win = torch.repeat_interleave(
+            torch.arange(n_win, device=acc_c.device), counts)
+        return acc_c.copy_(ambiguous_pass(
+            alt_delta_rows_postings(pairs, heavy_dense, alt_lrows,
+                                    alt_hrows),
+            alt_win, win_slot, win_inv_w, win_is_mean, acc_c))
+    E = heavy_dense.shape[1]
+    n_alt = alt_lrows.shape[0]
+    _check(acc_c, "acc_c", torch.float32, (acc_c.shape[0], E))
+    _check(heavy_dense, "heavy_dense", torch.float32, tuple(heavy_dense.shape))
+    _check(pairs, "pairs", torch.int32, tuple(pairs.shape))
+    _check(alt_lrows, "alt_lrows", torch.int32, (n_alt,))
+    _check(alt_hrows, "alt_hrows", torch.int32, (n_alt,))
+    _check(win_off, "win_off", torch.int32, (n_win + 1,))
+    _check(win_slot, "win_slot", torch.int32, (n_win,))
+    _check(win_inv_w, "win_inv_w", torch.float32, (n_win,))
+    _check(win_is_mean, "win_is_mean", torch.uint8, (n_win,))
+    from rappas_tpu_torch._kernels import lib
+    _launch("ambiguous_postings", lib().rp_ambiguous_postings,
+            heavy_dense.data_ptr(), E, pairs.data_ptr(), pairs.shape[1] // 2,
+            alt_lrows.data_ptr(), alt_hrows.data_ptr(), win_off.data_ptr(),
+            win_slot.data_ptr(), win_inv_w.data_ptr(),
+            win_is_mean.data_ptr(), n_win, acc_c.data_ptr(), _stream(acc_c))
+    return acc_c
+
+
+def finalize_postings_wire(pairs: torch.Tensor, lrows: torch.Tensor,
+                           acc_c: torch.Tensor, slot_of: torch.Tensor,
+                           lengths: torch.Tensor, thr: float, k: int,
+                           keep_at_most: int,
+                           plan: PostingsPlan) -> torch.Tensor:
+    """P3 (``csrc/postings.cu``): ``pack_wire(*finalize_postings(...))``
+    -> int32 [B, words] in the wire of :func:`wire_format`.
+
+    ``plan`` (:func:`postings_plan` of the reads' real light posting
+    counts, its offsets on the tensors' device) says where each read
+    sorts on the card; the plain version needs none.  A read with more
+    postings than its plan gives it makes the kernel write ``|L| = -1``,
+    which :func:`unpack_wire` rejects."""
+    B, W = lrows.shape
+    n_slots, E = acc_c.shape
+    K, wide, n_words = wire_format(E, keep_at_most)
+    so = plan.scratch_off
+    if not _on_card(pairs, lrows, acc_c, slot_of, lengths,
+                    *([] if so is None else [so])):
+        thr_t = torch.tensor(thr, dtype=torch.float32)
+        return pack_wire(*finalize_postings(pairs, lrows, acc_c, slot_of,
+                                            lengths, thr_t, k,
+                                            keep_at_most), wide=wide)
+    P = pairs.shape[1] // 2
+    _check(pairs, "pairs", torch.int32, tuple(pairs.shape))
+    _check(lrows, "lrows", torch.int32, (B, W))
+    _check(acc_c, "acc_c", torch.float32, (n_slots, E))
+    _check(slot_of, "slot_of", torch.int32, (B,))
+    _check(lengths, "lengths", torch.int32, (B,))
+    if so is not None:
+        _check(so, "plan.scratch_off", torch.int64, (B + 1,))
+    keys = torch.empty(plan.n_scratch, dtype=torch.int64, device=acc_c.device)
+    tot = torch.empty(plan.n_scratch, dtype=torch.float32,
+                      device=acc_c.device)
+    wire = torch.empty((B, n_words), dtype=torch.int32, device=acc_c.device)
+    from rappas_tpu_torch._kernels import lib
+    _launch("finalize_postings_wire", lib().rp_finalize_postings,
+            pairs.data_ptr(), P, pairs.shape[0] - 1, lrows.data_ptr(), B, W,
+            acc_c.data_ptr(), E, slot_of.data_ptr(), lengths.data_ptr(),
+            float(thr), k, K, plan.smem_pairs, _ptr(so), keys.data_ptr(),
+            tot.data_ptr(), n_words, int(wide), wire.data_ptr(),
+            _stream(acc_c))
+    return wire

@@ -7,16 +7,24 @@ installed:
 
 (``RAPPAS_TPU_DEVICE_TESTS=1`` keeps ``tests/conftest.py`` from importing
 JAX.)  Tolerances as in ``chip_smoke.py``: accumulators within 1e-5
-relative (summation order), the wire words exactly, the ambiguity pass
-within 2e-4 (atomic add order).
+relative (summation order), the direct wire words exactly, the ambiguity
+passes within 2e-4 (atomic add order); P3 against its plain version with
+``|L|`` exact and edges and scores as the engine tests hold them: scores
+within 2e-4 (the kernel sums each edge's postings directly, the plain
+version by a running cumsum), or two f32 ulps of the score where that is
+more (a 3,000 bp read scores about -6,000, where one ulp is 4.9e-4).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from rappas_tpu_torch.alphabet import DNA
+from rappas_tpu_torch.db import PhyloKmerDB, build_csr
 from rappas_tpu_torch.place import kernels as T
-from rappas_tpu_torch.place.engine import pack_reads, window_offsets
+from rappas_tpu_torch.place.engine import (PlacementEngine, pack_reads,
+                                           unpack_wire, window_offsets)
+from rappas_tpu_torch.tree import parse_newick
 
 
 def _codes(rng, B, L, k, amb=0.0):
@@ -82,3 +90,171 @@ def test_kernels_match_plain_on_card(card):
                             spec[3], spec[4], got)
     torch.cuda.synchronize()
     assert torch.allclose(acc, want, atol=2e-4, rtol=0)
+
+
+def _postings_db(seed, k=5, n_edges=40, n_kmers=300, heavy_frac=0.1,
+                 every_kmer=False):
+    """``tests/test_postings.py``'s skewed DB on the port's classes: most
+    k-mers get 1-4 postings, a ``heavy_frac`` tail 12-30; with
+    ``every_kmer`` all 4^k k-mers get 7 postings (every window hits; with
+    many edges, so that an edge's segment stays short and its f32 sum
+    exact to a few ulps)."""
+    rng = np.random.default_rng(seed)
+    labels = ",".join(f"L{i}:0.{i % 9 + 1}" for i in range(n_edges - 1))
+    tree = parse_newick(f"({labels})root;")
+    tree.reset_jplace_edge_ids()
+    thr = PhyloKmerDB.threshold(k, 1.5, 4)
+    kmers = (np.arange(4 ** k) if every_kmer else
+             rng.choice(4 ** k, size=n_kmers, replace=False))
+    codes, edges = [], []
+    for km in kmers:
+        n = (7 if every_kmer else int(rng.integers(12, 31))
+             if rng.random() < heavy_frac else int(rng.integers(1, 5)))
+        es = rng.choice(np.arange(1, n_edges), size=min(n, n_edges - 1),
+                        replace=False)
+        codes.extend([km] * len(es))
+        edges.extend(es)
+    codes = np.array(codes, np.int64)
+    scores = (thr + 0.01 + rng.random(codes.shape[0]) * 2.5
+              ).astype(np.float32)
+    keys, offsets, e, deltas = build_csr(codes, np.array(edges, np.int32),
+                                         scores, thr)
+    return PhyloKmerDB(k=k, omega=1.5, alphabet=DNA, thr_log10=thr,
+                       tree=tree, keys=keys, offsets=offsets, edges=e,
+                       deltas=deltas)
+
+
+def _reads(rng, n, L, n_amb):
+    mat = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n, L))].copy()
+    lens = np.full(n, L, np.int32)
+    amb = rng.choice(n, n_amb, replace=False)
+    mat[amb, rng.integers(0, L, n_amb)] = ord("N")
+    return mat, lens
+
+
+def _same_placements(a, b):
+    assert np.array_equal(a.n_matched, b.n_matched)
+    for i in range(a.n_matched.shape[0]):
+        va, vb = a.top_edges[i] >= 0, b.top_edges[i] >= 0
+        assert va.sum() == vb.sum(), f"read {i}"
+        sa, sb = a.top_scores[i][va], b.top_scores[i][vb]
+        assert np.allclose(sa, sb, atol=2e-4, rtol=2.5e-7), f"read {i}"
+        if set(a.top_edges[i][va]) != set(b.top_edges[i][vb]):
+            assert abs(float(sa[-1]) - float(sb[-1])) <= 2e-4, f"read {i}"
+
+
+def _postings_kernels_vs_plain(db, mat, lens, card, width=8, plan=None):
+    eng = PlacementEngine(db, device=card, table="postings",
+                          postings_width=width)
+    host, eplan = eng.postings_inputs(eng.encode_batch(mat), mat, lens)
+    plan = plan or eplan
+    host.pop("scratch_off", None)
+    dev = {n: torch.from_numpy(np.ascontiguousarray(a)).to(card)
+           for n, a in host.items()}
+    acc_c = T.dense_side(eng.heavy_dense, dev["hrows"], dev["hoff"])
+    slots = torch.repeat_interleave(
+        torch.arange(acc_c.shape[0], device=card),
+        (dev["hoff"][1:] - dev["hoff"][:-1]).long())
+    want = T.scatter_slots(T.gather_rows(eng.heavy_dense, dev["hrows"]),
+                           slots, acc_c.shape[0])
+    torch.cuda.synchronize()
+    assert torch.allclose(acc_c, want, rtol=1e-5, atol=1e-6)
+    if "win_off" in dev:
+        spec = [dev[n] for n in ("alt_lrows", "alt_hrows", "win_off",
+                                 "win_slot", "win_inv_w", "win_is_mean")]
+        got = T.ambiguous_postings_(acc_c.clone(), eng.heavy_dense,
+                                    eng.pairs, *spec)
+        rows = T.alt_delta_rows_postings(eng.pairs, eng.heavy_dense,
+                                         spec[0], spec[1])
+        alt_win = torch.repeat_interleave(
+            torch.arange(spec[3].shape[0], device=card),
+            (spec[2][1:] - spec[2][:-1]).long())
+        want = T.ambiguous_pass(rows, alt_win, spec[3], spec[4], spec[5],
+                                acc_c)
+        torch.cuda.synchronize()
+        assert torch.allclose(got, want, atol=2e-4, rtol=0)
+        assert torch.equal(got > 0, want > 0)
+        acc_c = got
+    args = (eng.pairs, dev["lrows"], acc_c, dev["slot_of"], dev["lengths"])
+    wire = T.finalize_postings_wire(*args, eng.thr, eng.k, 7, plan.to(card))
+    want = T.pack_wire(*T.finalize_postings(
+        *args, torch.tensor(np.float32(eng.thr)), eng.k, 7), wide=eng.wide)
+    torch.cuda.synchronize()
+    K = min(7, eng.n_edges)
+    _same_placements(unpack_wire(wire.cpu().numpy(), K, eng.wide),
+                     unpack_wire(want.cpu().numpy(), K, eng.wide))
+    return eng, host, plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [8, 0])
+def test_postings_kernels_match_plain_on_card(card, width):
+    """P1-P3 against their plain versions, with heavy hits and ambiguity
+    windows; width 0 puts every k-mer in the heavy table."""
+    rng = np.random.default_rng(31)
+    db = _postings_db(3)
+    mat, lens = _reads(rng, 600, 60, 60)
+    base = db.alphabet.kmer_to_string(int(db.keys[0]), db.k) * 12
+    mat[:4] = np.frombuffer(base.encode(), np.uint8)[None]
+    _postings_kernels_vs_plain(db, mat, lens, card, width)
+
+
+@pytest.mark.cuda
+def test_postings_long_read_takes_global_scratch(card):
+    """A 3,000 bp read whose every window hits a 7-posting light k-mer
+    (20,972 postings) does not fit one block's shared memory: P3 sorts it
+    in the global scratch, beside 63 short reads in shared memory."""
+    rng = np.random.default_rng(32)
+    db = _postings_db(4, n_edges=2000, every_kmer=True)
+    mat, lens = _reads(rng, 64, 3000, 8)
+    lens[1:] = 150
+    mat[1:, 150:] = 0xFF
+    _, _, plan = _postings_kernels_vs_plain(db, mat, lens, card)
+    assert plan.scratch_off is not None
+    off = plan.scratch_off.numpy()
+    assert off[1] - off[0] >= 20972
+    assert (np.diff(off)[1:] == 0).all()
+    # every read in the scratch (a plan with no shared memory at all)
+    counts = np.full(64, 20972)
+    _postings_kernels_vs_plain(db, mat, lens, card,
+                               plan=T.postings_plan(counts, smem_pairs=0))
+
+
+@pytest.mark.cuda
+def test_wide_wire_on_card(card):
+    """E >= 65535 edge slots: K3 and P3 write int32 edge ids."""
+    rng = np.random.default_rng(33)
+    B, E = 40, 65601
+    acc = torch.from_numpy(np.where(rng.random((B, E)) < 0.01,
+                                    rng.random((B, E)) * 3, 0)
+                           .astype(np.float32)).to(card)
+    acc[:, 65590] = 5.0                 # the best edge needs 17 bits
+    lens = torch.full((B,), 150, dtype=torch.int32, device=card)
+    wire = T.finalize_wire(acc, lens, -4.0, 8, 7)
+    assert wire.shape == (B, 15)
+    assert torch.equal(wire, T.pack_wire(*T.finalize(
+        acc, lens, torch.tensor(np.float32(-4.0)), 8, 7), wide=True))
+    assert (wire[:, 7] == 65590).all()
+    # P3 on a light table whose edge ids reach past 65535
+    P, nl, n_slots = 8, 500, 10
+    edges = np.sort(rng.choice(E, (nl + 1, P)), axis=1).astype(np.int32)
+    edges[rng.random((nl + 1, P)) < 0.3] = np.iinfo(np.int32).max
+    edges[-1] = np.iinfo(np.int32).max
+    deltas = np.where(edges < E, rng.random((nl + 1, P)) * 2 + 1e-3,
+                      0).astype(np.float32)
+    pairs = torch.from_numpy(np.concatenate(
+        [edges, deltas.view(np.int32)], axis=1)).to(card)
+    lrows = torch.from_numpy(rng.integers(0, nl + 1, (B, 20))
+                             .astype(np.int32)).to(card)
+    slot_of = np.full(B, -1, np.int32)
+    slot_of[rng.choice(B, n_slots, replace=False)] = np.arange(n_slots)
+    slot_of = torch.from_numpy(slot_of).to(card)
+    acc_c = acc[:n_slots].contiguous()
+    args = (pairs, lrows, acc_c, slot_of, lens)
+    wire = T.finalize_postings_wire(*args, -4.0, 8, 7,
+                                    T.postings_plan(np.full(B, 20 * P)))
+    want = T.pack_wire(*T.finalize_postings(
+        *args, torch.tensor(np.float32(-4.0)), 8, 7), wide=True)
+    torch.cuda.synchronize()
+    _same_placements(unpack_wire(wire.cpu().numpy(), 7, True),
+                     unpack_wire(want.cpu().numpy(), 7, True))

@@ -59,7 +59,9 @@ def _run(main, db_path, reads, wd, extra):
 
 @pytest.mark.parametrize("reads, flags", [
     ("tiny", []), ("variant", []), ("variant", ["--ambwithmax"]),
-    ("variant", ["--noamb"]), ("tiny", ["--guppy-compat"])])
+    ("variant", ["--noamb"]), ("tiny", ["--guppy-compat"]),
+    ("tiny", ["--table", "postings"]), ("variant", ["--table", "postings"]),
+    ("variant", ["--table", "postings", "--ambwithmax"])])
 def test_port_cli_matches_jax_cli(tmp_path, fixtures_dir, db_path, reads,
                                   flags):
     q = (fixtures_dir / "tiny_reads.fasta" if reads == "tiny" else

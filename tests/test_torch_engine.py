@@ -171,8 +171,17 @@ def test_score_async_result_and_table_resolution(db, tdb, engine):
 
 
 @pytest.mark.parametrize("kw, item", [
-    ({"precision": "u16"}, "item 1"), ({"table": "compact"}, "item 4"),
-    ({"table": "postings"}, "item 5")])
+    ({"precision": "u16"}, "item 1"), ({"table": "compact"}, "item 4")])
 def test_not_ported_layouts_raise(tdb, kw, item):
     with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
         PlacementEngine(tdb, device="cpu", **kw)
+
+
+def test_postings_layout_runs(db, tdb):
+    """``table="postings"`` is ported: it places like the direct table
+    (``tests/test_torch_postings.py`` holds it against the JAX engine)."""
+    engine = PlacementEngine(tdb, device="cpu", table="postings")
+    assert engine.table == "postings"
+    rng = np.random.default_rng(9)
+    reads = random_reads(16, rng, with_amb=0.5)
+    compare(db, engine, reads)

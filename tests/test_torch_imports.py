@@ -79,11 +79,20 @@ _BLOCKED_RUN = textwrap.dedent("""
         reads[3] = reads[3][:7] + "N" + reads[3][8:]
         (tmp / "q.fasta").write_text(
             "".join(f">q{{i}}\\n{{s}}\\n" for i, s in enumerate(reads)))
-        rc = cli.main(["-p", "p", "-d", str(tmp / "db.rptpu"),
-                       "-q", str(tmp / "q.fasta"), "-w", str(tmp),
-                       "--device", "cpu"])
-        assert rc == 0
-        assert (tmp / "placements_q.fasta.jplace").stat().st_size > 0
+        for table in ("direct", "postings"):
+            rc = cli.main(["-p", "p", "-d", str(tmp / "db.rptpu"),
+                           "-q", str(tmp / "q.fasta"), "-w", str(tmp),
+                           "--device", "cpu", "--table", table])
+            assert rc == 0
+            assert (tmp / "placements_q.fasta.jplace").stat().st_size > 0
+        # the native key probe of the postings layout's big key spaces
+        from rappas_tpu_torch.native import probe_rows
+        keys = np.arange(0, 4 ** 5, 3, dtype=np.int64)
+        rows = probe_rows(np.zeros((2, 9), np.int8), np.full(2, 9, np.int32),
+                          5, 4, keys, np.arange(keys.size, dtype=np.int32),
+                          np.searchsorted(keys, np.arange(4 ** 5 + 1)
+                                          ).astype(np.int32), 0, -1)
+        assert rows.tolist() == [[0] * 5] * 2
     leaked = sorted(n for n in sys.modules
                     if n.split(".")[0] in {blocked!r})
     assert not leaked, leaked
@@ -146,7 +155,6 @@ def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
     (["--profile", "trace"], "item 8"),
     (["--precision", "u16"], "item 1"),
     (["--table", "compact"], "item 4"),
-    (["--table", "postings"], "item 5"),
 ])
 def test_cli_not_ported_options_exit_nonzero(tmp_path, capsys, extra, item):
     _tiny_db().save(tmp_path / "db.rptpu")
@@ -157,6 +165,16 @@ def test_cli_not_ported_options_exit_nonzero(tmp_path, capsys, extra, item):
     assert rc == 2
     err = capsys.readouterr().err
     assert "not" in err and "ported" in err and f"queue 1 {item}" in err
+
+
+def test_cli_table_postings_runs(tmp_path):
+    """``--table postings`` is ported: the CLI places with it."""
+    _tiny_db().save(tmp_path / "db.rptpu")
+    (tmp_path / "q.fasta").write_text(">q\nACGTACGTACNTACGGTTAC\n")
+    assert cli.main(["-p", "p", "-d", str(tmp_path / "db.rptpu"),
+                     "-q", str(tmp_path / "q.fasta"), "-w", str(tmp_path),
+                     "--device", "cpu", "--table", "postings"]) == 0
+    assert (tmp_path / "placements_q.fasta.jplace").stat().st_size > 0
 
 
 def test_cli_build_phase_not_ported(capsys):

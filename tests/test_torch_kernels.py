@@ -255,3 +255,257 @@ def test_wrappers_refuse_other_devices():
         T.finalize_wire(torch.zeros((2, 3)),
                         torch.zeros(2, dtype=torch.int32, device="meta"),
                         0.0, 2, 2)
+
+
+# ---------------------------------------------------------------------- #
+# postings layout: P1-P3's plain versions against the JAX functions
+
+def _pairs(rng, nl, P, E, fill=0.6, tiny=False):
+    """A light table int32[nl + 1, 2P]: sorted distinct edges per row,
+    pads (LIGHT_PAD_EDGE, 0.0) past each row's count, last row all pads;
+    with ``tiny`` some postings sit exactly at threshold (DELTA_TINY)."""
+    pad = int(T.LIGHT_PAD_EDGE)
+    edges = np.full((nl + 1, P), pad, np.int32)
+    deltas = np.zeros((nl + 1, P), np.float32)
+    for r in range(nl):
+        n = int(rng.integers(1, P + 1)) if rng.random() < fill else 1
+        edges[r, :n] = np.sort(rng.choice(E, n, replace=False))
+        deltas[r, :n] = rng.random(n) * 2.5 + 1e-3
+    if tiny:
+        deltas[:nl:7, 0] = DELTA_TINY
+    return np.concatenate([edges, deltas.view(np.int32)], axis=1)
+
+
+def _dense_sources(rng, B, E, n_src, ties=False):
+    """Dense rows [n_src, E] with their reads (ascending) and slots."""
+    rows = np.where(rng.random((n_src, E)) < 0.2,
+                    rng.random((n_src, E)) * 3, 0).astype(np.float32)
+    reads = np.sort(rng.choice(B, n_src)).astype(np.int32)
+    uniq = np.unique(reads)
+    slots = np.searchsorted(uniq, reads).astype(np.int32)
+    if ties and n_src:
+        rows[:, 3] = rows[:, 5] = 2.0       # exact dense ties
+    return rows, reads, slots, uniq.astype(np.int32)
+
+
+def _jax_postings(pairs, lrows, rows, reads, slots, uniq, lens, thr, k,
+                  keep, v2):
+    B = lrows.shape[0]
+    if v2:
+        n_slots = max(1, uniq.size)
+        slot_read = np.full(n_slots, B, np.int32)
+        slot_read[:uniq.size] = uniq
+        if rows.shape[0] == 0:       # one pad source into the zero slot
+            rows = np.zeros((1, rows.shape[1]), np.float32)
+            reads = np.zeros(1, np.int32)
+            slots = np.full(1, n_slots, np.int32)
+        out = J.finalize_postings_v2(
+            (jnp.asarray(pairs),), jnp.asarray(lrows), None,
+            jnp.asarray(rows), jnp.asarray(reads), jnp.asarray(slots),
+            jnp.asarray(slot_read), jnp.asarray(lens), jnp.float32(thr), k,
+            keep)
+    else:
+        if rows.shape[0] == 0:
+            rows = np.zeros((1, rows.shape[1]), np.float32)
+            reads = np.zeros(1, np.int32)
+        out = J.finalize_postings(
+            jnp.asarray(pairs), jnp.asarray(lrows), jnp.asarray(rows),
+            jnp.asarray(reads), jnp.asarray(lens), jnp.float32(thr), k,
+            keep, lowrank=False)
+    return tuple(np.asarray(x) for x in out)
+
+
+def _port_postings(pairs, lrows, rows, slots, uniq, lens, thr, k, keep):
+    B = lrows.shape[0]
+    acc_c = T.scatter_slots(torch.from_numpy(rows),
+                            torch.from_numpy(slots.astype(np.int64)),
+                            uniq.size)
+    slot_of = np.full(B, -1, np.int32)
+    slot_of[uniq] = np.arange(uniq.size, dtype=np.int32)
+    args = (torch.from_numpy(pairs), torch.from_numpy(lrows), acc_c,
+            torch.from_numpy(slot_of), torch.from_numpy(lens))
+    out = T.finalize_postings(*args, torch.tensor(np.float32(thr)), k, keep)
+    return tuple(x.numpy() for x in out), args
+
+
+def _same_top(t, j):
+    te, ts, tl, tn = t
+    je, js, jl, jn = j
+    assert np.array_equal(tn, jn)
+    assert np.array_equal(te, je)       # edge ORDER too, ties included
+    fin = np.isfinite(js)
+    assert np.array_equal(np.isfinite(ts), fin)
+    assert np.allclose(ts[fin], js[fin], atol=2e-4, rtol=0)
+    assert np.allclose(tl, jl, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("case", ["dense", "no_dense", "ties", "tiny",
+                                  "wide", "keep1"])
+@pytest.mark.parametrize("v2", [True, False])
+def test_finalize_postings_matches_jax(case, v2):
+    """P3's plain version against ``finalize_postings`` (per-read dense
+    accumulator) and ``finalize_postings_v2`` (slot dense side), one
+    light table: with and without dense sources, exact ties between and
+    within the light and dense lists, threshold-grade postings, more
+    than 65535 edge slots, K=1."""
+    rng = np.random.default_rng(len(case) + 7 * v2)
+    B, W, P, k = 24, 9, 8, 8
+    E = 65601 if case == "wide" else 60
+    keep = 1 if case == "keep1" else 7
+    pairs = _pairs(rng, 80, P, E, tiny=case == "tiny")
+    lrows = rng.integers(0, 81, (B, W)).astype(np.int32)
+    lrows[0] = 80                                   # no light hit at all
+    n_src = 0 if case == "no_dense" else 14
+    rows, reads, slots, uniq = _dense_sources(rng, B, E, n_src,
+                                              ties=case == "ties")
+    if case == "ties":    # a light total equal to a dense-only value
+        pairs[:, P:] = np.float32(1.0).view(np.int32)
+        pairs[-1, P:] = 0
+        pairs[:, :P][pairs[:, :P] == 3] = 4
+    if case == "tiny":    # read 1: one light row, one DELTA_TINY posting
+        pairs[0, 1:P] = int(T.LIGHT_PAD_EDGE)
+        pairs[0, P + 1:] = 0
+        lrows[1] = 80
+        lrows[1, 4] = 0
+    lens = rng.integers(k, 150, B).astype(np.int32)
+    thr = np.float32(-3.75)
+    got, _ = _port_postings(pairs, lrows, rows, slots, uniq, lens, thr, k,
+                            keep)
+    _same_top(got, _jax_postings(pairs, lrows, rows, reads, slots, uniq,
+                                 lens, thr, k, keep, v2))
+    if case == "tiny" and 1 not in reads:
+        assert got[3][1] == 1 and got[0][1, 0] == pairs[0, 0]
+
+
+def test_finalize_postings_width0_matches_jax_finalize():
+    """Width 0 (everything heavy): no light postings at all; the JAX
+    engine takes ``finalize`` on the dense accumulator there."""
+    rng = np.random.default_rng(3)
+    B, E, k = 20, 40, 8
+    pairs = np.zeros((1, 0), np.int32)
+    lrows = np.zeros((B, 0), np.int32)
+    rows, reads, slots, uniq = _dense_sources(rng, B, E, 16, ties=True)
+    lens = rng.integers(k, 150, B).astype(np.int32)
+    thr = np.float32(-3.5)
+    got, _ = _port_postings(pairs, lrows, rows, slots, uniq, lens, thr, k, 7)
+    acc = np.zeros((B, E), np.float32)
+    np.add.at(acc, reads, rows)
+    want = J.finalize(jnp.asarray(acc), jnp.asarray(lens), jnp.float32(thr),
+                      k, 7)
+    _same_top(got, tuple(np.asarray(x) for x in want))
+
+
+def test_gather_scatter_matches_jax():
+    """P1's plain version: ``gather_rows`` + the slot scatter."""
+    rng = np.random.default_rng(4)
+    H = _table(rng, 30, 50)
+    hrows = rng.integers(0, 30, 40).astype(np.int32)
+    slots = np.sort(rng.integers(0, 12, 40)).astype(np.int32)
+    g = J.gather_rows(jnp.asarray(H), jnp.asarray(hrows))
+    want = np.asarray(jnp.zeros((13, 50), jnp.float32).at[
+        jnp.asarray(slots)].add(g))[:12]
+    got = T.scatter_slots(T.gather_rows(torch.from_numpy(H),
+                                        torch.from_numpy(hrows)),
+                          torch.from_numpy(slots.astype(np.int64)), 12)
+    assert np.array_equal(np.asarray(g), T.gather_rows(
+        torch.from_numpy(H), torch.from_numpy(hrows)).numpy())
+    assert np.allclose(got.numpy(), want, rtol=1e-6, atol=0)
+    # the wrapper (CSR offsets of the slots) on CPU tensors
+    hoff = np.zeros(13, np.int32)
+    np.cumsum(np.bincount(slots, minlength=12), out=hoff[1:])
+    acc_c = T.dense_side(torch.from_numpy(H), torch.from_numpy(hrows),
+                         torch.from_numpy(hoff))
+    assert torch.equal(acc_c, got)
+
+
+@pytest.mark.parametrize("mean", [True, False])
+def test_ambiguity_postings_plain_versions_match_jax(mean):
+    """P2's plain version: alternative rows bitwise equal to
+    ``alt_delta_rows_postings``; contributions summed into slots."""
+    rng = np.random.default_rng(12 + mean)
+    E, P, nl, nh = 45, 8, 60, 10
+    pairs = _pairs(rng, nl, P, E, tiny=True)
+    H = _table(rng, nh + 1, E)
+    n_win = 15
+    W = rng.integers(1, 5, n_win)
+    alt_win = np.repeat(np.arange(n_win), W).astype(np.int32)
+    n_alt = alt_win.size
+    light = rng.random(n_alt) < 0.7     # a k-mer is light or heavy
+    alt_lrows = np.where(light, rng.integers(0, nl, n_alt), nl)
+    alt_hrows = np.where(light, nh, rng.integers(0, nh, n_alt))
+    alt_lrows[::6], alt_hrows[::6] = nl, nh            # misses
+    alt_lrows, alt_hrows = (x.astype(np.int32) for x in (alt_lrows,
+                                                          alt_hrows))
+    j_rows = np.asarray(J.alt_delta_rows_postings(
+        (jnp.asarray(pairs),), jnp.asarray(H), jnp.asarray(alt_lrows),
+        jnp.asarray(alt_hrows)))
+    t_rows = T.alt_delta_rows_postings(
+        torch.from_numpy(pairs), torch.from_numpy(H),
+        torch.from_numpy(alt_lrows), torch.from_numpy(alt_hrows))
+    assert np.array_equal(t_rows.numpy(), j_rows)
+    win_slot = np.sort(rng.integers(0, 6, n_win)).astype(np.int32)
+    inv_w = (1.0 / W).astype(np.float32)
+    is_mean = np.full(n_win, mean)
+    jc = np.asarray(J.ambiguous_contrib(
+        jnp.asarray(j_rows), jnp.asarray(alt_win), jnp.asarray(inv_w),
+        jnp.asarray(is_mean)))
+    want = np.zeros((6, E), np.float32)
+    np.add.at(want, win_slot, jc)
+    acc_c = torch.zeros((6, E))
+    out = T.ambiguous_postings_(
+        acc_c, torch.from_numpy(H), torch.from_numpy(pairs),
+        torch.from_numpy(alt_lrows), torch.from_numpy(alt_hrows),
+        torch.from_numpy(window_offsets(alt_win, n_win)),
+        torch.from_numpy(win_slot), torch.from_numpy(inv_w),
+        torch.from_numpy(is_mean.astype(np.uint8)))
+    assert out is acc_c
+    assert np.allclose(acc_c.numpy(), want, atol=2e-4, rtol=0)
+    assert np.array_equal(acc_c.numpy() > 0, want > 0)
+
+
+@pytest.mark.parametrize("E", [60, 65601])
+def test_finalize_postings_wire_cpu_round_trip(E):
+    from rappas_tpu_torch.place.engine import unpack_wire
+    rng = np.random.default_rng(E)
+    B, k, keep = 16, 8, 7
+    pairs = _pairs(rng, 40, 8, E)
+    lrows = rng.integers(0, 41, (B, 6)).astype(np.int32)
+    rows, _, slots, uniq = _dense_sources(rng, B, E, 9)
+    lens = rng.integers(k, 150, B).astype(np.int32)
+    thr = float(np.float32(-3.25))
+    top, args = _port_postings(pairs, lrows, rows, slots, uniq, lens, thr,
+                               k, keep)
+    plan = T.postings_plan(np.full(B, 6 * 8), smem_pairs=16)
+    assert plan.scratch_off.device.type == "cpu"
+    wire = T.finalize_postings_wire(*args, thr, k, keep, plan)
+    _, wide, n_words = T.wire_format(E, keep)
+    assert wide == (E >= T.WIDE_EDGES)
+    assert wire.shape == (B, n_words)
+    res = unpack_wire(wire.numpy(), keep, wide)
+    assert np.array_equal(res.top_edges, top[0])
+    assert np.array_equal(res.top_scores.view(np.uint32),
+                          top[1].view(np.uint32))
+    assert np.array_equal(res.n_matched, top[3])
+    assert np.allclose(res.top_lwr, top[2], atol=1e-6)
+    assert T.LAUNCHES["finalize_postings_wire"] == 0
+    bad = wire.numpy().copy()
+    bad[2, -1] = -1                     # a read P3 could not sort
+    with pytest.raises(RuntimeError, match="read 2"):
+        unpack_wire(bad, keep, wide)
+
+
+def test_postings_plan():
+    plan = T.postings_plan(np.array([0, 3, 100, 40000, 16384, 16385]))
+    assert plan.smem_pairs == 16384
+    assert plan.scratch_off.tolist() == [0, 0, 0, 0, 65536, 65536, 98304]
+    assert plan.n_scratch == 98304
+    small = T.postings_plan(np.array([5, 9, 1]))
+    assert small == (16, None, 0)
+    every = T.postings_plan(np.array([5, 9]), smem_pairs=0)
+    assert every.smem_pairs == 0 and every.scratch_off.tolist() == [0, 8, 24]
+    assert every.scratch_off.dtype == torch.int64
+    assert every.to("cpu").scratch_off.tolist() == [0, 8, 24]
+    assert small.to("cpu") is small
+    assert T.wire_format(60, 7) == (7, False, 12)
+    assert T.wire_format(65535, 7) == (7, True, 15)
+    assert T.wire_format(3, 7) == (3, False, 6)
