@@ -8,7 +8,8 @@ CUDA toolkit:
 
 It needs one card, builds the CUDA kernels from ``rappas_tpu_torch/csrc``
 (into ``rappas_tpu_torch/_build/``) and drives ``-p p`` placement on DBs
-made from the seed, at the widths of three BASELINE configurations:
+made from the seed, at the widths of four configurations, in every table
+layout and precision a single device resolves to:
 
 * config 1, the direct layout (k=8, E=300 edge slots, a table
   ``D[4^8 + 1, 300]`` f32 of 79 MB, 150 bp reads):
@@ -23,6 +24,14 @@ made from the seed, at the widths of three BASELINE configurations:
   3. CLI phase -- ``python -m rappas_tpu_torch.cli -p p`` on 50k reads
      with duplicates and N's; the jplace is parsed and its placements
      held against the CPU engine;
+  4. u16 (``precision="u16"``: ``D`` uint16 ``[4^8 + 1, 300]``, 39 MB)
+     -- K1, K2 and K4 on the uint16 table against their plain versions,
+     an engine phase whose 512 reads are also held against the card's
+     f32 engine within 5e-3, and a CLI phase (``--precision u16``, 20k
+     reads);
+  5. compact f32 (``table="compact"``: ``D[39,322, 300]``, 47 MB, the
+     int32 keys on the card) -- an engine phase through C1
+     accumulate_compact whose placements must equal the direct engine's;
 * config 5, the postings layout (k=12, a 4000-taxon star: E=7999; 2M
   light k-mers with 1-7 postings, 10k heavy ones with 32-199, as
   ``scripts/scale_check.py:21-48`` builds it, with every 12-mer of a
@@ -32,7 +41,18 @@ made from the seed, at the widths of three BASELINE configurations:
   sampled from the reference (every window hits), half is uniform;
 * config 4, protein postings (amino k=8, E=150, 500k keys with 4
   postings, as ``bench.py:447-479``; no direct index: rows come from the
-  native key probe): an engine phase of 16384-read batches of 100 aa.
+  native key probe): an engine phase of 16384-read batches of 100 aa;
+  then the compact table (``precision="u16"`` resolves to it: ``D``
+  uint16 ``[500,001, 150]``, 150 MB; 20^8 > 2^31, so the host searches
+  the keys): C2 accumulate_rows on f32 and u16 tables against its plain
+  version, and engine phases at u16 and at compact f32, half of each
+  batch sampled from a chain of DB keys;
+* config 6, k=12 DNA on config 1's 300 edge slots (config 5's recipe
+  otherwise): f32 resolves to postings, u16 to the compact table with
+  the keys searched on the card (the dense u16 table would take 10.1
+  GB, the compact one ``[2,010,001, 300]`` takes 1.2 GB): C1 on the f32
+  (2.4 GB) and u16 tables against its plain version, an engine phase and
+  a CLI phase (``--precision u16``, 20k reads).
 
 Standard output ends with the card's name and power limit, one JSON line
 of kernel results and one JSON line ``{"ok": true, "device": ...}``.  Any
@@ -123,18 +143,31 @@ def config5_db(seed: int):
     10,000 heavy ones with 32-199 (about 9.15M postings).  The keys are
     the 12-mers of :func:`config5_reference` and, for the rest, uniform
     draws; which keys are heavy is drawn uniformly over all of them."""
+    return k12_db(seed, 2 * 4000 - 1)
+
+
+def config6_db(seed: int):
+    """Config 6: :func:`config5_db`'s k-mers on config 1's tree of 300
+    edge slots -- a sparse k=12 DB whose dense u16 table (10.1 GB) is
+    past the direct budget, so ``precision="u16"`` takes the compact
+    table."""
+    return k12_db(seed, 300)
+
+
+def k12_db(seed: int, E: int):
+    """The k=12 recipe of :func:`config5_db` on a star tree of ``E`` edge
+    slots."""
     import numpy as np
 
     from rappas_tpu_torch.alphabet import DNA
     from rappas_tpu_torch.db import PhyloKmerDB, build_csr
     from rappas_tpu_torch.tree import parse_newick
 
-    k, n_taxa, n_light, n_heavy = 12, 4000, 2_000_000, 10_000
+    k, n_light, n_heavy = 12, 2_000_000, 10_000
     rng = np.random.default_rng(seed)
-    labels = ",".join(f"T{i}:0.1" for i in range(2 * n_taxa - 2))
+    labels = ",".join(f"T{i}:0.1" for i in range(E - 1))
     tree = parse_newick(f"({labels})root;")
     tree.reset_jplace_edge_ids()
-    E = 2 * n_taxa - 1
     thr = PhyloKmerDB.threshold(k, 1.5, 4)
     ref = DNA.char_to_code[config5_reference(seed)].astype(np.int64)
     ref_keys = np.unique(np.lib.stride_tricks.sliding_window_view(ref, k)
@@ -183,6 +216,21 @@ def config4_db(seed: int):
     return PhyloKmerDB(k=8, omega=1.5, alphabet=AA, thr_log10=thr,
                        tree=tree, keys=keys, offsets=offsets, edges=e,
                        deltas=deltas)
+
+
+def key_chain(db, seed: int, n_keys: int = 50_000):
+    """ASCII uint8: the letters of ``n_keys`` random DB keys one after
+    another, so a read sampled from it hits on every window that starts
+    at a key's first letter (one in k), as reads of a placed clade hit
+    where a uniform protein read almost never does (500k keys in 20^8)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 13)
+    S, k = db.alphabet.n_states, db.k
+    keys = db.keys[rng.integers(0, db.n_kmers, n_keys)]
+    digits = keys[:, None] // S ** np.arange(k - 1, -1, -1, dtype=np.int64) % S
+    letters = np.frombuffer(db.alphabet.letters.encode(), np.uint8)
+    return letters[digits.reshape(-1)]
 
 
 def random_reads(rng, n: int, n_ambiguous: int, short_share: float = 0.0,
@@ -236,10 +284,22 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def held(got, want, exact: bool) -> bool:
+    """A kernel's f32 sums against its plain version's: bitwise on a uint16
+    table (sums of quantised values below 2^24 are exact in f32 in any
+    order), within 1e-5 relative on an f32 one (summation order)."""
+    import torch
+
+    if exact:
+        return torch.equal(got, want)
+    return torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
 def same_placements(a, b, tol_score=2e-4, tol_lwr=1e-4) -> str | None:
     """None when two BatchResults agree (|L| exact, edge sets exact apart
-    from near-ties at the K-th slot, scores and LWR within tolerance),
-    else a description of the first difference."""
+    from near-ties at the K-th slot, scores and LWR within tolerance; LWR
+    not held when ``tol_lwr`` is None), else a description of the first
+    difference."""
     import numpy as np
 
     if not np.array_equal(a.n_matched, b.n_matched):
@@ -255,7 +315,7 @@ def same_placements(a, b, tol_score=2e-4, tol_lwr=1e-4) -> str | None:
         ea, eb = set(a.top_edges[i][va]), set(b.top_edges[i][vb])
         if ea != eb and abs(float(sa[-1]) - float(sb[-1])) > tol_score:
             return f"read {i}: edges {sorted(ea)} vs {sorted(eb)}"
-        if ea == eb:
+        if ea == eb and tol_lwr is not None:
             la = dict(zip(a.top_edges[i][va], a.top_lwr[i][va]))
             lb = dict(zip(b.top_edges[i][vb], b.top_lwr[i][vb]))
             if any(abs(float(la[e]) - float(lb[e])) > tol_lwr for e in ea):
@@ -264,7 +324,10 @@ def same_placements(a, b, tol_score=2e-4, tol_lwr=1e-4) -> str | None:
 
 
 # ---------------------------------------------------------------------- #
-def kernel_phase(db, seed: int, device: str = "cuda") -> dict:
+def kernel_phase(db, seed: int, precision: str = "f32",
+                 device: str = "cuda") -> dict:
+    """K1, K2 and K4 on the direct table in ``precision`` (their ``_u16``
+    instances on a uint16 one), and K3 on f32, at B=16384."""
     import numpy as np
     import torch
 
@@ -274,9 +337,12 @@ def kernel_phase(db, seed: int, device: str = "cuda") -> dict:
                                                window_offsets)
 
     dev = torch.device(device)
-    D, scale_t, thr_t = device_tables(db, dev)
-    scale, thr = float(scale_t), float(thr_t)
-    E = D.shape[1]
+    tabs = device_tables(db, dev, "direct", precision)
+    D, scale = tabs.D, float(tabs.scale)
+    u16 = D.dtype == torch.uint16
+    sfx = "_u16" if u16 else ""
+    D32 = D.float()             # embedding_bag takes no uint16 table
+    E, item = D.shape[1], D.element_size()
     k = db.k
     miss = D.shape[0] - 1
     rng = np.random.default_rng(seed + 1)
@@ -295,23 +361,23 @@ def kernel_phase(db, seed: int, device: str = "cuda") -> dict:
     want = K.accumulate(D, rows1) * scale
     torch.cuda.synchronize()
     err1 = float((got - want).abs().max())
-    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
-          f"K1 accumulate_packed disagrees with its plain version "
+    check(held(got, want, u16),
+          f"K1 accumulate_packed{sfx} disagrees with its plain version "
           f"(max abs err {err1})")
     rows1_long = rows1.long()
     touched = torch.unique(rows1[rows1 != miss])
     n_win = int((rows1 != miss).sum())
     b, why = bound(packed.numel() + lens_d.numel() * 4 +
-                   touched.numel() * E * 4 + B_KERNEL * E * 4,
+                   touched.numel() * E * item + B_KERNEL * E * 4,
                    (n_win + B_KERNEL) * E)
-    out["accumulate_packed"] = dict(
+    out["accumulate_packed" + sfx] = dict(
         max_abs_err=err1, bound_ms=b, bound_by=why,
         ms=cuda_ms(lambda: K.accumulate_packed(D, packed, lens_d, READ_LEN,
                                                k, scale, acc=got)),
         plain_ms=cuda_ms(lambda: K.accumulate(D, K.kmer_rows_packed(
             packed, lens_d, k, 4, D.shape[0], READ_LEN)) * scale, reps=5),
         library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
-            rows1_long, D, mode="sum")))
+            rows1_long, D32, mode="sum")))
     acc_pure = got
 
     # K2 ------------------------------------------------------------ #
@@ -320,25 +386,75 @@ def kernel_phase(db, seed: int, device: str = "cuda") -> dict:
     want = K.accumulate(D, rows2) * scale
     torch.cuda.synchronize()
     err2 = float((got - want).abs().max())
-    check(torch.allclose(got, want, rtol=1e-5, atol=1e-5),
-          f"K2 accumulate_codes disagrees with its plain version "
+    check(held(got, want, u16),
+          f"K2 accumulate_codes{sfx} disagrees with its plain version "
           f"(max abs err {err2})")
     rows2_long = rows2.long()
     touched = torch.unique(rows2[rows2 != miss])
     n_win = int((rows2 != miss).sum())
-    b, why = bound(codes_d.numel() + touched.numel() * E * 4 +
+    b, why = bound(codes_d.numel() + touched.numel() * E * item +
                    B_KERNEL * E * 4, (n_win + B_KERNEL) * E)
-    out["accumulate_codes"] = dict(
+    out["accumulate_codes" + sfx] = dict(
         max_abs_err=err2, bound_ms=b, bound_by=why,
         ms=cuda_ms(lambda: K.accumulate_codes(D, codes_d, k, 4, scale,
                                               acc=got)),
         plain_ms=cuda_ms(lambda: K.accumulate(D, K.kmer_rows(
             codes_d, k, 4, D.shape[0])) * scale, reps=5),
         library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
-            rows2_long, D, mode="sum")))
+            rows2_long, D32, mode="sum")))
     acc_amb = got
+    if not u16:
+        out.update(finalize_phase(acc_pure, lens_d, tabs.thr, k))
 
-    # K3 ------------------------------------------------------------ #
+    # K4 ------------------------------------------------------------ #
+    errs = []
+    for with_max in (False, True):
+        host.ambiguities_with_max = with_max
+        kidx, alt_win, win_read, inv_w, is_mean = \
+            host._expand_ambiguities_host(codes, mat, lens)
+        spec = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            kidx.astype(np.int32), window_offsets(alt_win, win_read.size),
+            win_read.astype(np.int32), inv_w.astype(np.float32),
+            is_mean.astype(np.uint8))]
+        alt_win_d = torch.from_numpy(alt_win.astype(np.int64)).to(dev)
+        got = K.ambiguous_pass_(acc_amb.clone(), D, scale, *spec)
+        want = K.ambiguous_pass(K.alt_delta_rows(D, scale, spec[0]),
+                                alt_win_d, spec[2], spec[3], spec[4],
+                                acc_amb)
+        torch.cuda.synchronize()
+        errs.append(float((got - want).abs().max()))
+        check(errs[-1] <= 2e-4, f"K4 ambiguous_pass{sfx} (max mode "
+              f"{with_max}) disagrees with its plain version (max abs err "
+              f"{errs[-1]})")
+        check(torch.equal(got > 0, want > 0),
+              f"K4 ambiguous_pass{sfx}: matched edges differ")
+        if not with_max:
+            mean_spec, mean_alt_win = spec, alt_win_d
+    alt_rows, win_off, win_read_d, inv_w_d, is_mean_d = mean_spec
+    n_alt, n_w = alt_rows.numel(), win_read_d.numel()
+    reads_touched = torch.unique(win_read_d).numel()
+    b, why = bound(torch.unique(alt_rows).numel() * E * item + n_alt * 4 +
+                   n_w * 13 + 4 + 2 * reads_touched * E * 4,
+                   (n_alt + n_w) * E * 4)
+    scratch = acc_amb.clone()
+    out["ambiguous_pass" + sfx] = dict(
+        max_abs_err=max(errs), bound_ms=b, bound_by=why,
+        ms=cuda_ms(lambda: K.ambiguous_pass_(scratch, D, scale,
+                                             *mean_spec)),
+        plain_ms=cuda_ms(lambda: K.ambiguous_pass(
+            K.alt_delta_rows(D, scale, alt_rows), mean_alt_win, win_read_d,
+            inv_w_d, is_mean_d, acc_amb)),
+        library_ms=None, windows=n_w, alternatives=n_alt)
+    return out
+
+
+def finalize_phase(acc_pure, lens_d, thr_t, k: int) -> dict:
+    """K3 on config 1's batch of K1 sums."""
+    import torch
+
+    from rappas_tpu_torch.place import kernels as K
+
+    thr = float(thr_t)
     got = K.finalize_wire(acc_pure, lens_d, thr, k, K_KEEP)
     te, ts, lwr, nm = K.finalize(acc_pure, lens_d, thr_t, k, K_KEEP)
     want = K.pack_wire(te, ts, lwr, nm)
@@ -358,53 +474,91 @@ def kernel_phase(db, seed: int, device: str = "cuda") -> dict:
                          torch.full_like(acc_pure, float("-inf")))
     b, why = bound(acc_pure.numel() * 4 + lens_d.numel() * 4 +
                    got.numel() * 4, 3 * acc_pure.numel())
-    out["finalize_wire"] = dict(
+    return {"finalize_wire": dict(
         max_abs_err=err3, bound_ms=b, bound_by=why,
         ms=cuda_ms(lambda: K.finalize_wire(acc_pure, lens_d, thr, k,
                                            K_KEEP)),
         plain_ms=cuda_ms(lambda: K.pack_wire(*K.finalize(
             acc_pure, lens_d, thr_t, k, K_KEEP))),
-        library_ms=cuda_ms(lambda: torch.topk(masked, K_KEEP, dim=1)))
+        library_ms=cuda_ms(lambda: torch.topk(masked, K_KEEP, dim=1)))}
 
-    # K4 ------------------------------------------------------------ #
-    errs = []
-    for with_max in (False, True):
-        host.ambiguities_with_max = with_max
-        kidx, alt_win, win_read, inv_w, is_mean = \
-            host._expand_ambiguities_host(codes, mat, lens)
-        spec = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
-            kidx.astype(np.int32), window_offsets(alt_win, win_read.size),
-            win_read.astype(np.int32), inv_w.astype(np.float32),
-            is_mean.astype(np.uint8))]
-        alt_win_d = torch.from_numpy(alt_win.astype(np.int64)).to(dev)
-        got = K.ambiguous_pass_(acc_amb.clone(), D, scale, *spec)
-        want = K.ambiguous_pass(K.alt_delta_rows(D, scale, spec[0]),
-                                alt_win_d, spec[2], spec[3], spec[4],
-                                acc_amb)
-        torch.cuda.synchronize()
-        errs.append(float((got - want).abs().max()))
-        check(errs[-1] <= 2e-4, f"K4 ambiguous_pass (max mode {with_max}) "
-              f"disagrees with its plain version (max abs err {errs[-1]})")
-        check(torch.equal(got > 0, want > 0),
-              "K4 ambiguous_pass: matched edges differ")
-        if not with_max:
-            mean_spec, mean_alt_win = spec, alt_win_d
-    alt_rows, win_off, win_read_d, inv_w_d, is_mean_d = mean_spec
-    n_alt, n_w = alt_rows.numel(), win_read_d.numel()
-    reads_touched = torch.unique(win_read_d).numel()
-    b, why = bound(torch.unique(alt_rows).numel() * E * 4 + n_alt * 4 +
-                   n_w * 13 + 4 + 2 * reads_touched * E * 4,
-                   (n_alt + n_w) * E * 4)
-    scratch = acc_amb.clone()
-    out["ambiguous_pass"] = dict(
-        max_abs_err=max(errs), bound_ms=b, bound_by=why,
-        ms=cuda_ms(lambda: K.ambiguous_pass_(scratch, D, scale,
-                                             *mean_spec)),
-        plain_ms=cuda_ms(lambda: K.ambiguous_pass(
-            K.alt_delta_rows(D, scale, alt_rows), mean_alt_win, win_read_d,
-            inv_w_d, is_mean_d, acc_amb)),
-        library_ms=None, windows=n_w, alternatives=n_alt)
-    return out
+
+def compact_kernel_phase(eng, seed: int, ref=None, length: int = READ_LEN,
+                         letters: bytes = b"ACGT") -> dict:
+    """C1 (keys on the card) or C2 (rows from the host search) on the
+    compact table of the card engine ``eng`` at B=16384, half of the
+    reads sampled from ``ref``, against its plain version."""
+    import numpy as np
+    import torch
+
+    from rappas_tpu_torch.place import kernels as K
+    from rappas_tpu_torch.place.engine import host_kmer_indices
+
+    D, keys, scale = eng.D, eng.keys_dev, eng.scale
+    dev = D.device
+    u16 = D.dtype == torch.uint16
+    E, item, n, k = D.shape[1], D.element_size(), D.shape[0] - 1, eng.k
+    S = eng.alphabet.n_states
+    D32 = D.float()             # embedding_bag takes no uint16 table
+    rng = np.random.default_rng(seed + 6)
+    mat, lens = random_reads(rng, B_KERNEL, B_KERNEL // 100, 0.05, length,
+                             letters, ref)
+    codes = eng.encode_batch(mat)
+    if keys is not None:                    # C1: the card searches
+        name = "accumulate_compact"
+        codes_d = torch.from_numpy(codes).to(dev)
+        idx = K.kmer_indices64(codes_d, k, S)
+        rows = K.compact_rows(keys, idx)
+
+        def run():
+            return K.accumulate_compact(D, keys, codes_d, k, S, scale)
+
+        def plain():
+            return K.accumulate(D, K.compact_rows(
+                keys, K.kmer_indices64(codes_d, k, S))) * scale
+        # inputs: the codes, and at most every key once for the probes
+        n_valid = int((idx >= 0).sum())
+        probes = n_valid * int(np.ceil(np.log2(n + 1)))
+        in_bytes = codes_d.numel() + min(n, probes) * 4
+        keys_long = keys.long()
+
+        def library():
+            pos = torch.searchsorted(keys_long, idx.long())
+            hit = (pos < n) & (keys_long[pos.clamp_max(n - 1)] == idx)
+            return torch.nn.functional.embedding_bag(
+                torch.where(hit, pos, n), D32, mode="sum")
+    else:                                   # C2: the host searched
+        name = "accumulate_rows"
+        rows = torch.from_numpy(eng._db_lookup(
+            host_kmer_indices(codes, lens, k, S))).to(dev)
+        probes = 0
+
+        def run():
+            return K.accumulate_rows(D, rows, scale)
+
+        def plain():
+            return K.accumulate(D, rows) * scale
+        in_bytes = rows.numel() * 4
+        rows_long = rows.long()
+
+        def library():
+            return torch.nn.functional.embedding_bag(rows_long, D32,
+                                                     mode="sum")
+    name += "_u16" if u16 else ""
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(held(got, want, u16), f"{name} disagrees with its plain version "
+          f"(max abs err {err})")
+    check(bool((want > 0).any()), f"{name}: no window hit the table")
+    hit = rows[rows != n]
+    b, why = bound(in_bytes + torch.unique(hit).numel() * E * item +
+                   B_KERNEL * E * 4, probes + (hit.numel() + B_KERNEL) * E)
+    return {name: dict(
+        max_abs_err=err, bound_ms=b, bound_by=why, hit_windows=hit.numel(),
+        distinct_rows=torch.unique(hit).numel(), table_bytes=D.nbytes,
+        ms=cuda_ms(run), plain_ms=cuda_ms(plain, reps=5),
+        library_ms=cuda_ms(library, reps=5))}
 
 
 def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
@@ -542,10 +696,14 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
 def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
                  n_batches: int = 10, length: int = READ_LEN,
                  letters: bytes = b"ACGT", n_ambiguous: int | None = None,
-                 ref=None, device: str = "cuda") -> dict:
+                 ref=None, engine_kw=None, against=None,
+                 device: str = "cuda") -> dict:
     """``n_batches`` batches back to back through ``score_async`` (a few
-    in flight); every kernel in ``names`` must launch; the first batch's
-    first 512 reads are held against the same engine on the CPU."""
+    in flight) of ``PlacementEngine(db, **engine_kw)``; every kernel in
+    ``names`` must launch; the first batch's first 512 reads are held
+    against the same engine on the CPU and, with ``against = (kw,
+    tol_score)``, against the card's ``PlacementEngine(db, **kw)`` with
+    scores within ``tol_score`` (LWR not held when it passes 2e-4)."""
     import numpy as np
     import torch
 
@@ -553,12 +711,13 @@ def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
     from rappas_tpu_torch.place import kernels as K
     from rappas_tpu_torch.place.engine import PlacementEngine
 
+    kw = engine_kw or {}
     rng = np.random.default_rng(seed + 2)
     n_amb = batch // 100 if n_ambiguous is None else n_ambiguous
     batches = [random_reads(rng, batch, n_amb, 0.05, length, letters, ref)
                for _ in range(n_batches)]
     t0 = time.perf_counter()
-    eng = PlacementEngine(db, device=device)
+    eng = PlacementEngine(db, device=device, **kw)
     setup_s = time.perf_counter() - t0
     eng.score(*batches[0])                    # warm-up
     torch.cuda.synchronize()
@@ -601,14 +760,24 @@ def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
         per_read = eng._light_counts[host["lrows"]].sum(axis=1)
         steps["postings_per_read_mean"] = float(per_read.mean())
         steps["postings_per_read_max"] = int(per_read.max())
-    cpu = PlacementEngine(db, device="cpu")
+    table, keys_on_card = eng.table, getattr(eng, "keys_dev", None) is not None
+    del eng
     mat, lens = batches[0]
-    ref = cpu.score(mat[:512], lens[:512])
     r0 = results[0]
     sub = type(r0)(*(x[:512] for x in r0))
+    ref = PlacementEngine(db, device="cpu", **kw).score(mat[:512], lens[:512])
     diff = same_placements(sub, ref)
     check(diff is None, f"engine phase: card vs CPU engine: {diff}")
-    return {"table": eng.table, "reads_per_s": n_batches * batch / dt,
+    if against is not None:
+        other_kw, tol = against
+        other = PlacementEngine(db, device=device, **other_kw).score(
+            mat[:512], lens[:512])
+        diff = same_placements(sub, other, tol,
+                               1e-4 if tol <= 2e-4 else None)
+        check(diff is None, f"engine phase: {kw} vs {other_kw} on the "
+              f"card: {diff}")
+    return {"table": table, "keys_on_card": keys_on_card,
+            "reads_per_s": n_batches * batch / dt,
             "seconds": dt, "score_async_s": issue_s, "setup_s": setup_s,
             "batches": n_batches, "batch_size": batch, "launches": launches,
             "probe_rows_calls": probes, "host_steps_s": steps}
@@ -643,7 +812,8 @@ def host_steps(db, seed: int) -> dict:
 
 
 def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
-              names, ref=None, device: str = "cuda") -> dict:
+              names, ref=None, precision: str = "f32",
+              device: str = "cuda") -> dict:
     import numpy as np
 
     from rappas_tpu_torch import cli
@@ -660,11 +830,12 @@ def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
         for i, s in enumerate(src.tolist()):
             f.write(b">r%d src=%d\n" % (i, s) +
                     mat[s, :lens[s]].tobytes() + b"\n")
-    wd = work / f"cli_{db_path.stem}"
+    wd = work / f"cli_{db_path.stem}_{precision}"
     K.reset_launches()
     t0 = time.perf_counter()
     rc = cli.main(["-p", "p", "-d", str(db_path), "-q", str(fasta),
-                   "-w", str(wd), "--table", "auto", "--device", device])
+                   "-w", str(wd), "--table", "auto", "--precision",
+                   precision, "--device", device])
     dt = time.perf_counter() - t0
     launches = {n: K.LAUNCHES[n] for n in names}
     check(rc == 0, f"CLI exited with {rc}")
@@ -686,7 +857,8 @@ def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
     arr = db.arrays
     first = jp["placements"][:512]
     idx = np.array([int(p["nm"][0][0].split()[1][4:]) for p in first])
-    ref = PlacementEngine(db, device="cpu").score(mat[idx], lens[idx])
+    ref = PlacementEngine(db, device="cpu", precision=precision).score(
+        mat[idx], lens[idx])
     for i, p in enumerate(first):
         best = p["p"][0]
         node = int(ref.top_edges[i, 0])
@@ -706,24 +878,50 @@ def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
 
 
 # ---------------------------------------------------------------------- #
+#: the kernels each main-path run must launch
 DIRECT = ("accumulate_packed", "accumulate_codes", "finalize_wire",
           "ambiguous_pass")
+DIRECT_U16 = ("accumulate_packed_u16", "accumulate_codes_u16",
+              "finalize_wire", "ambiguous_pass_u16")
 POSTINGS = ("dense_side", "ambiguous_postings", "finalize_postings_wire")
-#: kernel -> (source in csrc/, the JAX functions it replaces)
+COMPACT = ("accumulate_compact", "finalize_wire", "ambiguous_pass")
+COMPACT_U16 = ("accumulate_compact_u16", "finalize_wire",
+               "ambiguous_pass_u16")
+HOST_ROWS = ("accumulate_rows", "finalize_wire", "ambiguous_pass")
+HOST_ROWS_U16 = ("accumulate_rows_u16", "finalize_wire",
+                 "ambiguous_pass_u16")
+#: kernel instance -> (source in csrc/, the JAX functions it replaces,
+#: the main-path run whose launches its line reports)
+_E = "rappas_tpu/place/engine.py:"
 SOURCES = {
-    "accumulate_packed": ("accumulate.cu",
-                          "rappas_tpu/place/engine.py:253,195"),
-    "accumulate_codes": ("accumulate.cu",
-                         "rappas_tpu/place/engine.py:175,195"),
-    "finalize_wire": ("finalize.cu", "rappas_tpu/place/engine.py:453,68"),
-    "ambiguous_pass": ("ambiguous.cu",
-                       "rappas_tpu/place/engine.py:907,967,1005"),
-    "dense_side": ("postings.cu", "rappas_tpu/place/engine.py:484,773"),
-    "ambiguous_postings": ("ambiguous.cu",
-                           "rappas_tpu/place/engine.py:950,967,1433"),
-    "finalize_postings_wire": ("postings.cu",
-                               "rappas_tpu/place/engine.py:654,684,68"),
+    "accumulate_packed": ("accumulate.cu", _E + "253,195", "config1", "cli"),
+    "accumulate_codes": ("accumulate.cu", _E + "175,195", "config1", "cli"),
+    "finalize_wire": ("finalize.cu", _E + "453,68", "config1", "cli"),
+    "ambiguous_pass": ("ambiguous.cu", _E + "907,967,1005", "config1",
+                       "cli"),
+    "dense_side": ("postings.cu", _E + "484,773", "config5", "cli"),
+    "ambiguous_postings": ("ambiguous.cu", _E + "950,967,1433", "config5",
+                           "cli"),
+    "finalize_postings_wire": ("postings.cu", _E + "654,684,68", "config5",
+                               "cli"),
+    "accumulate_packed_u16": ("accumulate.cu", _E + "253,195",
+                              "config1_u16", "cli"),
+    "accumulate_codes_u16": ("accumulate.cu", _E + "175,195", "config1_u16",
+                             "cli"),
+    "ambiguous_pass_u16": ("ambiguous.cu", _E + "907,967,1005",
+                           "config1_u16", "cli"),
+    "accumulate_compact": ("accumulate.cu", _E + "278,300,195",
+                           "config1_compact", "engine"),
+    "accumulate_compact_u16": ("accumulate.cu", _E + "278,300,195",
+                               "config6", "cli"),
+    "accumulate_rows": ("accumulate.cu", _E + "195", "config4_compact",
+                        "engine"),
+    "accumulate_rows_u16": ("accumulate.cu", _E + "195", "config4_u16",
+                            "engine"),
 }
+PROTEIN = b"ARNDCQEGHILKMFPSTWYV"
+#: reads of the u16 CLI phases (configs 1 and 6)
+CLI_READS_U16 = 20_000
 
 
 def main() -> int:
@@ -789,6 +987,27 @@ def main() -> int:
         show("config1 cli", cl)
         results["config1"] = {"engine": eng, "cli": cl}
 
+        # config 1 at u16 (direct) and compact f32 ------------------ #
+        ku = kernel_phase(db, args.seed, "u16")
+        for name, r in ku.items():
+            show(f"kernel {name}", r)
+        kern.update(ku)
+        eng = engine_phase(db, args.seed, DIRECT_U16,
+                           engine_kw={"precision": "u16"},
+                           against=({}, 5e-3))
+        check(eng["table"] == "direct", f"config 1 u16: {eng['table']}")
+        show("config1 u16 engine", eng)
+        cl = cli_phase(db, path, work, CLI_READS_U16, args.seed, DIRECT_U16,
+                       precision="u16")
+        show("config1 u16 cli", cl)
+        results["config1_u16"] = {"engine": eng, "cli": cl}
+        eng = engine_phase(db, args.seed, COMPACT,
+                           engine_kw={"table": "compact"},
+                           against=({}, 2e-4))
+        check(eng["keys_on_card"], "config 1 compact: keys not on the card")
+        show("config1 compact engine", eng)
+        results["config1_compact"] = {"engine": eng}
+
         # config 5: postings layout, large tree --------------------- #
         db, path = make_db("config5", config5_db, work)
         t0 = time.perf_counter()
@@ -818,27 +1037,78 @@ def main() -> int:
         results["config5"] = {"engine": eng5, "cli": cl5}
         del db
 
+        # config 6: k=12 on 300 edge slots, u16 -> compact ---------- #
+        db, path = make_db("config6", config6_db, work)
+        limit = PlacementEngine.DIRECT_BYTE_LIMIT
+        got = {p: PlacementEngine.resolve_table(db, "auto", p, limit)
+               for p in ("f32", "u16")}
+        check(got == {"f32": "postings", "u16": "compact"},
+              f"config 6 resolves to {got}")
+        for precision in ("f32", "u16"):
+            t0 = time.perf_counter()
+            ceng = PlacementEngine(db, device="cuda", table="compact",
+                                   precision=precision)
+            print(f"config6 compact {precision} set-up "
+                  f"{time.perf_counter() - t0:.1f} s: table "
+                  f"{tuple(ceng.D.shape)} {ceng.D.nbytes / 1e6:.0f} MB, "
+                  f"keys {ceng.keys_dev.nbytes / 1e6:.0f} MB on the card",
+                  flush=True)
+            ck = compact_kernel_phase(ceng, args.seed, ref)
+            del ceng
+            for name, r in ck.items():
+                show(f"kernel {name}", r)
+            kern.update(ck)
+        eng6 = engine_phase(db, args.seed, COMPACT_U16, ref=ref,
+                            engine_kw={"precision": "u16"})
+        check(eng6["table"] == "compact" and eng6["keys_on_card"],
+              f"config 6 u16: table {eng6['table']}, keys on the card "
+              f"{eng6['keys_on_card']}")
+        show("config6 engine", eng6)
+        cl6 = cli_phase(db, path, work, CLI_READS_U16, args.seed,
+                        COMPACT_U16, ref, precision="u16")
+        show("config6 cli", cl6)
+        results["config6"] = {"engine": eng6, "cli": cl6}
+        del db
+
         # config 4: protein postings, native key probe -------------- #
         db, path = make_db("config4", config4_db, work)
         eng4 = engine_phase(db, args.seed, ("finalize_postings_wire",),
-                            n_batches=4, length=100,
-                            letters=b"ARNDCQEGHILKMFPSTWYV")
+                            n_batches=4, length=100, letters=PROTEIN)
         check(eng4["table"] == "postings" and eng4["probe_rows_calls"] > 0,
               f"config 4: table {eng4['table']}, probe_rows calls "
               f"{eng4['probe_rows_calls']}")
         show("config4 engine", eng4)
         results["config4"] = {"engine": eng4}
+
+        # config 4 compact: 20^8 > 2^31, the host searches the keys - #
+        chain = key_chain(db, args.seed)
+        for precision in ("f32", "u16"):
+            ceng = PlacementEngine(db, device="cuda", table="compact",
+                                   precision=precision)
+            ck = compact_kernel_phase(ceng, args.seed, chain, 100, PROTEIN)
+            del ceng
+            for name, r in ck.items():
+                show(f"kernel {name}", r)
+            kern.update(ck)
+        for tag, names, kw in (("u16", HOST_ROWS_U16, {"precision": "u16"}),
+                               ("compact", HOST_ROWS, {"table": "compact"})):
+            e = engine_phase(db, args.seed, names, n_batches=4, length=100,
+                             letters=PROTEIN, ref=chain, engine_kw=kw)
+            check(e["table"] == "compact" and not e["keys_on_card"],
+                  f"config 4 {tag}: table {e['table']}, keys on the card "
+                  f"{e['keys_on_card']}")
+            show(f"config4 {tag} engine", e)
+            results[f"config4_{tag}"] = {"engine": e}
     results["kernels"] = kern
 
     rows = []
-    for name, (src, replaces) in SOURCES.items():
+    for name, (src, replaces, cfg, phase) in SOURCES.items():
         r = kern[name]
-        cfg = "config1" if name in DIRECT else "config5"
         rows.append({
             "name": name, "route": "cuda",
             "source": f"rappas_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": results[cfg]["cli"]["launches"][name],
+            "launches": results[cfg][phase]["launches"][name],
             "engine_launches": results[cfg]["engine"]["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

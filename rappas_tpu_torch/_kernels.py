@@ -115,11 +115,15 @@ def lib() -> ctypes.CDLL:
             p, i, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                             ctypes.c_float)
             sigs = {
-                "rp_accumulate_packed": [p, i, i, p, i64, p, i, i, i, f, p,
-                                         p, p],
-                "rp_accumulate_codes": [p, i, i, p, i, i, i, i, f, p, p, p],
+                "rp_accumulate_packed": [p, i, i, i, p, i64, p, i, i, i, f,
+                                         p, p, p],
+                "rp_accumulate_codes": [p, i, i, i, p, i, i, i, i, f, p, p,
+                                        p],
+                "rp_accumulate_compact": [p, i, i, p, i, p, i, i, i, i, f,
+                                          p, p],
+                "rp_accumulate_rows": [p, i, i, i, p, i, i, f, p, p],
                 "rp_finalize_wire": [p, i, i, p, f, i, i, i, i, p, p],
-                "rp_ambiguous_pass": [p, i, f, p, p, p, p, p, i, p, p],
+                "rp_ambiguous_pass": [p, i, i, f, p, p, p, p, p, i, p, p],
                 "rp_dense_side": [p, i, p, p, i, p, p],
                 "rp_ambiguous_postings": [p, i, p, i, p, p, p, p, p, p, i,
                                           p, p],

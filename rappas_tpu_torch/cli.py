@@ -3,10 +3,12 @@
 RAPPAS, ``ArgumentsParser_v2.java``) plus ``--device``.
 
 Ported so far: ``-p p`` placement on one device (``--dp`` 0 or 1, ``--mp``
-1) with a DB whose table resolves to the direct or the postings layout
-(``--table auto``, ``direct`` or ``postings``).  The options that reach
-code not ported yet (``--table compact``, ``--precision u16``, ...) exit
-with status 2 and name the ROADMAP item that ports them.
+1) in every table layout (``--table auto``, ``direct``, ``compact`` or
+``postings``) and both precisions (``--precision f32`` or ``u16``; u16
+takes the direct or compact table).  The options that reach code not
+ported yet (``-p b``, ``--dp``/``--mp`` above 1, multi-host,
+``--profile``) exit with status 2 and name the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -115,8 +117,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-size", type=int, default=1024)
     p.add_argument("--precision", choices=["f32", "u16"], default="f32",
                    help="device score-table precision: f32 = strict "
-                        "reference parity, u16 = fixed-point (2x faster, "
-                        "error at f32-rounding scale)")
+                        "reference parity, u16 = fixed-point deltas (half "
+                        "the table's bytes, error at f32-rounding scale; "
+                        "direct or compact table only)")
     p.add_argument("--table",
                    choices=["auto", "direct", "compact", "postings"],
                    default="auto",
@@ -141,12 +144,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host-id", type=int, default=0,
                    help="this host's rank in [0, num-hosts)")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="jax.distributed coordinator address (needed on "
-                        "multi-host TPU pods; rank 0 then merges the "
-                        "per-host jplace parts)")
+                   help="coordinator address of a multi-host run "
+                        "(not yet ported: exits with status 2)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="capture a JAX profiler trace of the placement "
-                        "into DIR (view with TensorBoard/Perfetto)")
+                   help="capture a profiler trace of the placement into "
+                        "DIR (not yet ported: exits with status 2)")
     p.add_argument("--calibration", action="store_true",
                    help="calibrate a normalized-score lower bound from "
                         "random sequences at DB build (the reference's "
@@ -168,7 +170,7 @@ def main(argv=None) -> int:
             raise NotPorted("-p b (DB build) is not yet ported (ROADMAP "
                             "queue 1 item 2)")
         return run_placement(args, call_string)
-    except (NotPorted, NotImplementedError) as e:
+    except NotPorted as e:
         print(f"rappas-tpu-torch: {e}", file=sys.stderr)
         return 2
 

@@ -39,15 +39,44 @@ def db_from_arrays(k: int, omega: float, alphabet: str, thr_log10,
         meta=dict(meta or {}))
 
 
-def device_tables(db: PhyloKmerDB, device) -> tuple:
-    """``(D, scale, thr)`` on ``device``: the direct delta table
-    f32[S^k + 1, E] (last row all zero: the miss row), the table's scale
-    (1 for f32 tables) and the word threshold log10, both 0-d f32."""
-    D = torch.from_numpy(db.dense_matrix(pad_rows=1)).to(device)
-    scale = torch.tensor(1.0, dtype=torch.float32, device=device)
-    thr = torch.tensor(float(db.thr_log10), dtype=torch.float32,
-                       device=device)
-    return D, scale, thr
+class DeviceTables(NamedTuple):
+    """A dense layout of a DB on the device."""
+    D: torch.Tensor            # f32 or uint16 [n_rows, E], last row zero
+    scale: torch.Tensor        # 0-d f32: delta = D * scale
+    thr: torch.Tensor          # 0-d f32 word threshold log10
+    keys: torch.Tensor | None  # int32[n_kmers] sorted (compact, S^k < 2^31)
+
+
+def device_tables(db: PhyloKmerDB, device, table: str = "direct",
+                  precision: str = "f32") -> DeviceTables:
+    """The direct or compact table of ``db`` on ``device``
+    (``rappas_tpu/place/engine.py:1079-1104``).
+
+    ``D`` is ``dense_matrix`` (``[S^k + 1, E]``, row = k-mer index) or
+    ``compact_matrix`` (``[n_kmers + 1, E]``, row = position in the sorted
+    keys), f32 or, with ``precision="u16"``, their fixed-point ``_u16``
+    forms; the last row is all zero (the miss row).  ``scale`` is 1 for
+    f32 tables.  ``keys`` is set for the compact table when k-mer indices
+    fit int32 (``S^k <= 2^31 - 1``: the card searches the keys), else
+    None (the host searches them)."""
+    if table not in ("direct", "compact"):
+        raise ValueError(f"no dense table for layout {table!r}")
+    if precision not in ("f32", "u16"):
+        raise ValueError(f"precision must be f32 or u16, got {precision!r}")
+    if precision == "u16":
+        D, scale = (db.dense_matrix_u16(pad_rows=1) if table == "direct"
+                    else db.compact_matrix_u16(pad_rows=1))
+    else:
+        D = (db.dense_matrix(pad_rows=1) if table == "direct"
+             else db.compact_matrix(pad_rows=1))
+        scale = np.float32(1.0)
+    D = torch.from_numpy(D).to(device)
+    keys = None
+    if table == "compact" and db.alphabet.n_states ** db.k <= 2 ** 31 - 1:
+        keys = torch.from_numpy(db.keys.astype(np.int32)).to(device)
+    f32 = dict(dtype=torch.float32, device=device)
+    return DeviceTables(D, torch.tensor(float(scale), **f32),
+                        torch.tensor(float(db.thr_log10), **f32), keys)
 
 
 class PostingsState(NamedTuple):

@@ -1,32 +1,50 @@
-// K1 accumulate_packed and K2 accumulate_codes: k-mer row ids and the
-// row sum over the direct delta table, fused in one pass per read.
+// K1 accumulate_packed, K2 accumulate_codes, C1 accumulate_compact and C2
+// accumulate_rows: the row ids of a read's k-mer windows and the row sum
+// over a dense delta table, fused in one pass per read.
 //
 // Replaces (rappas_tpu/place/engine.py):
-//   K1: kmer_rows_packed (:253) + accumulate (:195), 2-bit packed reads;
-//   K2: kmer_rows (:175) + accumulate (:195), int8 state codes (reads that
-//       carry an ambiguity or an invalid code, and every read of a
-//       non-DNA alphabet).
+//   K1: kmer_rows_packed (:253) + accumulate (:195), 2-bit packed reads on
+//       the direct table;
+//   K2: kmer_rows (:175) + accumulate (:195), int8 state codes on the
+//       direct table (reads that carry an ambiguity or an invalid code, and
+//       every read of a non-DNA alphabet);
+//   C1: kmer_indices64 (:278) + compact_rows (:300) + accumulate (:195),
+//       int8 state codes on the compact table, the sorted keys searched on
+//       the card (k-mer index spaces that fit int32);
+//   C2: accumulate (:195) over int32 rows that the host looked up in the
+//       keys (index spaces above 31 bits: amino k >= 8, DNA k >= 16;
+//       engine.py:1370-1373).
 //
 //   acc[dest[b], e] = scale * sum_q D[row(b, q), e]
 //
-// row(b, q) is the Horner roll of the k codes of window q; a window past
-// len - k (K1) or holding a negative code (K2) is the all-zero miss row
-// and is skipped, which leaves every sum bitwise unchanged.
+// Each is instantiated for an f32 and a uint16 table.  A uint16 value
+// widens to f32 exactly on load, the sum stays f32, and scale multiplies
+// it once at the end, as the JAX engine does (:1363, :1378): a sum of
+// quantised values below 2^24 is exact in f32 in any order.
+//
+// row(b, q): K1/K2 roll the k codes of window q in Horner order (the row
+// is the k-mer index); C1 rolls the int32 index and lower-bounds it in
+// keys[n] (a hit is its position); C2 reads it.  A window past len - k
+// (K1), holding a negative code (K2, C1), absent from the keys (C1) or
+// given as the last row (C2) is the all-zero miss row and is skipped,
+// which leaves every sum bitwise unchanged.
 //
 // What bounds it on an H100: bytes.  Each valid window reads one E-wide
-// f32 row of D (E = 300 at BASELINE config 1: 1.2 KB), so a batch moves
-// about B * Q * E * 4 bytes of row traffic, and the 79 MB table of
-// config 1 does not fit the 50 MB L2, so most of those rows come from
-// DRAM.  The least the card could move is the table once plus the
-// inputs and the output (chip_smoke.py reports both).
+// row of D (E = 300 at BASELINE config 1: 1.2 KB in f32, 600 B in u16),
+// so a batch moves about B * Q * E * itemsize bytes of row traffic, and a
+// table past the 50 MB L2 (config 1's 79 MB direct table; the 1.2 GB u16
+// compact table of a k=12 DB) serves most rows from DRAM.  C1 also makes
+// about log2(n) dependent probes of the keys per window (21 for 2M keys);
+// its 8 MB key array fits L2.  The least the card could move is each
+// distinct row once plus the inputs and the output (chip_smoke.py reports
+// both).
 //
-// Design: one block per read.  The block rolls kTile row ids into
-// shared memory at a time (one thread per window), then its threads
-// span E and read each row with coalesced 4-byte loads, summing over q
-// in registers in f32 (kCols columns per thread per pass, more passes
-// when E > kThreads * kCols).  No block carries state to another, so the
-// blocks run in any order.  Simple first: no async copies, no row reuse
-// across reads.
+// Design: one block per read.  The block resolves kTile row ids into
+// shared memory at a time (one thread per window), then its threads span
+// E and read each row with coalesced loads, summing over q in registers
+// in f32 (kCols columns per thread per pass, more passes when E > kThreads
+// * kCols).  No block carries state to another, so the blocks run in any
+// order.  Simple first: no async copies, no row reuse across reads.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -37,9 +55,18 @@ constexpr int kThreads = 128;
 constexpr int kCols = 4;
 constexpr int kTile = 256;
 
-// base i of a 2-bit packed read sits at bits 2 * (i % 4) of byte i / 4
+// K1: base i of a 2-bit packed read sits at bits 2 * (i % 4) of byte i / 4;
+// windows past lengths[b] - k miss
 struct PackedRow {
-  __device__ static int row(const uint8_t* s, int q, int k, int, int) {
+  const uint8_t* seq;
+  int64_t stride;
+  const int32_t* lengths;
+  int L, k, miss;
+  __device__ int windows(int b) const {
+    return min(L - k + 1, max(lengths[b] - k + 1, 0));
+  }
+  __device__ int operator()(int b, int q) const {
+    const uint8_t* s = seq + b * stride;
     int r = 0;
     for (int i = 0; i < k; ++i) {
       const int p = q + i;
@@ -49,33 +76,69 @@ struct PackedRow {
   }
 };
 
-// int8 state codes; a negative code (ambiguity or padding) -> miss row
+// the Horner index of window q of int8 codes[b, L], or -1 when it holds a
+// negative code (ambiguity or padding)
+__device__ int kmer_index(const int8_t* codes, int L, int k, int n_states,
+                          int b, int q) {
+  const int8_t* s = codes + static_cast<int64_t>(b) * L + q;
+  int r = 0;
+  for (int i = 0; i < k; ++i) {
+    const int c = s[i];
+    if (c < 0) return -1;
+    r = r * n_states + c;
+  }
+  return r;
+}
+
+// K2: the index is the direct table's row
 struct CodeRow {
-  __device__ static int row(const uint8_t* s, int q, int k, int n_states,
-                            int miss) {
-    int r = 0;
-    for (int i = 0; i < k; ++i) {
-      const int c = static_cast<int8_t>(s[q + i]);
-      if (c < 0) return miss;
-      r = r * n_states + c;
-    }
-    return r;
+  const int8_t* codes;
+  int L, k, n_states, miss;
+  __device__ int windows(int) const { return L - k + 1; }
+  __device__ int operator()(int b, int q) const {
+    const int r = kmer_index(codes, L, k, n_states, b, q);
+    return r < 0 ? miss : r;
   }
 };
 
-template <class Decode>
+// C1: the index's position in the sorted keys[n], or n (= miss)
+struct CompactRow {
+  const int8_t* codes;
+  int L, k, n_states;
+  const int32_t* keys;
+  int miss;  // = n
+  __device__ int windows(int) const { return L - k + 1; }
+  __device__ int operator()(int b, int q) const {
+    const int idx = kmer_index(codes, L, k, n_states, b, q);
+    if (idx < 0) return miss;
+    int lo = 0, hi = miss;
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (__ldg(keys + mid) < idx) lo = mid + 1;
+      else hi = mid;
+    }
+    return (lo < miss && __ldg(keys + lo) == idx) ? lo : miss;
+  }
+};
+
+// C2: rows[b, q] as the host gave them
+struct GivenRow {
+  const int32_t* rows;
+  int Q, miss;
+  __device__ int windows(int) const { return Q; }
+  __device__ int operator()(int b, int q) const {
+    return __ldg(rows + static_cast<int64_t>(b) * Q + q);
+  }
+};
+
+template <class Rows, class T>
 __global__ void __launch_bounds__(kThreads)
-accumulate_kernel(const float* __restrict__ D, int E, int miss,
-                  const uint8_t* __restrict__ seq, int64_t seq_stride,
-                  const int32_t* __restrict__ lengths, int L, int k,
-                  int n_states, float scale,
-                  const int32_t* __restrict__ dest,
-                  float* __restrict__ acc) {
+accumulate_kernel(Rows row_of, const T* __restrict__ D, int E, float scale,
+                  const int32_t* __restrict__ dest, float* __restrict__ acc) {
   __shared__ int rows[kTile];
   const int b = blockIdx.x;
-  const uint8_t* s = seq + b * seq_stride;
-  int nq = L - k + 1;
-  if (lengths != nullptr) nq = min(nq, max(lengths[b] - k + 1, 0));
+  const int nq = row_of.windows(b);
+  const int miss = row_of.miss;
   float* out = acc + static_cast<int64_t>(dest != nullptr ? dest[b] : b) * E;
   for (int c0 = 0; c0 < E; c0 += kThreads * kCols) {
     float a[kCols];
@@ -85,17 +148,17 @@ accumulate_kernel(const float* __restrict__ D, int E, int miss,
       const int n = min(kTile, nq - t0);
       __syncthreads();  // the previous tile's rows are consumed
       for (int i = threadIdx.x; i < n; i += kThreads)
-        rows[i] = Decode::row(s, t0 + i, k, n_states, miss);
+        rows[i] = row_of(b, t0 + i);
       __syncthreads();
 #pragma unroll 4
       for (int i = 0; i < n; ++i) {
         const int r = rows[i];
         if (r == miss) continue;  // all-zero row, uniform over the block
-        const float* d = D + static_cast<int64_t>(r) * E + c0 + threadIdx.x;
+        const T* d = D + static_cast<int64_t>(r) * E + c0 + threadIdx.x;
 #pragma unroll
         for (int j = 0; j < kCols; ++j)
           if (c0 + j * kThreads + static_cast<int>(threadIdx.x) < E)
-            a[j] += __ldg(d + j * kThreads);
+            a[j] += static_cast<float>(__ldg(d + j * kThreads));
       }
     }
 #pragma unroll
@@ -106,34 +169,65 @@ accumulate_kernel(const float* __restrict__ D, int E, int miss,
   }
 }
 
+// one launch of B blocks on an f32 (u16 == 0) or uint16 table
+template <class Rows>
+int launch(Rows rows, const void* D, int u16, int E, float scale,
+           const int32_t* dest, float* acc, int B, cudaStream_t stream) {
+  if (B > 0) {
+    if (u16)
+      accumulate_kernel<<<B, kThreads, 0, stream>>>(
+          rows, static_cast<const uint16_t*>(D), E, scale, dest, acc);
+    else
+      accumulate_kernel<<<B, kThreads, 0, stream>>>(
+          rows, static_cast<const float*>(D), E, scale, dest, acc);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
 
+// D: f32 (u16 = 0) or uint16 (u16 = 1) [miss + 1, E], row miss all zero;
+// scale multiplies each sum; dest: int32[B] rows of acc to write, or null
+// for rows 0..B-1; acc: f32.  Each returns cudaGetLastError().
+
 // K1.  packed: uint8[B, seq_stride] 2-bit reads; lengths: int32[B];
-// L: padded read length (Q = L - k + 1 windows); dest: int32[B] rows of
-// acc to write, or null for rows 0..B-1.  Returns cudaGetLastError().
-int rp_accumulate_packed(const float* D, int E, int miss,
+// L: padded read length (Q = L - k + 1 windows).
+int rp_accumulate_packed(const void* D, int u16, int E, int miss,
                          const uint8_t* packed, int64_t seq_stride,
                          const int32_t* lengths, int B, int L, int k,
                          float scale, const int32_t* dest, float* acc,
                          cudaStream_t stream) {
-  if (B > 0)
-    accumulate_kernel<PackedRow><<<B, kThreads, 0, stream>>>(
-        D, E, miss, packed, seq_stride, lengths, L, k, 4, scale, dest, acc);
-  return static_cast<int>(cudaGetLastError());
+  return launch(PackedRow{packed, seq_stride, lengths, L, k, miss}, D, u16,
+                E, scale, dest, acc, B, stream);
 }
 
 // K2.  codes: int8[B, L] state codes (row stride L).
-int rp_accumulate_codes(const float* D, int E, int miss,
+int rp_accumulate_codes(const void* D, int u16, int E, int miss,
                         const int8_t* codes, int B, int L, int k,
                         int n_states, float scale, const int32_t* dest,
                         float* acc, cudaStream_t stream) {
-  if (B > 0)
-    accumulate_kernel<CodeRow><<<B, kThreads, 0, stream>>>(
-        D, E, miss, reinterpret_cast<const uint8_t*>(codes), L, nullptr, L,
-        k, n_states, scale, dest, acc);
-  return static_cast<int>(cudaGetLastError());
+  return launch(CodeRow{codes, L, k, n_states, miss}, D, u16, E, scale, dest,
+                acc, B, stream);
+}
+
+// C1.  D: [n + 1, E] compact table; keys: int32[n] sorted; codes: int8[B, L]
+// with n_states^k <= 2^31 - 1; acc: f32[B, E].
+int rp_accumulate_compact(const void* D, int u16, int E, const int32_t* keys,
+                          int n, const int8_t* codes, int B, int L, int k,
+                          int n_states, float scale, float* acc,
+                          cudaStream_t stream) {
+  return launch(CompactRow{codes, L, k, n_states, keys, n}, D, u16, E, scale,
+                nullptr, acc, B, stream);
+}
+
+// C2.  rows: int32[B, Q] rows of D (miss = the last row); acc: f32[B, E].
+int rp_accumulate_rows(const void* D, int u16, int E, int miss,
+                       const int32_t* rows, int B, int Q, float scale,
+                       float* acc, cudaStream_t stream) {
+  return launch(GivenRow{rows, Q, miss}, D, u16, E, scale, nullptr, acc, B,
+                stream);
 }
 
 const char* rp_error_string(int err) {

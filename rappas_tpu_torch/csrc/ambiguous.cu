@@ -4,8 +4,9 @@
 //
 // K4 replaces (rappas_tpu/place/engine.py) alt_delta_rows (:907) +
 // ambiguous_contrib (:967) + ambiguous_pass (:1005): an alternative's row
-// is a row of the direct table D times scale, and window w adds into
-// acc[win_dest[w]] with win_dest = the window's read.
+// is a row of the direct or compact table D, f32 or uint16, times scale
+// (per element, before the exp2, as alt_delta_rows scales it), and window
+// w adds into acc[win_dest[w]] with win_dest = the window's read.
 //
 // P2 replaces alt_delta_rows_postings (:950) + ambiguous_contrib (:967) +
 // the scatter of window contributions into the dense slots (:1433-1438):
@@ -51,14 +52,16 @@ constexpr float kInvLog2Of10 = 0.301029995663981195f;  // f32(1 / log2(10))
 constexpr float kDeltaTiny = 1e-30f;                   // db.DELTA_TINY
 constexpr float kSumFloor = 1e-30f;
 
-// K4: delta rows of the direct table
+// K4: delta rows of a direct or compact table of f32 or uint16 values
+template <class T>
 struct DirectRows {
-  const float* D;
+  const T* D;
   int E;
   float scale;
   const int32_t* alt_rows;
   __device__ float operator()(int i, int e) const {
-    return __fmul_rn(__ldg(D + static_cast<int64_t>(alt_rows[i]) * E + e),
+    return __fmul_rn(static_cast<float>(
+                         __ldg(D + static_cast<int64_t>(alt_rows[i]) * E + e)),
                      scale);
   }
 };
@@ -115,18 +118,27 @@ ambiguous_kernel(Rows rows, int E, const int32_t* __restrict__ win_off,
 
 extern "C" {
 
-// K4.  D: f32[R, E]; alt_rows: int32[n_alt]; win_off: int32[n_win + 1]
-// ascending; win_read: int32[n_win]; win_inv_w: f32[n_win]; win_is_mean:
-// uint8[n_win]; acc: f32[B, E], updated in place.
-int rp_ambiguous_pass(const float* D, int E, float scale,
+// K4.  D: f32 (u16 = 0) or uint16 (u16 = 1) [R, E]; alt_rows:
+// int32[n_alt]; win_off: int32[n_win + 1] ascending; win_read:
+// int32[n_win]; win_inv_w: f32[n_win]; win_is_mean: uint8[n_win]; acc:
+// f32[B, E], updated in place.
+int rp_ambiguous_pass(const void* D, int u16, int E, float scale,
                       const int32_t* alt_rows, const int32_t* win_off,
                       const int32_t* win_read, const float* win_inv_w,
                       const uint8_t* win_is_mean, int n_win, float* acc,
                       cudaStream_t stream) {
-  if (n_win > 0)
-    ambiguous_kernel<<<n_win, kThreads, 0, stream>>>(
-        DirectRows{D, E, scale, alt_rows}, E, win_off, win_read, win_inv_w,
-        win_is_mean, acc);
+  if (n_win > 0) {
+    if (u16)
+      ambiguous_kernel<<<n_win, kThreads, 0, stream>>>(
+          DirectRows<uint16_t>{static_cast<const uint16_t*>(D), E, scale,
+                               alt_rows},
+          E, win_off, win_read, win_inv_w, win_is_mean, acc);
+    else
+      ambiguous_kernel<<<n_win, kThreads, 0, stream>>>(
+          DirectRows<float>{static_cast<const float*>(D), E, scale,
+                            alt_rows},
+          E, win_off, win_read, win_inv_w, win_is_mean, acc);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,7 @@
 """Placement engine on PyTorch: batched k-mer scoring on the device.
 
-Port of ``rappas_tpu/place/engine.py`` for the **direct** and
-**postings** table layouts.
+Port of ``rappas_tpu/place/engine.py`` for the **direct**, **compact**
+and **postings** table layouts, the first two in f32 or u16.
 
 Direct (small trees): the phylo-kmer table is a dense delta matrix
 ``D[S^k + 1, E]`` on the device (``E`` = per-node score slots of the
@@ -26,6 +26,21 @@ batch with a few ambiguous reads still sends the rest packed (the JAX
 engine packs a batch only when no read in it needs codes; the results
 are the same).
 
+Compact (``D[n_kmers + 1, E]``, row = position in the sorted keys; for
+DBs too large for the direct table and not light-dominated, and for
+every u16 run the direct table does not take): when k-mer indices fit
+int32, every read goes as codes to C1 ``accumulate_compact``, which
+searches the keys on the card (the JAX engine packs only for direct);
+above 31 bits (amino k >= 8, DNA k >= 16) the host searches the keys
+(``_db_lookup``) and C2 ``accumulate_rows`` sums the rows.  Ambiguity
+alternatives take their rows from the host search in both cases, then
+K4 and K3 run as above.
+
+``precision="u16"`` (direct or compact; postings is f32-only): the table
+holds fixed-point deltas (``db.dense_matrix_u16``), the kernels' u16
+instances sum them in f32 and apply the scale once, and K4 scales each
+alternative's row before its ``exp2``.
+
 Postings (large trees, protein; ``convert.postings_device_tables``):
 k-mers with at most ``postings_width`` postings live in one light table
 ``pairs[nl + 1, 2P]`` (edge ids, then bit-cast deltas), the others in a
@@ -49,9 +64,6 @@ lookups, the table layout rule and the wire decode.  Per batch the host
 inputs travel in ONE pinned staging buffer with one H2D copy on the
 engine's stream, and the result comes back as one pinned copy of the
 wire words; ``result()`` waits on the event recorded after it.
-
-Not ported yet (they raise ``NotImplementedError``): the compact layout
-and ``precision="u16"`` -- ROADMAP queue 1.
 """
 
 from __future__ import annotations
@@ -302,19 +314,15 @@ class PlacementEngine:
         if precision not in ("f32", "u16"):
             raise ValueError(f"precision must be f32 or u16, got "
                              f"{precision!r}")
-        if precision == "u16":
-            raise NotImplementedError(
-                "precision='u16' is not yet ported (ROADMAP queue 1 "
-                "item 1)")
         table = self.resolve_table(db, table, precision,
                                    self.DIRECT_BYTE_LIMIT, postings_width)
-        if table not in ("direct", "postings"):
-            if table != "compact":
-                raise ValueError(f"table must be auto/direct/compact/"
-                                 f"postings, got {table!r}")
-            raise NotImplementedError(
-                "table='compact' is not yet ported (ROADMAP queue 1 "
-                "item 4)")
+        if table not in ("direct", "compact", "postings"):
+            raise ValueError(f"table must be auto/direct/compact/"
+                             f"postings, got {table!r}")
+        if table == "postings" and precision == "u16":
+            raise ValueError(
+                "postings table mode is f32-only (the sort payload "
+                "carries exact deltas); use precision='f32'")
         self.db = db
         self.k = db.k
         self.alphabet = db.alphabet
@@ -328,9 +336,10 @@ class PlacementEngine:
         self.wire_k, self.wide, _ = kernels.wire_format(self.n_edges,
                                                         keep_at_most)
         self.thr = float(np.float32(db.thr_log10))
-        if table == "direct":
-            self.D, scale, _ = device_tables(db, self.device)
-            self.scale = float(scale)
+        if table != "postings":
+            tabs = device_tables(db, self.device, table, precision)
+            self.D, self.keys_dev = tabs.D, tabs.keys
+            self.scale = float(tabs.scale)
             self.n_rows = self.D.shape[0]
         else:
             ps = postings_device_tables(db, postings_width, self.device,
@@ -447,8 +456,67 @@ class PlacementEngine:
         if self.table == "postings":
             return self._score_postings(codes, matrix, lengths)
         host = {"lengths": lengths}
-        # 2-bit packing fabricates k-mers from negative codes (they pack
-        # as 0 == 'A'), so only reads clean inside their length go packed
+        S = self.alphabet.n_states
+        if self.table == "direct":
+            self._split_direct(codes, lengths, host)
+        elif self.keys_dev is not None:
+            # compact, int32 index space: every read goes as codes to C1,
+            # which searches the keys on the card
+            host["codes"] = codes
+        else:
+            # compact, index space above 31 bits: the host searches the
+            # keys (engine.py:1370-1373) and C2 sums the rows
+            host["rows"] = self._db_lookup(
+                host_kmer_indices(codes, lengths, self.k, S))
+        amb = (self._expand_ambiguities_host(codes, matrix, lengths)
+               if self.treat_ambiguities else None)
+        if amb is not None:
+            kidx, alt_win, win_read, win_inv_w, is_mean = amb
+            host["alt_rows"] = (kidx.astype(np.int32)
+                                if self.table == "direct"
+                                else self._db_lookup(kidx))
+            host["win_off"] = window_offsets(alt_win, win_read.shape[0])
+            host["win_read"] = win_read.astype(np.int32)
+            host["win_inv_w"] = win_inv_w.astype(np.float32)
+            host["win_is_mean"] = is_mean.astype(np.uint8)
+
+        with self._on_stream():
+            dev = self._stage(host)
+            if self.table == "compact":
+                acc = (kernels.accumulate_compact(
+                    self.D, self.keys_dev, dev["codes"], self.k, S,
+                    self.scale) if "codes" in dev else
+                    kernels.accumulate_rows(self.D, dev["rows"], self.scale))
+            else:
+                acc = torch.empty((B, self.D.shape[1]), dtype=torch.float32,
+                                  device=self.device)
+            if self.table == "direct" and "packed" in dev:
+                kernels.accumulate_packed(
+                    self.D, dev["packed"],
+                    dev.get("packed_lengths", dev["lengths"]), L, self.k,
+                    self.scale, acc=acc, dest=dev.get("packed_dest"))
+            if self.table == "direct" and "codes" in dev:
+                kernels.accumulate_codes(
+                    self.D, dev["codes"], self.k, S, self.scale, acc=acc,
+                    dest=dev.get("codes_dest"))
+            if amb is not None:
+                kernels.ambiguous_pass_(
+                    acc, self.D, self.scale, dev["alt_rows"],
+                    dev["win_off"], dev["win_read"], dev["win_inv_w"],
+                    dev["win_is_mean"])
+            wire = kernels.finalize_wire(acc, dev["lengths"], self.thr,
+                                         self.k, self.keep_at_most)
+            return self._fetch(wire)
+
+    def _split_direct(self, codes: np.ndarray, lengths: np.ndarray,
+                      host: dict) -> None:
+        """The direct table's per-read split into ``host``: reads clean
+        inside their length go 2-bit packed to K1 (``packed``, with
+        ``packed_lengths``/``packed_dest`` when some reads are coded), the
+        others as int8 codes to K2 (``codes``, ``codes_dest``).  2-bit
+        packing would fabricate k-mers from negative codes (they pack as
+        0 == 'A'), and a non-DNA alphabet sends every read coded."""
+        B, L = codes.shape
         if self.alphabet.n_states == 4:
             coded = ((codes < 0) &
                      (np.arange(L)[None, :] < lengths[:, None])).any(axis=1)
@@ -470,37 +538,13 @@ class PlacementEngine:
                 host["codes_dest"] = sel.astype(np.int32)
             else:
                 host["codes"] = codes
-        amb = (self._expand_ambiguities_host(codes, matrix, lengths)
-               if self.treat_ambiguities else None)
-        if amb is not None:
-            kidx, alt_win, win_read, win_inv_w, is_mean = amb
-            host["alt_rows"] = kidx.astype(np.int32)
-            host["win_off"] = window_offsets(alt_win, win_read.shape[0])
-            host["win_read"] = win_read.astype(np.int32)
-            host["win_inv_w"] = win_inv_w.astype(np.float32)
-            host["win_is_mean"] = is_mean.astype(np.uint8)
 
-        with self._on_stream():
-            dev = self._stage(host)
-            acc = torch.empty((B, self.D.shape[1]), dtype=torch.float32,
-                              device=self.device)
-            if "packed" in dev:
-                kernels.accumulate_packed(
-                    self.D, dev["packed"],
-                    dev.get("packed_lengths", dev["lengths"]), L, self.k,
-                    self.scale, acc=acc, dest=dev.get("packed_dest"))
-            if "codes" in dev:
-                kernels.accumulate_codes(
-                    self.D, dev["codes"], self.k, self.alphabet.n_states,
-                    self.scale, acc=acc, dest=dev.get("codes_dest"))
-            if amb is not None:
-                kernels.ambiguous_pass_(
-                    acc, self.D, self.scale, dev["alt_rows"],
-                    dev["win_off"], dev["win_read"], dev["win_inv_w"],
-                    dev["win_is_mean"])
-            wire = kernels.finalize_wire(acc, dev["lengths"], self.thr,
-                                         self.k, self.keep_at_most)
-            return self._fetch(wire)
+    @functools.cached_property
+    def _db_lookup(self):
+        """The compact table's host key search ``kidx -> rows`` (miss and
+        -1 -> ``n_kmers``), bucket-indexed for big key sets
+        (``rappas_tpu/place/engine.py:2021-2023``)."""
+        return make_key_lookup(self.db.keys)
 
     def _on_stream(self):
         return (torch.cuda.stream(self._stream) if self._stream is not None

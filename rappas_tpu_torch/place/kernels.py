@@ -1,4 +1,5 @@
-"""Device kernels of ``-p p`` placement on the direct and postings tables.
+"""Device kernels of ``-p p`` placement on the direct, compact and
+postings tables.
 
 Two parts:
 
@@ -6,19 +7,27 @@ Two parts:
   of the jitted functions of ``rappas_tpu/place/engine.py`` (direct:
   :func:`kmer_rows_packed`, :func:`kmer_rows`, :func:`accumulate`,
   :func:`finalize`, :func:`pack_wire`, :func:`alt_delta_rows`,
-  :func:`ambiguous_contrib`, :func:`ambiguous_pass`; postings:
+  :func:`ambiguous_contrib`, :func:`ambiguous_pass`; compact:
+  :func:`kmer_indices64`, :func:`compact_rows`; postings:
   :func:`gather_rows`, :func:`scatter_slots`, :func:`light_gather`,
   :func:`alt_delta_rows_postings`, :func:`finalize_postings`).  They run
   on any device; the tests hold them against the JAX functions, and
   ``chip_smoke.py`` holds the kernels against them on the card;
-* the **wrappers** of the seven CUDA kernels of ``csrc/`` (direct:
+* the **wrappers** of the nine CUDA kernels of ``csrc/`` (direct:
   :func:`accumulate_packed`, :func:`accumulate_codes`,
-  :func:`finalize_wire`, :func:`ambiguous_pass_`; postings:
+  :func:`finalize_wire`, :func:`ambiguous_pass_`; compact:
+  :func:`accumulate_compact`, :func:`accumulate_rows`; postings:
   :func:`dense_side`, :func:`ambiguous_postings_`,
   :func:`finalize_postings_wire`).  A wrapper given CPU tensors computes
   its plain composition; given CUDA tensors it launches its kernel on the
   current stream or raises -- it never falls back.  Each launch adds one
-  to :data:`LAUNCHES`.
+  to :data:`LAUNCHES`, under the kernel's name, with ``_u16`` appended
+  for the instance that reads a uint16 table.
+
+The direct and compact tables come in f32 or uint16 (fixed point,
+``delta = D * scale``): the sums run in f32 over the raw table values
+and the caller's ``scale`` multiplies the result once, as in the JAX
+engine; ambiguity rows are scaled per element (``alt_delta_rows``).
 """
 
 from __future__ import annotations
@@ -33,11 +42,15 @@ from rappas_tpu_torch.db import DELTA_TINY, LIGHT_PAD_EDGE
 LOG2_10 = float(np.float32(np.log2(10.0)))
 INV_LOG2_10 = float(np.float32(1.0 / np.log2(10.0)))
 
-#: kernel launches, one count per kernel, added where the wrapper
-#: launches it (plain-version calls on CPU tensors do not count)
-LAUNCHES = {"accumulate_packed": 0, "accumulate_codes": 0,
-            "finalize_wire": 0, "ambiguous_pass": 0, "dense_side": 0,
-            "ambiguous_postings": 0, "finalize_postings_wire": 0}
+#: kernel launches, one count per kernel and table type, added where the
+#: wrapper launches it (plain-version calls on CPU tensors do not count)
+LAUNCHES = {name + sfx: 0
+            for name in ("accumulate_packed", "accumulate_codes",
+                         "accumulate_compact", "accumulate_rows",
+                         "ambiguous_pass")
+            for sfx in ("", "_u16")}
+LAUNCHES.update({"finalize_wire": 0, "dense_side": 0,
+                 "ambiguous_postings": 0, "finalize_postings_wire": 0})
 
 #: wire rows carry edge ids as u16 below this many edge slots, as int32
 #: at or above it (65535 is the u16 "no edge" mark)
@@ -58,16 +71,8 @@ def kmer_rows(codes: torch.Tensor, k: int, n_states: int,
     """[B, L] int8 codes -> [B, Q] int32 row indices into D; windows
     holding a negative code (ambiguity or padding) map to the all-zero
     miss row ``n_rows - 1``."""
-    B, L = codes.shape
-    Q = L - k + 1
-    c = codes.to(torch.int32)
-    idx = torch.zeros((B, Q), dtype=torch.int32, device=codes.device)
-    valid = torch.ones((B, Q), dtype=torch.bool, device=codes.device)
-    for i in range(k):
-        w = c[:, i:i + Q]
-        valid &= w >= 0
-        idx = idx * n_states + w.clamp_min(0)
-    return idx.masked_fill(~valid, n_rows - 1)
+    idx = kmer_indices64(codes, k, n_states)
+    return idx.masked_fill(idx < 0, n_rows - 1)
 
 
 def kmer_rows_packed(packed: torch.Tensor, lengths: torch.Tensor, k: int,
@@ -90,8 +95,41 @@ def kmer_rows_packed(packed: torch.Tensor, lengths: torch.Tensor, k: int,
     return idx.masked_fill(~valid, n_rows - 1)
 
 
+def kmer_indices64(codes: torch.Tensor, k: int,
+                   n_states: int) -> torch.Tensor:
+    """[B, L] int8 codes -> [B, Q] int32 k-mer indices, -1 for a window
+    that holds a negative code (ambiguity or padding).  ``S^k`` must fit
+    int32; above that the host computes the indices
+    (``engine.host_kmer_indices``), as the JAX engine does."""
+    if n_states ** k > 2 ** 31 - 1:
+        raise ValueError(f"{n_states}^{k} k-mer indices do not fit int32")
+    B, L = codes.shape
+    Q = L - k + 1
+    c = codes.to(torch.int32)
+    idx = torch.zeros((B, Q), dtype=torch.int32, device=codes.device)
+    valid = torch.ones((B, Q), dtype=torch.bool, device=codes.device)
+    for i in range(k):
+        w = c[:, i:i + Q]
+        valid &= w >= 0
+        idx = idx * n_states + w.clamp_min(0)
+    return idx.masked_fill(~valid, -1)
+
+
+def compact_rows(keys: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """k-mer indices -> int32 rows of the compact table ``[n + 1, E]`` by
+    binary search in the sorted ``keys[n]``: a hit gives its position, a
+    miss and -1 give ``n`` (the all-zero last row); no keys, all 0."""
+    n = keys.shape[0]
+    if n == 0:
+        return torch.zeros(idx.shape, dtype=torch.int32, device=idx.device)
+    pos = torch.searchsorted(keys, idx)
+    hit = (pos < n) & (keys[pos.clamp_max(n - 1)] == idx) & (idx >= 0)
+    return torch.where(hit, pos, torch.full_like(pos, n)).to(torch.int32)
+
+
 def accumulate(D: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """``sum_q D[rows[:, q], :]`` -> f32[B, E] (materialises [B, Q, E])."""
+    """``sum_q D[rows[:, q], :]`` -> f32[B, E] (materialises [B, Q, E]);
+    a uint16 table sums its raw values (the caller applies the scale)."""
     B, Q = rows.shape
     g = D.index_select(0, rows.reshape(-1)).reshape(B, Q, D.shape[1])
     return g.to(torch.float32).sum(dim=1)
@@ -159,7 +197,8 @@ def pack_wire(te: torch.Tensor, ts: torch.Tensor, lwr: torch.Tensor,
 
 def alt_delta_rows(D: torch.Tensor, scale,
                    alt_rows: torch.Tensor) -> torch.Tensor:
-    """[n_alt, E] f32 delta rows of the ambiguity alternatives."""
+    """[n_alt, E] f32 delta rows of the ambiguity alternatives (a uint16
+    table is scaled per element)."""
     return D.index_select(0, alt_rows).to(torch.float32) * scale
 
 
@@ -358,6 +397,16 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"(contiguous={t.is_contiguous()})")
 
 
+def _table_type(D: torch.Tensor) -> str:
+    """The launch-name suffix of a direct or compact table: "" for f32,
+    "_u16" for uint16 (whose kernel entries take a flag of 1)."""
+    if D.dtype not in (torch.float32, torch.uint16) or \
+            not D.is_contiguous() or D.dim() != 2:
+        raise ValueError(f"D: want a contiguous f32 or uint16 table, got "
+                         f"{D.dtype} {tuple(D.shape)}")
+    return "_u16" if D.dtype == torch.uint16 else ""
+
+
 def _launch(name: str, fn, *args) -> None:
     from rappas_tpu_torch._kernels import lib
     err = fn(*args)
@@ -396,8 +445,9 @@ def accumulate_packed(D: torch.Tensor, packed: torch.Tensor,
                       dest: torch.Tensor | None = None) -> torch.Tensor:
     """K1 (``csrc/accumulate.cu``): ``kmer_rows_packed`` + ``accumulate``
     (times ``scale``) of 2-bit packed DNA reads of padded length
-    ``length``.  Writes row ``dest[b]`` of ``acc`` (row ``b`` when
-    ``dest`` is None; a new [B, E] tensor when ``acc`` is None)."""
+    ``length`` on an f32 or uint16 table.  Writes row ``dest[b]`` of
+    ``acc`` (row ``b`` when ``dest`` is None; a new [B, E] tensor when
+    ``acc`` is None)."""
     B = packed.shape[0]
     acc = _out(D, acc, dest, B)
     opt = [t for t in (dest,) if t is not None]
@@ -405,17 +455,17 @@ def accumulate_packed(D: torch.Tensor, packed: torch.Tensor,
         rows = kmer_rows_packed(packed, lengths, k, 4, D.shape[0], length)
         return _store(acc, dest, accumulate(D, rows) * scale)
     E = D.shape[1]
-    _check(D, "D", torch.float32, tuple(D.shape))
+    sfx = _table_type(D)
     _check(packed, "packed", torch.uint8, (B, -(-length // 4)))
     _check(lengths, "lengths", torch.int32, (B,))
     _check(acc, "acc", torch.float32, (acc.shape[0], E))
     if dest is not None:
         _check(dest, "dest", torch.int32, (B,))
     from rappas_tpu_torch._kernels import lib
-    _launch("accumulate_packed", lib().rp_accumulate_packed,
-            D.data_ptr(), E, D.shape[0] - 1, packed.data_ptr(),
-            packed.stride(0), lengths.data_ptr(), B, length, k,
-            float(scale), _ptr(dest), acc.data_ptr(), _stream(D))
+    _launch("accumulate_packed" + sfx, lib().rp_accumulate_packed,
+            D.data_ptr(), int(bool(sfx)), E, D.shape[0] - 1,
+            packed.data_ptr(), packed.stride(0), lengths.data_ptr(), B,
+            length, k, float(scale), _ptr(dest), acc.data_ptr(), _stream(D))
     return acc
 
 
@@ -424,7 +474,8 @@ def accumulate_codes(D: torch.Tensor, codes: torch.Tensor, k: int,
                      acc: torch.Tensor | None = None,
                      dest: torch.Tensor | None = None) -> torch.Tensor:
     """K2 (``csrc/accumulate.cu``): ``kmer_rows`` + ``accumulate`` (times
-    ``scale``) of int8 state codes [B, L]; ``acc``/``dest`` as in
+    ``scale``) of int8 state codes [B, L] on an f32 or uint16 table;
+    ``acc``/``dest`` as in
     :func:`accumulate_packed`."""
     B, L = codes.shape
     acc = _out(D, acc, dest, B)
@@ -433,15 +484,64 @@ def accumulate_codes(D: torch.Tensor, codes: torch.Tensor, k: int,
         rows = kmer_rows(codes, k, n_states, D.shape[0])
         return _store(acc, dest, accumulate(D, rows) * scale)
     E = D.shape[1]
-    _check(D, "D", torch.float32, tuple(D.shape))
+    sfx = _table_type(D)
     _check(codes, "codes", torch.int8, (B, L))
     _check(acc, "acc", torch.float32, (acc.shape[0], E))
     if dest is not None:
         _check(dest, "dest", torch.int32, (B,))
     from rappas_tpu_torch._kernels import lib
-    _launch("accumulate_codes", lib().rp_accumulate_codes,
-            D.data_ptr(), E, D.shape[0] - 1, codes.data_ptr(), B, L, k,
-            n_states, float(scale), _ptr(dest), acc.data_ptr(), _stream(D))
+    _launch("accumulate_codes" + sfx, lib().rp_accumulate_codes,
+            D.data_ptr(), int(bool(sfx)), E, D.shape[0] - 1,
+            codes.data_ptr(), B, L, k, n_states, float(scale), _ptr(dest),
+            acc.data_ptr(), _stream(D))
+    return acc
+
+
+def accumulate_compact(D: torch.Tensor, keys: torch.Tensor,
+                       codes: torch.Tensor, k: int, n_states: int,
+                       scale: float = 1.0) -> torch.Tensor:
+    """C1 (``csrc/accumulate.cu``): ``accumulate(D, compact_rows(keys,
+    kmer_indices64(codes, k, n_states)))`` times ``scale`` -> a new f32
+    [B, E], for int8 state codes [B, L] against the compact table
+    ``D[n + 1, E]`` (f32 or uint16) and its sorted int32 ``keys[n]``.
+    Only for index spaces that fit int32 (``S^k <= 2^31 - 1``); above
+    that the host searches the keys and :func:`accumulate_rows` sums."""
+    B, L = codes.shape
+    if not _on_card(D, keys, codes):
+        rows = compact_rows(keys, kmer_indices64(codes, k, n_states))
+        return accumulate(D, rows) * scale
+    n, E = keys.shape[0], D.shape[1]
+    sfx = _table_type(D)
+    _check(keys, "keys", torch.int32, (D.shape[0] - 1,))
+    _check(codes, "codes", torch.int8, (B, L))
+    if n_states ** k > 2 ** 31 - 1:
+        raise ValueError(f"{n_states}^{k} k-mer indices do not fit int32: "
+                         "search the keys on the host (accumulate_rows)")
+    acc = torch.empty((B, E), dtype=torch.float32, device=D.device)
+    from rappas_tpu_torch._kernels import lib
+    _launch("accumulate_compact" + sfx, lib().rp_accumulate_compact,
+            D.data_ptr(), int(bool(sfx)), E, keys.data_ptr(), n,
+            codes.data_ptr(), B, L, k, n_states, float(scale),
+            acc.data_ptr(), _stream(D))
+    return acc
+
+
+def accumulate_rows(D: torch.Tensor, rows: torch.Tensor,
+                    scale: float = 1.0) -> torch.Tensor:
+    """C2 (``csrc/accumulate.cu``): ``accumulate(D, rows)`` times
+    ``scale`` -> a new f32 [B, E], for int32 rows [B, Q] of an f32 or
+    uint16 table that the host looked up (a miss is the last row)."""
+    B, Q = rows.shape
+    if not _on_card(D, rows):
+        return accumulate(D, rows) * scale
+    E = D.shape[1]
+    sfx = _table_type(D)
+    _check(rows, "rows", torch.int32, (B, Q))
+    acc = torch.empty((B, E), dtype=torch.float32, device=D.device)
+    from rappas_tpu_torch._kernels import lib
+    _launch("accumulate_rows" + sfx, lib().rp_accumulate_rows,
+            D.data_ptr(), int(bool(sfx)), E, D.shape[0] - 1,
+            rows.data_ptr(), B, Q, float(scale), acc.data_ptr(), _stream(D))
     return acc
 
 
@@ -482,6 +582,7 @@ def ambiguous_pass_(acc: torch.Tensor, D: torch.Tensor, scale: float,
                     win_is_mean: torch.Tensor) -> torch.Tensor:
     """K4 (``csrc/ambiguous.cu``): ``ambiguous_pass(alt_delta_rows(D,
     scale, alt_rows), ...)`` added into ``acc`` IN PLACE; returns ``acc``.
+    ``D`` is a direct or compact table, f32 or uint16.
 
     Window ``w`` owns alternatives ``win_off[w] .. win_off[w + 1]``
     (``alt_win`` as CSR offsets).  On the card the adds are atomic, so
@@ -497,17 +598,17 @@ def ambiguous_pass_(acc: torch.Tensor, D: torch.Tensor, scale: float,
             alt_delta_rows(D, scale, alt_rows), alt_win, win_read,
             win_inv_w, win_is_mean, acc))
     E = D.shape[1]
+    sfx = _table_type(D)
     _check(acc, "acc", torch.float32, (acc.shape[0], E))
-    _check(D, "D", torch.float32, tuple(D.shape))
     _check(alt_rows, "alt_rows", torch.int32, (alt_rows.shape[0],))
     _check(win_off, "win_off", torch.int32, (n_win + 1,))
     _check(win_read, "win_read", torch.int32, (n_win,))
     _check(win_inv_w, "win_inv_w", torch.float32, (n_win,))
     _check(win_is_mean, "win_is_mean", torch.uint8, (n_win,))
     from rappas_tpu_torch._kernels import lib
-    _launch("ambiguous_pass", lib().rp_ambiguous_pass, D.data_ptr(), E,
-            float(scale), alt_rows.data_ptr(), win_off.data_ptr(),
-            win_read.data_ptr(), win_inv_w.data_ptr(),
+    _launch("ambiguous_pass" + sfx, lib().rp_ambiguous_pass, D.data_ptr(),
+            int(bool(sfx)), E, float(scale), alt_rows.data_ptr(),
+            win_off.data_ptr(), win_read.data_ptr(), win_inv_w.data_ptr(),
             win_is_mean.data_ptr(), n_win, acc.data_ptr(), _stream(acc))
     return acc
 

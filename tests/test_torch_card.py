@@ -7,7 +7,9 @@ installed:
 
 (``RAPPAS_TPU_DEVICE_TESTS=1`` keeps ``tests/conftest.py`` from importing
 JAX.)  Tolerances as in ``chip_smoke.py``: accumulators within 1e-5
-relative (summation order), the direct wire words exactly, the ambiguity
+relative (summation order) on f32 tables and bitwise on uint16 ones
+(sums of quantised values, exact in f32), the direct wire words
+exactly, the ambiguity
 passes within 2e-4 (atomic add order); P3 against its plain version with
 ``|L|`` exact and edges and scores as the engine tests hold them: scores
 within 2e-4 (the kernel sums each edge's postings directly, the plain
@@ -90,6 +92,83 @@ def test_kernels_match_plain_on_card(card):
                             spec[3], spec[4], got)
     torch.cuda.synchronize()
     assert torch.allclose(acc, want, atol=2e-4, rtol=0)
+
+
+def _u16_table(rng, n_rows, E, fill):
+    D = np.where(rng.random((n_rows, E)) < fill,
+                 rng.integers(1, 65536, (n_rows, E)), 0).astype(np.uint16)
+    D[-1] = 0
+    return torch.from_numpy(D)
+
+
+@pytest.mark.cuda
+def test_u16_kernels_match_plain_on_card(card):
+    """K1, K2 and K4 on a uint16 table: the sums of quantised values are
+    exact in f32, so K1 and K2 equal their plain versions bitwise."""
+    rng = np.random.default_rng(22)
+    k, E, L, B = 8, 300, 150, 512
+    D = _u16_table(rng, 4 ** k + 1, E, 0.02).to(card)
+    scale = float(np.float32(2.5 / 65535))
+    codes, lens = _codes(rng, B, L, k, amb=0.002)
+    c = torch.from_numpy(codes).to(card)
+    got = T.accumulate_codes(D, c, k, 4, scale)
+    want = T.accumulate(D, T.kmer_rows(c, k, 4, D.shape[0])) * scale
+    assert torch.equal(got, want)
+    pure, plens = _codes(rng, B, L, k)
+    p = torch.from_numpy(pack_reads(pure)).to(card)
+    pl = torch.from_numpy(plens).to(card)
+    got_p = T.accumulate_packed(D, p, pl, L, k, scale)
+    assert torch.equal(got_p, T.accumulate(D, T.kmer_rows_packed(
+        p, pl, k, 4, D.shape[0], L)) * scale)
+    alt_rows, alt_win, win_read, inv_w = _amb_spec(rng, D.shape[0], 40, B)
+    spec = [torch.from_numpy(x).to(card) for x in (
+        alt_rows, window_offsets(alt_win, 40), win_read, inv_w,
+        (rng.random(40) < 0.5).astype(np.uint8))]
+    acc = T.ambiguous_pass_(got.clone(), D, scale, *spec)
+    want = T.ambiguous_pass(T.alt_delta_rows(D, scale, spec[0]),
+                            torch.from_numpy(alt_win).to(card), spec[2],
+                            spec[3], spec[4], got)
+    torch.cuda.synchronize()
+    assert torch.allclose(acc, want, atol=2e-4, rtol=0)
+    assert torch.equal(acc > 0, want > 0)
+    assert T.LAUNCHES["accumulate_codes_u16"] > 0
+    assert T.LAUNCHES["ambiguous_pass_u16"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u16, E, n_keys", [(False, 300, 3000),
+                                            (True, 300, 3000),
+                                            (True, 600, 3000),
+                                            (False, 300, 0)])
+def test_compact_kernels_match_plain_on_card(card, u16, E, n_keys):
+    """C1 (the key search on the card, with the empty key set) and C2
+    (rows given) against their plain versions: bitwise on a uint16
+    table, within 1e-5 relative on an f32 one (summation order)."""
+    rng = np.random.default_rng(23 + E + n_keys)
+    k, L, B = 8, 150, 256
+    keys = np.sort(rng.choice(4 ** k, n_keys, replace=False))
+    D = (_u16_table(rng, n_keys + 1, E, 0.05) if u16 else
+         torch.from_numpy(_table(rng, n_keys + 1, E, 0.05))).to(card)
+    scale = float(np.float32(2.5 / 65535)) if u16 else 1.0
+    codes, lens = _codes(rng, B, L, k, amb=0.002)
+    for b in range(0, B, 2):          # plant DB k-mers: windows that hit
+        for j, key in enumerate(rng.choice(keys, 4) if n_keys else []):
+            codes[b, 10 + 20 * j:18 + 20 * j] = [
+                (int(key) >> (2 * (k - 1 - i))) & 3 for i in range(k)]
+    keys_d = torch.from_numpy(keys.astype(np.int32)).to(card)
+    c = torch.from_numpy(codes).to(card)
+    rows = T.compact_rows(keys_d, T.kmer_indices64(c, k, 4))
+    want = T.accumulate(D, rows) * scale
+    got = T.accumulate_compact(D, keys_d, c, k, 4, scale)
+    got_rows = T.accumulate_rows(D, rows, scale)
+    torch.cuda.synchronize()
+    for g in (got, got_rows):
+        if u16:
+            assert torch.equal(g, want)
+        else:
+            assert torch.allclose(g, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(g > 0, want > 0)
+    assert bool((want > 0).any()) == bool(n_keys)
 
 
 def _postings_db(seed, k=5, n_edges=40, n_kmers=300, heavy_frac=0.1,

@@ -92,7 +92,8 @@ def test_db_from_arrays_dense_matrix_bitwise(jax_db):
 
 
 def test_device_tables(jax_db):
-    D, scale, thr = device_tables(_port_db(jax_db), "cpu")
+    D, scale, thr, keys = device_tables(_port_db(jax_db), "cpu")
+    assert keys is None                         # direct: no key search
     dense = jax_db.dense_matrix(pad_rows=1)
     assert D.dtype == torch.float32 and D.shape == dense.shape
     assert np.array_equal(D.numpy().view(np.uint32), dense.view(np.uint32))

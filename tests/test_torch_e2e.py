@@ -64,6 +64,12 @@ def _run(main, db_path, reads, wd, extra):
     ("variant", ["--table", "postings", "--ambwithmax"])])
 def test_port_cli_matches_jax_cli(tmp_path, fixtures_dir, db_path, reads,
                                   flags):
+    e2e_case(tmp_path, fixtures_dir, db_path, reads, flags)
+
+
+def e2e_case(tmp_path, fixtures_dir, db_path, reads, flags):
+    """One read set through both CLIs with ``flags``; the outputs must
+    match as the module docstring says."""
     q = (fixtures_dir / "tiny_reads.fasta" if reads == "tiny" else
          _variant(fixtures_dir, tmp_path / "variant_reads.fasta"))
     # --dp 1: the test session gives JAX 8 virtual CPU devices, and auto

@@ -170,11 +170,19 @@ def test_score_async_result_and_table_resolution(db, tdb, engine):
         db, "auto", "f32", JaxEngine.DIRECT_BYTE_LIMIT) == "direct"
 
 
-@pytest.mark.parametrize("kw, item", [
-    ({"precision": "u16"}, "item 1"), ({"table": "compact"}, "item 4")])
-def test_not_ported_layouts_raise(tdb, kw, item):
-    with pytest.raises(NotImplementedError, match=f"queue 1 {item}"):
-        PlacementEngine(tdb, device="cpu", **kw)
+@pytest.mark.parametrize("kw", [{"precision": "u16"}, {"table": "compact"}],
+                         ids=["u16", "compact"])
+def test_u16_and_compact_layouts_place(db, tdb, kw):
+    """``precision="u16"`` and ``table="compact"`` are ported: they place
+    as the JAX engine does (``tests/test_torch_compact.py`` holds them
+    against it in every mode)."""
+    engine = PlacementEngine(tdb, device="cpu", **kw)
+    assert engine.table == kw.get("table", "direct")
+    mat, lens = batch_of(random_reads(16, np.random.default_rng(13),
+                                      with_amb=0.5))
+    res = engine.score(mat, lens)
+    assert (res.n_matched > 0).any()
+    same_as_jax(res, JaxEngine(db, **kw).score(mat, lens))
 
 
 def test_postings_layout_runs(db, tdb):

@@ -4,6 +4,7 @@ them, its entry points default to CUDA and refuse to run without it, and
 the options whose code is not ported yet fail loudly."""
 
 import ast
+import json
 import pathlib
 import subprocess
 import sys
@@ -79,10 +80,12 @@ _BLOCKED_RUN = textwrap.dedent("""
         reads[3] = reads[3][:7] + "N" + reads[3][8:]
         (tmp / "q.fasta").write_text(
             "".join(f">q{{i}}\\n{{s}}\\n" for i, s in enumerate(reads)))
-        for table in ("direct", "postings"):
+        for table, precision in (("direct", "f32"), ("postings", "f32"),
+                                 ("direct", "u16"), ("compact", "f32")):
             rc = cli.main(["-p", "p", "-d", str(tmp / "db.rptpu"),
                            "-q", str(tmp / "q.fasta"), "-w", str(tmp),
-                           "--device", "cpu", "--table", table])
+                           "--device", "cpu", "--table", table,
+                           "--precision", precision])
             assert rc == 0
             assert (tmp / "placements_q.fasta.jplace").stat().st_size > 0
         # the native key probe of the postings layout's big key spaces
@@ -153,8 +156,6 @@ def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
     (["--coordinator", "localhost:1234"], "item 7"),
     (["--num-hosts", "2"], "item 7"),
     (["--profile", "trace"], "item 8"),
-    (["--precision", "u16"], "item 1"),
-    (["--table", "compact"], "item 4"),
 ])
 def test_cli_not_ported_options_exit_nonzero(tmp_path, capsys, extra, item):
     _tiny_db().save(tmp_path / "db.rptpu")
@@ -175,6 +176,22 @@ def test_cli_table_postings_runs(tmp_path):
                      "-q", str(tmp_path / "q.fasta"), "-w", str(tmp_path),
                      "--device", "cpu", "--table", "postings"]) == 0
     assert (tmp_path / "placements_q.fasta.jplace").stat().st_size > 0
+
+
+@pytest.mark.parametrize("extra", [["--precision", "u16"],
+                                   ["--table", "compact"]],
+                         ids=["u16", "compact"])
+def test_cli_u16_and_compact_place(tmp_path, extra):
+    """``--precision u16`` and ``--table compact`` are ported: the CLI
+    places the read (``tests/test_torch_compact.py`` holds the jplace
+    against the JAX CLI's)."""
+    _tiny_db().save(tmp_path / "db.rptpu")
+    (tmp_path / "q.fasta").write_text(">q\nACGTACGTACNTACGGTTAC\n")
+    assert cli.main(["-p", "p", "-d", str(tmp_path / "db.rptpu"),
+                     "-q", str(tmp_path / "q.fasta"), "-w", str(tmp_path),
+                     "--device", "cpu", *extra]) == 0
+    jp = json.loads((tmp_path / "placements_q.fasta.jplace").read_text())
+    assert len(jp["placements"]) == 1 and jp["placements"][0]["p"]
 
 
 def test_cli_build_phase_not_ported(capsys):
