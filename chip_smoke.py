@@ -39,6 +39,21 @@ layout and precision a single device resolves to:
   dense_side, P2 ambiguous_postings and P3 finalize_postings_wire
   (B=8192), the CLI with ``--table auto``; half of each batch is
   sampled from the reference (every window hits), half is uniform;
+* the sharded phases, on a (dp=2, mp=2) mesh of four distinct cards or
+  of the one card repeated (``smoke_mesh``):
+  1. config 1 through ``ShardedEngine`` (two 150-column shards of the
+     direct table): an engine phase (K1-K4 per shard, the gather, K3)
+     and ``place_queries`` on 20k reads through it and through the single
+     card engine, the two jplace files held against each other;
+  2. config 5 through ``ShardedEngine`` (postings in two edge ranges of
+     4,000 edges): P2 and P3 on shard 1 (a non-zero edge offset) and M1
+     over both shards' wires against their plain versions at a mesh row's
+     slice (4,096 reads), then an engine phase at B=8192 (P1-P3 per
+     shard, M1);
+  3. config 6 through ``KmerShardedPlacement`` (the 2.4 GB f32 compact
+     table in two k-mer ranges): C3 against its plain version, an engine
+     phase held against the single compact engine; then ``ShardedEngine``
+     on the compact table's two column shards (C1, K4, K3);
 * config 4, protein postings (amino k=8, E=150, 500k keys with 4
   postings, as ``bench.py:447-479``; no direct index: rows come from the
   native key probe): an engine phase of 16384-read batches of 100 aa;
@@ -693,21 +708,327 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
     return out
 
 
+def sharded_postings_kernel_phase(sp, eng, seed: int, ref) -> dict:
+    """P2 and P3 on edge-range shard 1 (a non-zero edge offset) and M1 over
+    both shards' wires, at the shapes of a mesh row's slice of one
+    B=8192 batch through ``sp`` (the card's ``PostingsShardedPlacement``
+    at dp=2, mp=2), each against its plain version on the card; ``eng``
+    gives the host codec."""
+    import numpy as np
+    import torch
+
+    from rappas_tpu_torch.parallel.postings_sharded import \
+        slice_ambiguities
+    from rappas_tpu_torch.place import kernels as K
+    from rappas_tpu_torch.place.engine import (alt_rows_of,
+                                               host_kmer_indices,
+                                               postings_batch, unpack_wire)
+
+    rng = np.random.default_rng(seed + 8)
+    mat, lens = random_reads(rng, B_POSTINGS, B_POSTINGS // 100, ref=ref)
+    codes = eng.encode_batch(mat)
+    amb = eng._expand_ambiguities_host(codes, mat, lens)
+    S, k = eng.alphabet.n_states, eng.k
+    Bl = B_POSTINGS // sp.mesh.shape["dp"]
+    kidx = host_kmer_indices(codes[:Bl], lens[:Bl], k, S)
+    kidx = np.where(kidx >= 0, kidx, S ** k)
+    amb = slice_ambiguities(amb, 0, Bl)
+    dev = sp.mesh.devices[0, 1]
+    thr_t = torch.tensor(np.float32(sp.thr), device=dev)
+    out, wires = {}, []
+    for j, sh in enumerate(sp._shards):
+        host, plan = postings_batch(
+            sh["rof"][kidx], sh["nl"], sh["light_counts"], lens[:Bl], amb,
+            alt_rows_of(sh["rof"][amb[0]], sh["nl"], sh["nh"]))
+        host.pop("scratch_off", None)
+        plan = plan.to(dev)
+        d = {n: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+             for n, a in host.items()}
+        H, pairs = sh["heavy_dense"][dev], sh["pairs"][dev]
+        E, P, off = H.shape[1], pairs.shape[1] // 2, sh["offset"]
+        acc_c = K.dense_side(H, d["hrows"], d["hoff"])
+        spec = [d[n] for n in ("alt_lrows", "alt_hrows", "win_off",
+                               "win_slot", "win_inv_w", "win_is_mean")]
+        alt_win = torch.repeat_interleave(
+            torch.arange(spec[3].numel(), device=dev),
+            (spec[2][1:] - spec[2][:-1]).long())
+
+        def p2(acc):
+            return K.ambiguous_postings_(acc, H, pairs, *spec, off)
+
+        def p2_plain():
+            return K.ambiguous_pass(K.alt_delta_rows_postings(
+                pairs, H, spec[0], spec[1], off), alt_win, *spec[3:],
+                acc_c)
+        got, want = p2(acc_c.clone()), p2_plain()
+        torch.cuda.synchronize()
+        err2 = float((got - want).abs().max()) if got.numel() else 0.0
+        check(err2 <= 2e-4 and torch.equal(got > 0, want > 0),
+              f"P2 ambiguous_postings (edge offset {off}) disagrees with "
+              f"its plain version (max abs err {err2})")
+        acc_c = got
+        args = (pairs, d["lrows"], acc_c, d["slot_of"], d["lengths"])
+
+        def p3():
+            return K.finalize_postings_wire(*args, sp.thr, k, K_KEEP, plan,
+                                            off, sp.n_edges)
+
+        def p3_plain():
+            return K.pack_wire(*K.finalize_postings(
+                *args, thr_t, k, K_KEEP, off), wide=sp.wide)
+        wire, want = p3(), p3_plain()
+        torch.cuda.synchronize()
+        res = unpack_wire(wire.cpu().numpy(), sp._k_shard, sp.wide)
+        ref_res = unpack_wire(want.cpu().numpy(), sp._k_shard, sp.wide)
+        diff = same_placements(res, ref_res)
+        check(diff is None, f"P3 finalize_postings_wire (edge offset {off})"
+              f" vs its plain version: {diff}")
+        check(bool((res.top_edges >= off).any()), "P3 with an edge offset: "
+              "no global edge id past the offset")
+        wires.append(wire)
+        if j == 0:
+            continue
+        fin = np.isfinite(ref_res.top_scores)
+        err3 = float(np.abs(res.top_scores - ref_res.top_scores)[fin].max())
+        n_alt, n_w = spec[0].numel(), spec[3].numel()
+        miss = pairs.shape[0] - 1
+        lr, hr = spec[0][spec[0] != miss], spec[1][spec[1] != H.shape[0] - 1]
+        b, why = bound(torch.unique(hr).numel() * E * 4 +
+                       torch.unique(lr).numel() * 2 * P * 4 + n_alt * 8 +
+                       n_w * 13 + 4 +
+                       2 * torch.unique(spec[3]).numel() * E * 4,
+                       (n_alt * 3 + 3 * n_w) * E + n_alt * P)
+        scratch = acc_c.clone()
+        out["ambiguous_postings_offset"] = dict(
+            max_abs_err=err2, bound_ms=b, bound_by=why, edge_offset=off,
+            windows=n_w, alternatives=n_alt, reads=Bl,
+            ms=cuda_ms(lambda: p2(scratch)), plain_ms=cuda_ms(p2_plain),
+            library_ms=None)
+        counts = sh["light_counts"][host["lrows"]].sum(axis=1)
+        n_b = counts[counts > 1].astype(np.float64)
+        n_slots = d["hoff"].numel() - 1
+        lrows_real = d["lrows"][d["lrows"] != miss]
+        b, why = bound(torch.unique(lrows_real).numel() * 2 * P * 4 +
+                       d["lrows"].numel() * 4 + Bl * 8 +
+                       n_slots * E * 4 + wire.numel() * 4,
+                       float((n_b * np.ceil(np.log2(n_b))).sum()) +
+                       n_slots * E)
+        out["finalize_postings_wire_offset"] = dict(
+            max_abs_err=err3, bound_ms=b, bound_by=why, edge_offset=off,
+            shard_width=E, reads=Bl, ms=cuda_ms(p3),
+            plain_ms=cuda_ms(p3_plain, reps=5), library_ms=None)
+
+    # M1 over the two shards' wires ------------------------------------ #
+    stacked = torch.stack(wires)
+    mp, K_in = stacked.shape[0], sp._k_shard
+
+    def m1():
+        return K.merge_candidates_wire(stacked, K_in, sp.wire_k, sp.wide)
+
+    def m1_plain():
+        parts = [K.wire_fields(stacked[j], K_in, sp.wide) for j in range(mp)]
+        return K.pack_wire(*K.merge_candidates(
+            torch.cat([q[0] for q in parts], 1),
+            torch.cat([q[1] for q in parts], 1),
+            torch.stack([q[2] for q in parts]), sp.wire_k), wide=sp.wide)
+    got, want = m1(), m1_plain()
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "M1 merge_candidates_wire: wire words "
+          "differ from the plain version")
+    ts_all = torch.cat([stacked[j][:, :K_in].view(torch.float32)
+                        for j in range(mp)], 1)
+    te_all = torch.cat([K.wire_fields(stacked[j], K_in, sp.wide)[0]
+                        for j in range(mp)], 1)
+
+    def library():
+        v, i = torch.topk(ts_all, sp.wire_k, dim=1)
+        return v, te_all.gather(1, i)
+    b, why = bound(stacked.numel() * 4 + got.numel() * 4,
+                   Bl * sp.wire_k * mp * K_in)
+    out["merge_candidates_wire"] = dict(
+        max_abs_err=0.0, bound_ms=b, bound_by=why, shards=mp, reads=Bl,
+        candidates=mp * K_in, ms=cuda_ms(m1), plain_ms=cuda_ms(m1_plain),
+        library_ms=cuda_ms(library))
+    return out
+
+
+def kmer_sharded_phase(db, mesh, seed: int, ref, n_batches: int = 10,
+                       device: str = "cuda") -> tuple:
+    """``KmerShardedPlacement`` on ``mesh``: C3 on shard 1 at a mesh row's
+    slice of a B=16384 batch against its plain version, then
+    ``n_batches`` batches back to back (launches counted), the first
+    batch's first 512 reads held against the card's single compact engine
+    (KmerShardedPlacement scores no ambiguity windows, so that engine runs
+    with ``treat_ambiguities=False``)."""
+    import numpy as np
+    import torch
+
+    from rappas_tpu_torch.parallel.kmer_sharded import KmerShardedPlacement
+    from rappas_tpu_torch.place import kernels as K
+    from rappas_tpu_torch.place.engine import (PlacementEngine,
+                                               host_kmer_indices)
+
+    t0 = time.perf_counter()
+    ksp = KmerShardedPlacement(db, mesh)
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 9)
+    batches = [random_reads(rng, B_KERNEL, B_KERNEL // 100, 0.05, ref=ref)
+               for _ in range(n_batches)]
+    # PlacementEngine.encode_batch on these reads: ACGT -> 0-3, N -> -1
+    # (ambiguous), the 0xFF padding -> -2
+    tab = np.full(256, -2, np.int8)
+    tab[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    tab[ord("N")] = -1
+    coded = [(tab[m], ln) for m, ln in batches]
+
+    # C3 on shard 1 ---------------------------------------------------- #
+    dp, per = mesh.shape["dp"], ksp._per
+    Bl = B_KERNEL // dp
+    codes, lens = coded[0]
+    rows = torch.from_numpy(ksp._lookup(host_kmer_indices(
+        codes[:Bl], lens[:Bl], db.k, 4))).to(mesh.devices[0, 1])
+    D = ksp.D[1][mesh.devices[0, 1]]
+    E = D.shape[1]
+    got = K.accumulate_rows_range(D, rows, per, per)
+    want = K.accumulate_range(D, rows, per, per)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(held(got, want, False), f"C3 accumulate_rows_range disagrees with "
+          f"its plain version (max abs err {err})")
+    local = rows - per
+    hit = local[(local >= 0) & (local < per)]
+    check(hit.numel() > 0, "C3: no window hit shard 1")
+    b, why = bound(rows.numel() * 4 + torch.unique(hit).numel() * E * 4 +
+                   Bl * E * 4, (hit.numel() + Bl) * E)
+    kern = {"accumulate_rows_range": dict(
+        max_abs_err=err, bound_ms=b, bound_by=why, reads=Bl,
+        hit_windows=hit.numel(), distinct_rows=torch.unique(hit).numel(),
+        shard_bytes=D.nbytes,
+        ms=cuda_ms(lambda: K.accumulate_rows_range(D, rows, per, per)),
+        plain_ms=cuda_ms(lambda: K.accumulate_range(D, rows, per, per),
+                         reps=5),
+        library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
+            torch.where((rows - per >= 0) & (rows - per < per), rows - per,
+                        per).long(), D, mode="sum"), reps=5))}
+
+    # the main path: batches back to back ------------------------------ #
+    ksp.score(*coded[0])
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    results = [ksp.score(c, ln) for c, ln in coded]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: K.LAUNCHES[n] for n in ("accumulate_rows_range",
+                                           "finalize_wire")}
+    for name, n in launches.items():
+        check(n > 0, f"k-mer-sharded phase: kernel {name} was never "
+              "launched")
+    codes, lens = coded[1]
+    t1 = time.perf_counter()
+    kidx = host_kmer_indices(codes, lens, db.k, 4)
+    steps = {"kmer_indices": time.perf_counter() - t1}
+    t1 = time.perf_counter()
+    ksp._lookup(kidx)
+    steps["key_search"] = time.perf_counter() - t1
+    mat, lens = batches[0]
+    single = PlacementEngine(db, device=device, table="compact",
+                             treat_ambiguities=False)
+    r0 = results[0]
+    diff = same_placements(type(r0)(*(x[:512] for x in r0)),
+                           single.score(mat[:512], lens[:512]))
+    check(diff is None, f"k-mer-sharded phase vs the single compact "
+          f"engine: {diff}")
+    # the single engine on the same batches, for its reads/s
+    t0 = time.perf_counter()
+    pend = [single.score_async(m, ln) for m, ln in batches]
+    for x in pend:
+        x.result()
+    single_dt = time.perf_counter() - t0
+    return kern, {"reads_per_s": n_batches * B_KERNEL / dt, "seconds": dt,
+                  "single_compact_reads_per_s": n_batches * B_KERNEL /
+                  single_dt,
+                  "setup_s": setup_s, "batches": n_batches,
+                  "batch_size": B_KERNEL, "mesh": dict(mesh.shape),
+                  "shard_rows": per + 1, "launches": launches,
+                  "host_steps_s": steps}
+
+
+def sharded_place_phase(db, mesh, work: Path, n_reads: int, seed: int,
+                        names, device: str = "cuda") -> dict:
+    """``place_queries`` (the pipeline behind the CLI, which on one card
+    can only ask for a one-device engine) through the sharded engine on
+    ``mesh`` and through the single card engine on the same reads file:
+    the jplace files must hold the same placements (edge sets, scores
+    within 2e-4, LWR within 1e-4)."""
+    import numpy as np
+
+    from rappas_tpu_torch.parallel.engine import ShardedEngine
+    from rappas_tpu_torch.place import kernels as K
+    from rappas_tpu_torch.place.engine import PlacementEngine
+    from rappas_tpu_torch.place.pipeline import (PlacementConfig,
+                                                 place_queries)
+
+    rng = np.random.default_rng(seed + 10)
+    mat, lens = random_reads(rng, n_reads, n_reads // 100, 0.05)
+    fasta = work / "sharded_reads.fasta"
+    with open(fasta, "wb") as f:
+        for i in range(n_reads):
+            f.write(b">s%d\n" % i + mat[i, :lens[i]].tobytes() + b"\n")
+    out = {}
+    for tag, make in (("sharded", lambda: ShardedEngine(db, mesh)),
+                      ("single", lambda: PlacementEngine(db, device=device))):
+        eng = make()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        path = place_queries(db, fasta, work / f"place_{tag}",
+                             PlacementConfig(batch_size=1024), engine=eng)
+        out[tag] = {"seconds": time.perf_counter() - t0,
+                    "reads_per_s": n_reads / (time.perf_counter() - t0),
+                    "launches": {n: K.LAUNCHES[n] for n in names},
+                    "jplace": json.loads(path.read_text())}
+        del eng
+    for name, n in out["sharded"]["launches"].items():
+        check(n > 0, f"sharded place phase: kernel {name} was never "
+              "launched")
+    a, b = out["sharded"].pop("jplace"), out["single"].pop("jplace")
+    check(a["tree"] == b["tree"] and a["fields"] == b["fields"] and
+          len(a["placements"]) == len(b["placements"]) > 0,
+          "sharded place phase: jplace header or placement count differs")
+    for pa, pb in zip(a["placements"], b["placements"]):
+        check(pa["nm"] == pb["nm"], "sharded place phase: nm differs")
+        ra = {r[0]: r for r in pa["p"]}
+        rb = {r[0]: r for r in pb["p"]}
+        near_tie = abs(pa["p"][-1][1] - pb["p"][-1][1]) <= 2e-4
+        check(ra.keys() == rb.keys() or near_tie,
+              f"sharded place phase: edges {sorted(ra)} vs {sorted(rb)}")
+        for e in ra.keys() & rb.keys():
+            check(abs(ra[e][1] - rb[e][1]) <= 2e-4 and
+                  abs(ra[e][2] - rb[e][2]) <= 1e-4,
+                  f"sharded place phase: edge {e} scores differ")
+    out["reads"] = n_reads
+    out["placements"] = len(a["placements"])
+    return out
+
+
 def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
                  n_batches: int = 10, length: int = READ_LEN,
                  letters: bytes = b"ACGT", n_ambiguous: int | None = None,
                  ref=None, engine_kw=None, against=None,
-                 device: str = "cuda") -> dict:
+                 device: str = "cuda", mesh=None, engine=None) -> dict:
     """``n_batches`` batches back to back through ``score_async`` (a few
-    in flight) of ``PlacementEngine(db, **engine_kw)``; every kernel in
-    ``names`` must launch; the first batch's first 512 reads are held
-    against the same engine on the CPU and, with ``against = (kw,
+    in flight) of ``PlacementEngine(db, **engine_kw)`` (with ``mesh``:
+    ``ShardedEngine(db, mesh, **engine_kw)``); every kernel in ``names``
+    must launch; the first batch's first 512 reads are held against the
+    one-device engine on the CPU and, with ``against = (kw,
     tol_score)``, against the card's ``PlacementEngine(db, **kw)`` with
-    scores within ``tol_score`` (LWR not held when it passes 2e-4)."""
+    scores within ``tol_score`` (LWR not held when it passes 2e-4).  An
+    ``engine`` already built on ``mesh`` is driven as it is."""
     import numpy as np
     import torch
 
     from rappas_tpu_torch import native
+    from rappas_tpu_torch.parallel.engine import ShardedEngine
     from rappas_tpu_torch.place import kernels as K
     from rappas_tpu_torch.place.engine import PlacementEngine
 
@@ -717,7 +1038,8 @@ def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
     batches = [random_reads(rng, batch, n_amb, 0.05, length, letters, ref)
                for _ in range(n_batches)]
     t0 = time.perf_counter()
-    eng = PlacementEngine(db, device=device, **kw)
+    eng = engine or (PlacementEngine(db, device=device, **kw) if mesh is None
+                     else ShardedEngine(db, mesh, **kw))
     setup_s = time.perf_counter() - t0
     eng.score(*batches[0])                    # warm-up
     torch.cuda.synchronize()
@@ -740,7 +1062,7 @@ def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
     for name, n in launches.items():
         check(n > 0, f"engine phase: kernel {name} was never launched")
     steps = {}
-    if eng.table == "postings":
+    if eng.table == "postings" and mesh is None:
         # the postings host side on one batch, each step timed once on
         # the host clock: encode, window -> row lookup, ambiguity
         # expansion, and all of postings_inputs (which repeats both)
@@ -760,6 +1082,8 @@ def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
         per_read = eng._light_counts[host["lrows"]].sum(axis=1)
         steps["postings_per_read_mean"] = float(per_read.mean())
         steps["postings_per_read_max"] = int(per_read.max())
+    elif eng.table == "postings":
+        steps = sharded_postings_host_steps(eng, *batches[1])
     table, keys_on_card = eng.table, getattr(eng, "keys_dev", None) is not None
     del eng
     mat, lens = batches[0]
@@ -777,10 +1101,53 @@ def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
         check(diff is None, f"engine phase: {kw} vs {other_kw} on the "
               f"card: {diff}")
     return {"table": table, "keys_on_card": keys_on_card,
+            "mesh": None if mesh is None else dict(mesh.shape),
             "reads_per_s": n_batches * batch / dt,
             "seconds": dt, "score_async_s": issue_s, "setup_s": setup_s,
             "batches": n_batches, "batch_size": batch, "launches": launches,
             "probe_rows_calls": probes, "host_steps_s": steps}
+
+
+def sharded_postings_host_steps(eng, mat, lens) -> dict:
+    """The sharded postings engine's host steps on one batch, each timed
+    on the host clock: encode, ambiguity expansion, the batch's k-mer
+    indices (once), and summed over the (slice, shard) pairs the shard's
+    row lookup (one fancy index into its direct row table) and
+    ``postings_batch``."""
+    import numpy as np
+
+    from rappas_tpu_torch.parallel.mesh import dp_slices
+    from rappas_tpu_torch.parallel.postings_sharded import \
+        slice_ambiguities
+    from rappas_tpu_torch.place.engine import (alt_rows_of,
+                                               host_kmer_indices,
+                                               postings_batch)
+
+    S, k = eng.alphabet.n_states, eng.k
+    steps = {}
+    t1 = time.perf_counter()
+    codes = eng.encode_batch(mat)
+    steps["encode"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    amb = eng._expand_ambiguities_host(codes, mat, lens)
+    steps["ambiguity_expansion"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    kidx = host_kmer_indices(codes, lens, k, S)
+    kidx = np.where(kidx >= 0, kidx, S ** k)
+    steps["kmer_indices"] = time.perf_counter() - t1
+    steps["shard_row_lookup"] = steps["postings_batch"] = 0.0
+    for _, sl in dp_slices(eng.mesh, mat.shape[0]):
+        a = slice_ambiguities(amb, sl.start, sl.stop)
+        for sh in eng._postings._shards:
+            t1 = time.perf_counter()
+            rof = sh["rof"][kidx[sl]]
+            steps["shard_row_lookup"] += time.perf_counter() - t1
+            t1 = time.perf_counter()
+            postings_batch(rof, sh["nl"], sh["light_counts"], lens[sl], a,
+                           None if a is None else alt_rows_of(
+                               sh["rof"][a[0]], sh["nl"], sh["nh"]))
+            steps["postings_batch"] += time.perf_counter() - t1
+    return steps
 
 
 def host_steps(db, seed: int) -> dict:
@@ -890,9 +1257,12 @@ COMPACT_U16 = ("accumulate_compact_u16", "finalize_wire",
 HOST_ROWS = ("accumulate_rows", "finalize_wire", "ambiguous_pass")
 HOST_ROWS_U16 = ("accumulate_rows_u16", "finalize_wire",
                  "ambiguous_pass_u16")
+POSTINGS_SHARDED = POSTINGS + ("merge_candidates_wire",)
 #: kernel instance -> (source in csrc/, the JAX functions it replaces,
 #: the main-path run whose launches its line reports)
 _E = "rappas_tpu/place/engine.py:"
+_KS = "rappas_tpu/parallel/kmer_sharded.py:"
+_PS = "rappas_tpu/parallel/postings_sharded.py:"
 SOURCES = {
     "accumulate_packed": ("accumulate.cu", _E + "253,195", "config1", "cli"),
     "accumulate_codes": ("accumulate.cu", _E + "175,195", "config1", "cli"),
@@ -918,10 +1288,33 @@ SOURCES = {
                         "engine"),
     "accumulate_rows_u16": ("accumulate.cu", _E + "195", "config4_u16",
                             "engine"),
+    "accumulate_rows_range": ("accumulate.cu", _KS + "84,76-80,82",
+                              "config6_kmer_sharded", "engine"),
+    "ambiguous_postings_offset": ("ambiguous.cu", _PS + "223,170-180",
+                                  "config5_sharded", "engine"),
+    "finalize_postings_wire_offset": ("postings.cu", _PS + "217,223,188",
+                                      "config5_sharded", "engine"),
+    "merge_candidates_wire": ("merge.cu", _PS + "217,223,192-206",
+                              "config5_sharded", "engine"),
 }
+#: kernel-line rows of an instance counted under its kernel's name
+LAUNCH_KEY = {"ambiguous_postings_offset": "ambiguous_postings",
+              "finalize_postings_wire_offset": "finalize_postings_wire"}
 PROTEIN = b"ARNDCQEGHILKMFPSTWYV"
-#: reads of the u16 CLI phases (configs 1 and 6)
+#: reads of the u16 CLI phases (configs 1 and 6) and of the config-1
+#: sharded place_queries phase
 CLI_READS_U16 = 20_000
+
+
+def smoke_mesh():
+    """The (dp=2, mp=2) mesh of the sharded phases: four distinct cards
+    where the machine has them, else the one card repeated."""
+    import torch
+
+    from rappas_tpu_torch.parallel.mesh import make_mesh
+    n = torch.cuda.device_count()
+    devices = [f"cuda:{i}" for i in range(4)] if n >= 4 else ["cuda:0"] * 4
+    return make_mesh(devices, dp=2, mp=2)
 
 
 def main() -> int:
@@ -939,6 +1332,7 @@ def main() -> int:
     try:
         from rappas_tpu_torch import _kernels
         from rappas_tpu_torch.db import PhyloKmerDB
+        from rappas_tpu_torch.parallel.engine import ShardedEngine
         from rappas_tpu_torch.place.engine import PlacementEngine
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
@@ -1008,6 +1402,16 @@ def main() -> int:
         show("config1 compact engine", eng)
         results["config1_compact"] = {"engine": eng}
 
+        # config 1 on a (dp=2, mp=2) mesh: two 150-column shards -------- #
+        mesh = smoke_mesh()
+        eng = engine_phase(db, args.seed, DIRECT, mesh=mesh)
+        check(eng["table"] == "direct", f"config 1 sharded: {eng['table']}")
+        show("config1 sharded engine", eng)
+        pl = sharded_place_phase(db, mesh, work, CLI_READS_U16, args.seed,
+                                 DIRECT)
+        show("config1 sharded place_queries", pl)
+        results["config1_sharded"] = {"engine": eng, "place": pl}
+
         # config 5: postings layout, large tree --------------------- #
         db, path = make_db("config5", config5_db, work)
         t0 = time.perf_counter()
@@ -1035,6 +1439,31 @@ def main() -> int:
                         POSTINGS, ref)
         show("config5 cli", cl5)
         results["config5"] = {"engine": eng5, "cli": cl5}
+
+        # config 5 on the mesh: two edge ranges of 4,000 edges --------- #
+        t0 = time.perf_counter()
+        seng = ShardedEngine(db, mesh)
+        setup = time.perf_counter() - t0
+        check(seng.table == "postings", f"config 5 sharded: {seng.table}")
+        shapes = [(tuple(t.shape) for t in (sh["pairs"][dev],
+                                             sh["heavy_dense"][dev]))
+                  for sh, dev in zip(seng._postings._shards,
+                                     mesh.devices[0])]
+        print(f"config5 sharded set-up {setup:.1f} s: edge ranges "
+              f"{seng._postings._bounds.tolist()}, (light, heavy) tables "
+              f"{[tuple(x) for x in shapes]}", flush=True)
+        sk = sharded_postings_kernel_phase(seng._postings, seng, args.seed,
+                                           ref)
+        for name, r in sk.items():
+            show(f"kernel {name}", r)
+        kern.update(sk)
+        e5s = engine_phase(db, args.seed, POSTINGS_SHARDED,
+                           batch=B_POSTINGS, ref=ref, mesh=mesh,
+                           engine=seng)
+        e5s["setup_s"] = setup
+        del seng
+        show("config5 sharded engine", e5s)
+        results["config5_sharded"] = {"engine": e5s}
         del db
 
         # config 6: k=12 on 300 edge slots, u16 -> compact ---------- #
@@ -1068,6 +1497,21 @@ def main() -> int:
                         COMPACT_U16, ref, precision="u16")
         show("config6 cli", cl6)
         results["config6"] = {"engine": eng6, "cli": cl6}
+
+        # config 6 on the mesh: k-mer ranges, and compact columns ------ #
+        kk, ke = kmer_sharded_phase(db, mesh, args.seed, ref)
+        for name, r in kk.items():
+            show(f"kernel {name}", r)
+        kern.update(kk)
+        show("config6 k-mer-sharded engine", ke)
+        results["config6_kmer_sharded"] = {"engine": ke}
+        e6s = engine_phase(db, args.seed, COMPACT, ref=ref, mesh=mesh,
+                           engine_kw={"table": "compact"})
+        check(e6s["table"] == "compact" and e6s["keys_on_card"],
+              f"config 6 sharded: table {e6s['table']}, keys on the card "
+              f"{e6s['keys_on_card']}")
+        show("config6 sharded compact engine", e6s)
+        results["config6_sharded"] = {"engine": e6s}
         del db
 
         # config 4: protein postings, native key probe -------------- #
@@ -1104,12 +1548,13 @@ def main() -> int:
     rows = []
     for name, (src, replaces, cfg, phase) in SOURCES.items():
         r = kern[name]
+        key = LAUNCH_KEY.get(name, name)
         rows.append({
             "name": name, "route": "cuda",
             "source": f"rappas_tpu_torch/csrc/{src}",
             "replaces": replaces,
-            "launches": results[cfg][phase]["launches"][name],
-            "engine_launches": results[cfg]["engine"]["launches"][name],
+            "launches": results[cfg][phase]["launches"][key],
+            "engine_launches": results[cfg]["engine"]["launches"][key],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

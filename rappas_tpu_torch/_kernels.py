@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "_build"
-SOURCES = ("accumulate.cu", "finalize.cu", "ambiguous.cu", "postings.cu")
+SOURCES = ("accumulate.cu", "finalize.cu", "ambiguous.cu", "postings.cu",
+           "merge.cu")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -122,13 +123,15 @@ def lib() -> ctypes.CDLL:
                 "rp_accumulate_compact": [p, i, i, p, i, p, i, i, i, i, f,
                                           p, p],
                 "rp_accumulate_rows": [p, i, i, i, p, i, i, f, p, p],
+                "rp_accumulate_rows_range": [p, i, p, i, i, i, i, p, p],
                 "rp_finalize_wire": [p, i, i, p, f, i, i, i, i, p, p],
                 "rp_ambiguous_pass": [p, i, i, f, p, p, p, p, p, i, p, p],
                 "rp_dense_side": [p, i, p, p, i, p, p],
                 "rp_ambiguous_postings": [p, i, p, i, p, p, p, p, p, p, i,
-                                          p, p],
+                                          i, p, p],
                 "rp_finalize_postings": [p, i, i, p, i, i, p, i, p, p, f, i,
-                                         i, i, p, p, p, i, i, p, p],
+                                         i, i, p, p, p, i, i, i, p, p],
+                "rp_merge_candidates": [p, i, i, i, i, i, i, i, p, p],
             }
             for name, argtypes in sigs.items():
                 fn = getattr(handle, name)

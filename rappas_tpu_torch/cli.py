@@ -2,13 +2,14 @@
 ``rappas_tpu/cli.py`` (itself drop-in compatible with the reference
 RAPPAS, ``ArgumentsParser_v2.java``) plus ``--device``.
 
-Ported so far: ``-p p`` placement on one device (``--dp`` 0 or 1, ``--mp``
-1) in every table layout (``--table auto``, ``direct``, ``compact`` or
-``postings``) and both precisions (``--precision f32`` or ``u16``; u16
-takes the direct or compact table).  The options that reach code not
-ported yet (``-p b``, ``--dp``/``--mp`` above 1, multi-host,
-``--profile``) exit with status 2 and name the ROADMAP item that ports
-them.
+Ported so far: ``-p p`` placement in every table layout (``--table
+auto``, ``direct``, ``compact`` or ``postings``) and both precisions
+(``--precision f32`` or ``u16``; u16 takes the direct or compact table)
+on one device, or over a ``--dp`` x ``--mp`` mesh of this host's devices
+(f32; :mod:`rappas_tpu_torch.parallel`), on one host or several
+(``--num-hosts``, ``--host-id``, ``--coordinator``).  The options that
+reach code not ported yet (``-p b``, ``--profile``) exit with status 2
+and name the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import argparse
 import sys
 
 from rappas_tpu_torch import __version__
-from rappas_tpu_torch.utils import set_verbosity
+from rappas_tpu_torch.utils import log, set_verbosity
 
 
 class NotPorted(Exception):
@@ -131,12 +132,12 @@ def build_parser() -> argparse.ArgumentParser:
     # reference is single-threaded, PlacementProcess.java:1239-1241)
     p.add_argument("--dp", type=int, default=0,
                    help="data-parallel mesh axis: shard read batches "
-                        "over this many devices (0 = auto: all local "
-                        "devices when more than one, else single-chip)")
+                        "over this many devices (0 = auto: all local CUDA "
+                        "devices when more than one, else one device)")
     p.add_argument("--mp", type=int, default=1,
                    help="model-parallel mesh axis: shard the phylo-kmer "
                         "table (edge ranges) over this many devices for "
-                        "DBs exceeding one chip's HBM")
+                        "DBs exceeding one device's memory")
     p.add_argument("--num-hosts", type=int, default=1,
                    help="total hosts; each host places its round-robin "
                         "shard of the reads against its own DB copy "
@@ -144,8 +145,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--host-id", type=int, default=0,
                    help="this host's rank in [0, num-hosts)")
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="coordinator address of a multi-host run "
-                        "(not yet ported: exits with status 2)")
+                   help="coordinator address of a multi-host run (the "
+                        "host of rank 0; the hosts join one "
+                        "torch.distributed gloo group there)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a profiler trace of the placement into "
                         "DIR (not yet ported: exits with status 2)")
@@ -157,7 +159,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device of the placement engine: cuda runs the "
                         "CUDA kernels (and fails where no CUDA device "
-                        "is present), cpu their plain PyTorch versions")
+                        "is present), cpu their plain PyTorch versions "
+                        "(a --dp x --mp mesh then repeats the CPU)")
     return p
 
 
@@ -175,34 +178,84 @@ def main(argv=None) -> int:
         return 2
 
 
-def _check_ported(args) -> None:
-    if args.dp > 1 or args.mp > 1:
-        raise NotPorted("--dp/--mp above 1 (multi-device placement) is "
-                        "not yet ported (ROADMAP queue 1 item 7)")
-    if args.coordinator or args.num_hosts > 1:
-        raise NotPorted("--coordinator/--num-hosts (multi-host "
-                        "placement) is not yet ported (ROADMAP queue 1 "
-                        "item 7)")
-    if args.profile:
-        raise NotPorted("--profile is not yet ported (ROADMAP queue 1 "
-                        "item 8)")
-
-
 def run_placement(args, call_string: str) -> int:
     from rappas_tpu_torch.db import PhyloKmerDB
-    from rappas_tpu_torch.place.engine import PlacementEngine
-    from rappas_tpu_torch.place.pipeline import (PlacementConfig,
-                                                 place_queries)
 
     if not args.database or not args.queries:
         print("placement needs -d/--database and -q/--queries",
               file=sys.stderr)
         return 2
-    _check_ported(args)
+    if args.profile:
+        raise NotPorted("--profile is not yet ported (ROADMAP queue 1 "
+                        "item 8)")
     db = PhyloKmerDB.load(args.database)
     if args.convertUO and db.alphabet.name == "amino":
         from rappas_tpu_torch.alphabet import get_alphabet
         db.alphabet = get_alphabet("amino", convert_uo=True)
+    _place_all(db, args, call_string)
+    return 0
+
+
+def _make_engine(db, args, cfg):
+    """One-device or mesh engine from the --dp/--mp flags.
+
+    The mesh spans this host's LOCAL devices only (on ``--device cpu`` it
+    repeats the CPU): reads are sharded across hosts at the stream level
+    (each host places its own shard and rank 0 merges the jplace parts),
+    so dp/mp parallelise within the host, read sharding across hosts."""
+    import torch
+
+    n_dev = torch.cuda.device_count() if cfg.device == "cuda" else 1
+    dp = args.dp if args.dp else (n_dev if args.mp == 1 and n_dev > 1
+                                  else 1)
+    mp = args.mp
+    if dp * mp <= 1:
+        from rappas_tpu_torch.place.engine import PlacementEngine
+        return PlacementEngine(
+            db, keep_at_most=cfg.keep_at_most,
+            treat_ambiguities=cfg.treat_ambiguities,
+            ambiguities_with_max=cfg.ambiguities_with_max,
+            precision=cfg.precision, table=cfg.table, device=cfg.device)
+    if cfg.device == "cuda" and dp * mp > n_dev:
+        raise SystemExit(f"--dp {dp} x --mp {mp} needs {dp * mp} "
+                         f"devices, only {n_dev} visible")
+    from rappas_tpu_torch.parallel.engine import ShardedEngine
+    from rappas_tpu_torch.parallel.mesh import make_mesh
+    if cfg.precision != "f32":
+        log("multi-device placement is f32-only; ignoring --precision")
+    if cfg.batch_size % dp:
+        cfg.batch_size = -(-cfg.batch_size // dp) * dp
+        log(f"batch size rounded up to {cfg.batch_size} "
+            f"(multiple of dp={dp})")
+    devices = ([torch.device("cuda", i) for i in range(dp * mp)]
+               if cfg.device == "cuda" else ["cpu"] * (dp * mp))
+    mesh = make_mesh(devices, dp=dp, mp=mp)
+    log(f"placement mesh: dp={dp} x mp={mp}")
+    return ShardedEngine(
+        db, mesh, keep_at_most=cfg.keep_at_most,
+        treat_ambiguities=cfg.treat_ambiguities,
+        ambiguities_with_max=cfg.ambiguities_with_max, table=cfg.table)
+
+
+def _place_all(db, args, call_string: str) -> None:
+    from rappas_tpu_torch.place.pipeline import (PlacementConfig,
+                                                 place_queries)
+
+    joined = False
+    if args.coordinator or args.num_hosts > 1:
+        from rappas_tpu_torch.parallel.distributed import init_distributed
+        pid, n_hosts = init_distributed(
+            args.coordinator,
+            args.num_hosts if args.coordinator else None,
+            args.host_id if args.coordinator else None)
+        joined = args.coordinator is not None
+        if not args.coordinator:
+            pid, n_hosts = args.host_id, args.num_hosts
+        read_shard = (pid, n_hosts)
+        log(f"multi-host placement: host {pid}/{n_hosts}")
+    else:
+        read_shard = None
+
     cfg = PlacementConfig(
         keep_at_most=args.keep_at_most,
         keep_factor=args.keep_factor,
@@ -215,16 +268,45 @@ def run_placement(args, call_string: str) -> int:
         batch_size=args.batch_size,
         precision=args.precision, table=args.table,
         device=args.device,
-        invocation=f"rappas-tpu-torch {call_string}")
-    # one engine (device table + kernels) for all query files
-    engine = PlacementEngine(
-        db, keep_at_most=cfg.keep_at_most,
-        treat_ambiguities=cfg.treat_ambiguities,
-        ambiguities_with_max=cfg.ambiguities_with_max,
-        precision=cfg.precision, table=cfg.table, device=cfg.device)
-    for q in args.queries.split(","):
-        place_queries(db, q, args.workdir, cfg, engine=engine)
-    return 0
+        invocation=f"rappas-tpu-torch {call_string}",
+        read_shard=read_shard)
+    try:
+        # one engine (device tables + kernels) for all query files
+        engine = _make_engine(db, args, cfg)
+        for q in args.queries.split(","):
+            out = place_queries(db, q, args.workdir, cfg, engine=engine)
+            if read_shard is not None:
+                _merge_host_parts(out, q, args, read_shard)
+    finally:
+        if joined:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _merge_host_parts(part_path, query, args, read_shard) -> None:
+    """Rank 0 merges the per-host jplace parts once all hosts wrote
+    theirs (a cross-host barrier exists only under --coordinator;
+    otherwise parts are left for an offline merge)."""
+    from pathlib import Path
+
+    from rappas_tpu_torch.parallel.distributed import merge_jplace
+    pid, n_hosts = read_shard
+    if args.coordinator:
+        import torch.distributed as dist
+        dist.barrier()
+    elif n_hosts > 1:
+        log(f"wrote host part {part_path}; merge the parts with "
+            "rappas_tpu_torch.parallel.distributed.merge_jplace once all "
+            "hosts finished")
+        return
+    if pid == 0:
+        qname = Path(query).name
+        parts = [Path(args.workdir) /
+                 f"placements_{qname}.jplace.part{i}"
+                 for i in range(n_hosts)]
+        merged = Path(args.workdir) / f"placements_{qname}.jplace"
+        merge_jplace(parts, merged)
+        log(f"merged {n_hosts} host parts into {merged}")
 
 
 if __name__ == "__main__":

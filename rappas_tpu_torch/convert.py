@@ -4,7 +4,11 @@ The DB is this system's parameter set: a ``.rptpu`` file written by
 either package loads in the other (:meth:`PhyloKmerDB.load` reads the
 same bytes), and :func:`db_from_arrays` builds the port's DB from the
 fields of a ``rappas_tpu`` ``PhyloKmerDB`` handed over as plain values
-and numpy arrays, without importing that package.
+and numpy arrays, without importing that package.  The sharded tables of
+a device mesh come from :func:`column_shards` (edge columns),
+:func:`kmer_range_shards` (k-mer ranges) and
+:func:`rappas_tpu_torch.parallel.postings_sharded.shard_db_by_edge`
+(edge ranges of the postings layout).
 """
 
 from __future__ import annotations
@@ -120,3 +124,40 @@ def postings_device_tables(db: PhyloKmerDB, width: int, device,
         heavy_dense=torch.from_numpy(pt.heavy_dense).to(device),
         light_counts=light_counts, light_keys=pt.light_keys,
         heavy_keys=pt.heavy_keys, rof=rof)
+
+
+def column_shards(db: PhyloKmerDB, table: str, mp: int) -> list:
+    """The direct or compact f32 table of ``db`` (``dense_matrix`` /
+    ``compact_matrix``, last row zero) cut into ``mp`` contiguous column
+    shards of equal width, the edge axis first padded with zero columns
+    to a multiple of ``mp`` (``rappas_tpu/parallel/mesh.py:59-65``,
+    ``parallel/engine.py:95-100``): padded columns are never matched."""
+    if table not in ("direct", "compact"):
+        raise ValueError(f"no dense table for layout {table!r}")
+    dense = (db.dense_matrix(pad_rows=1) if table == "direct"
+             else db.compact_matrix(pad_rows=1))
+    pad = (-dense.shape[1]) % mp
+    if pad:
+        dense = np.pad(dense, ((0, 0), (0, pad)))
+    w = dense.shape[1] // mp
+    return [np.ascontiguousarray(dense[:, j * w:(j + 1) * w])
+            for j in range(mp)]
+
+
+def kmer_range_shards(db: PhyloKmerDB, mp: int):
+    """``(per, shards)``: the compact f32 table split into ``mp``
+    contiguous ranges of ``per = ceil(n_kmers / mp)`` rows
+    (``rappas_tpu/parallel/kmer_sharded.py:53-68``); shard ``i`` holds
+    rows ``i * per ..`` and is ``[per + 1, E]``, zero past its last row
+    (its row ``per`` is the miss row)."""
+    n = db.n_kmers
+    per = -(-n // mp)
+    compact = db.compact_matrix(pad_rows=0)
+    shards = []
+    for i in range(mp):
+        lo, hi = i * per, min((i + 1) * per, n)
+        sh = np.zeros((per + 1, compact.shape[1]), np.float32)
+        if hi > lo:
+            sh[:hi - lo] = compact[lo:hi]
+        shards.append(sh)
+    return per, shards

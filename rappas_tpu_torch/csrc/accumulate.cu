@@ -1,6 +1,7 @@
-// K1 accumulate_packed, K2 accumulate_codes, C1 accumulate_compact and C2
-// accumulate_rows: the row ids of a read's k-mer windows and the row sum
-// over a dense delta table, fused in one pass per read.
+// K1 accumulate_packed, K2 accumulate_codes, C1 accumulate_compact, C2
+// accumulate_rows and C3 accumulate_rows_range: the row ids of a read's
+// k-mer windows and the row sum over a dense delta table, fused in one pass
+// per read.
 //
 // Replaces (rappas_tpu/place/engine.py):
 //   K1: kmer_rows_packed (:253) + accumulate (:195), 2-bit packed reads on
@@ -13,11 +14,15 @@
 //       the card (k-mer index spaces that fit int32);
 //   C2: accumulate (:195) over int32 rows that the host looked up in the
 //       keys (index spaces above 31 bits: amino k >= 8, DNA k >= 16;
-//       engine.py:1370-1373).
+//       engine.py:1370-1373);
+//   C3: the shard step of rappas_tpu/parallel/kmer_sharded.py:73-80 before
+//       its psum: global int32 rows (host-searched) folded into one
+//       k-mer-range shard of the compact table, + accumulate (:195), f32.
 //
 //   acc[dest[b], e] = scale * sum_q D[row(b, q), e]
 //
-// Each is instantiated for an f32 and a uint16 table.  A uint16 value
+// K1, K2, C1 and C2 are instantiated for an f32 and a uint16 table (C3 for
+// f32: sharded placement is f32-only).  A uint16 value
 // widens to f32 exactly on load, the sum stays f32, and scale multiplies
 // it once at the end, as the JAX engine does (:1363, :1378): a sum of
 // quantised values below 2^24 is exact in f32 in any order.
@@ -25,9 +30,10 @@
 // row(b, q): K1/K2 roll the k codes of window q in Horner order (the row
 // is the k-mer index); C1 rolls the int32 index and lower-bounds it in
 // keys[n] (a hit is its position); C2 reads it.  A window past len - k
-// (K1), holding a negative code (K2, C1), absent from the keys (C1) or
-// given as the last row (C2) is the all-zero miss row and is skipped,
-// which leaves every sum bitwise unchanged.
+// (K1), holding a negative code (K2, C1), absent from the keys (C1), given
+// as the last row (C2) or outside the shard's range (C3: global row r is
+// local row r - lo when lo <= r < lo + per) is the all-zero miss row and is
+// skipped, which leaves every sum bitwise unchanged.
 //
 // What bounds it on an H100: bytes.  Each valid window reads one E-wide
 // row of D (E = 300 at BASELINE config 1: 1.2 KB in f32, 600 B in u16),
@@ -35,9 +41,10 @@
 // table past the 50 MB L2 (config 1's 79 MB direct table; the 1.2 GB u16
 // compact table of a k=12 DB) serves most rows from DRAM.  C1 also makes
 // about log2(n) dependent probes of the keys per window (21 for 2M keys);
-// its 8 MB key array fits L2.  The least the card could move is each
-// distinct row once plus the inputs and the output (chip_smoke.py reports
-// both).
+// its 8 MB key array fits L2.  C3 reads every window's row id but only the
+// rows of its own range (about 1 / mp of the hits).  The least the card
+// could move is each distinct row once plus the inputs and the output
+// (chip_smoke.py reports both).
 //
 // Design: one block per read.  The block resolves kTile row ids into
 // shared memory at a time (one thread per window), then its threads span
@@ -128,6 +135,18 @@ struct GivenRow {
   __device__ int windows(int) const { return Q; }
   __device__ int operator()(int b, int q) const {
     return __ldg(rows + static_cast<int64_t>(b) * Q + q);
+  }
+};
+
+// C3: a global row folded into this shard's range [lo, lo + per); any
+// other row is the shard's zero row per (= miss)
+struct RangeRow {
+  const int32_t* rows;
+  int Q, lo, miss;  // miss = per
+  __device__ int windows(int) const { return Q; }
+  __device__ int operator()(int b, int q) const {
+    const int r = __ldg(rows + static_cast<int64_t>(b) * Q + q) - lo;
+    return (r >= 0 && r < miss) ? r : miss;
   }
 };
 
@@ -228,6 +247,18 @@ int rp_accumulate_rows(const void* D, int u16, int E, int miss,
                        float* acc, cudaStream_t stream) {
   return launch(GivenRow{rows, Q, miss}, D, u16, E, scale, nullptr, acc, B,
                 stream);
+}
+
+// C3.  D: f32[per + 1, E], the k-mer-range shard holding global rows
+// lo .. lo + per - 1 (row per zero); rows: int32[B, Q] global rows of the
+// whole compact table; acc: f32[B, E], this shard's partial sums.
+int rp_accumulate_rows_range(const float* D, int E, const int32_t* rows,
+                             int B, int Q, int lo, int per, float* acc,
+                             cudaStream_t stream) {
+  if (B > 0)
+    accumulate_kernel<<<B, kThreads, 0, stream>>>(RangeRow{rows, Q, lo, per},
+                                                  D, E, 1.f, nullptr, acc);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* rp_error_string(int err) {

@@ -14,7 +14,12 @@
 // its light row's postings (pads carry LIGHT_PAD_EDGE and match no
 // column; a k-mer is light or heavy, never both, so one of the two terms
 // is zero), and window w adds into acc_c[win_dest[w]] with win_dest = the
-// slot of the window's read.
+// slot of the window's read.  Under edge-range sharding
+// (rappas_tpu/parallel/postings_sharded.py:170-180, the block of _step_amb
+// :223) acc_c holds the columns of one shard's edges, offset .. offset + E
+// - 1, and a posting adds into column edge - offset when that lies in
+// [0, E) (JAX clips instead; its out-of-range postings are pads with zero
+// deltas, so both add nothing there).
 //
 // For window w with alternatives win_off[w] .. win_off[w+1]:
 //
@@ -66,7 +71,9 @@ struct DirectRows {
   }
 };
 
-// P2: heavy dense row plus the light row's postings scattered over E
+// P2: heavy dense row plus the light row's postings scattered over E; a
+// posting of global edge g lands on column g - offset (offset 0 on one
+// device, the shard's first edge under edge-range sharding)
 struct PostingsRows {
   const float* H;
   int E;
@@ -74,11 +81,12 @@ struct PostingsRows {
   const int32_t* pairs;
   int P;
   const int32_t* alt_lrows;
+  int offset;
   __device__ float operator()(int i, int e) const {
     float v = __ldg(H + static_cast<int64_t>(alt_hrows[i]) * E + e);
     const int32_t* row = pairs + static_cast<int64_t>(alt_lrows[i]) * 2 * P;
     for (int p = 0; p < P; ++p)
-      if (__ldg(row + p) == e)
+      if (__ldg(row + p) == e + offset)
         v = __fadd_rn(v, __int_as_float(__ldg(row + P + p)));
     return v;
   }
@@ -145,16 +153,19 @@ int rp_ambiguous_pass(const void* D, int u16, int E, float scale,
 // P2.  H: f32[nh + 1, E] heavy dense table; pairs: int32[nl + 1, 2P];
 // alt_lrows / alt_hrows: int32[n_alt] light row (nl = miss) and heavy row
 // (nh = the zero row) per alternative; win_slot: int32[n_win] slot of the
-// window's read; acc_c: f32[n_slots, E], updated in place.
+// window's read; offset: global id of column 0 (postings of edges outside
+// offset .. offset + E - 1 add nothing); acc_c: f32[n_slots, E], updated
+// in place.
 int rp_ambiguous_postings(const float* H, int E, const int32_t* pairs, int P,
                           const int32_t* alt_lrows, const int32_t* alt_hrows,
                           const int32_t* win_off, const int32_t* win_slot,
                           const float* win_inv_w, const uint8_t* win_is_mean,
-                          int n_win, float* acc_c, cudaStream_t stream) {
+                          int n_win, int offset, float* acc_c,
+                          cudaStream_t stream) {
   if (n_win > 0)
     ambiguous_kernel<<<n_win, kThreads, 0, stream>>>(
-        PostingsRows{H, E, alt_hrows, pairs, P, alt_lrows}, E, win_off,
-        win_slot, win_inv_w, win_is_mean, acc_c);
+        PostingsRows{H, E, alt_hrows, pairs, P, alt_lrows, offset}, E,
+        win_off, win_slot, win_inv_w, win_is_mean, acc_c);
   return static_cast<int>(cudaGetLastError());
 }
 

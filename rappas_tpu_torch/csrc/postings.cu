@@ -35,6 +35,14 @@
 //  10. the wire: K scores, the K edge ids as u16 pairs (65535 = none) or,
 //      when E >= 65535, as K int32 (-1 = none), then |L|.
 //
+// Under edge-range sharding (rappas_tpu/parallel/postings_sharded.py:188,
+// finalize_postings_local's edge_offset, :739-741, :840-868) one launch
+// scores one shard: acc_c holds the columns offset .. offset + E - 1, the
+// dense value at light edge e is acc_c[slot, e - offset], and dense picks
+// are emitted as column + offset, so the wire carries global edge ids (its
+// wide form is chosen by the caller from the global edge count).  Offset 0
+// is the single-device launch.
+//
 // Membership is exact: a light edge counts when it has a real posting,
 // never because its sum is > 0 (a DELTA_TINY posting stays a member).
 // JAX forms segment sums as cumsum - cummax(start), with an error of about
@@ -123,7 +131,7 @@ finalize_postings_kernel(const int32_t* __restrict__ pairs, int P, int miss,
                          const int64_t* __restrict__ scratch_off,
                          uint64_t* __restrict__ scratch_keys,
                          float* __restrict__ scratch_tot, int wire_w,
-                         int wide, int32_t* __restrict__ wire) {
+                         int wide, int offset, int32_t* __restrict__ wire) {
   extern __shared__ uint64_t smem[];
   __shared__ float red_v[kWarps];
   __shared__ int red_i[kWarps];
@@ -202,8 +210,10 @@ finalize_postings_kernel(const int32_t* __restrict__ pairs, int P, int miss,
         for (int j = i; j < n && static_cast<uint32_t>(keys[j] >> 32) == e;
              ++j)
           s += __uint_as_float(static_cast<uint32_t>(keys[j]));
-        const float da =
-            (arow != nullptr && e < static_cast<uint32_t>(E)) ? arow[e] : 0.f;
+        const uint32_t col = e - static_cast<uint32_t>(offset);
+        const float da = (arow != nullptr && col < static_cast<uint32_t>(E))
+                             ? arow[col]
+                             : 0.f;
         t = __fadd_rn(s, da);
         only = !(da > 0.f);
       }
@@ -267,7 +277,7 @@ finalize_postings_kernel(const int32_t* __restrict__ pairs, int P, int miss,
       if (!(bv > -INFINITY)) break;
       if (tid == 0) {
         cand_v[K + n_d] = bv;
-        cand_e[K + n_d] = be;
+        cand_e[K + n_d] = be + offset;  // column -> global edge id
       }
       ++n_d;
       pv = bv;
@@ -331,14 +341,15 @@ int rp_dense_side(const float* H, int E, const int32_t* hrows,
 // scratch_off: int64[B + 1] offsets into scratch_keys/scratch_tot (an
 // empty range keeps read b in shared memory) or null; wire: int32[B,
 // wire_w], K, wire_w and wide as the caller's kernels.wire_format gives
-// them (as K3's).
+// them (as K3's; K at most E, wide from the global edge count); offset:
+// the global edge id of acc_c's column 0.
 int rp_finalize_postings(const int32_t* pairs, int P, int miss,
                          const int32_t* lrows, int B, int W,
                          const float* acc_c, int E, const int32_t* slot_of,
                          const int32_t* lengths, float thr, int k, int K,
                          int cap, const int64_t* scratch_off,
                          uint64_t* scratch_keys, float* scratch_tot,
-                         int wire_w, int wide, int32_t* wire,
+                         int wire_w, int wide, int offset, int32_t* wire,
                          cudaStream_t stream) {
   // keys (8 B) and totals (4 B) per sort slot, 2K candidate (score, edge)
   const size_t smem =
@@ -352,7 +363,7 @@ int rp_finalize_postings(const int32_t* pairs, int P, int miss,
   if (B > 0)
     finalize_postings_kernel<<<B, kThreads, smem, stream>>>(
         pairs, P, miss, lrows, W, acc_c, E, slot_of, lengths, thr, k, K, cap,
-        scratch_off, scratch_keys, scratch_tot, wire_w, wide, wire);
+        scratch_off, scratch_keys, scratch_tot, wire_w, wide, offset, wire);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -63,7 +63,11 @@ ambiguity expansion and its cycling order, 2-bit packing, the k-mer
 lookups, the table layout rule and the wire decode.  Per batch the host
 inputs travel in ONE pinned staging buffer with one H2D copy on the
 engine's stream, and the result comes back as one pinned copy of the
-wire words; ``result()`` waits on the event recorded after it.
+wire words; ``result()`` waits on the event recorded after it.  The
+sharded engines of :mod:`rappas_tpu_torch.parallel` run these same steps
+per mesh device (:meth:`PlacementEngine.dense_inputs`,
+:meth:`PlacementEngine.dense_acc`, :func:`postings_batch`, :func:`stage`,
+:func:`fetch_wire`).
 """
 
 from __future__ import annotations
@@ -146,6 +150,42 @@ class PendingBatch:
         if self._event is not None:
             self._event.synchronize()
         return unpack_wire(self._out.numpy(), self._wire, self._wide)
+
+
+def fetch_wire(wire: torch.Tensor, stream, K: int,
+               wide: bool) -> PendingBatch:
+    """Start the one D2H copy of a batch's wire words (pinned, on
+    ``stream``, the current stream of the wire's device) and return its
+    handle; on the CPU (``stream`` None) the wire itself."""
+    if stream is None:
+        return PendingBatch(wire, wire=K, wide=wide)
+    out = torch.empty(wire.shape, dtype=torch.int32, pin_memory=True)
+    out.copy_(wire, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(stream)
+    return PendingBatch(out, wire=K, event=done, wide=wide)
+
+
+def stage(arrays: dict, device: torch.device) -> dict:
+    """Host arrays -> tensors of the same dtype and shape on ``device``.
+    On the card: one pinned staging buffer (16-byte aligned slots) and ONE
+    non-blocking H2D copy on the current stream."""
+    if device.type != "cuda":
+        return {n: torch.from_numpy(np.ascontiguousarray(a))
+                for n, a in arrays.items()}
+    offs, total = {}, 0
+    for n, a in arrays.items():
+        offs[n] = total
+        total += -(-a.nbytes // 16) * 16
+    pinned = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+    buf = pinned.numpy()
+    for n, a in arrays.items():
+        buf[offs[n]:offs[n] + a.nbytes] = \
+            np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    dev = pinned.to(device, non_blocking=True)
+    return {n: dev[offs[n]:offs[n] + a.nbytes]
+            .view(_TORCH_DTYPES[a.dtype]).view(a.shape)
+            for n, a in arrays.items()}
 
 
 def pack_reads(codes: np.ndarray) -> np.ndarray:
@@ -285,6 +325,58 @@ def make_key_lookup(keys: np.ndarray):
     return functools.partial(searchsorted_rows, keys)
 
 
+def postings_batch(rof: np.ndarray, nl: int, light_counts: np.ndarray,
+                   lengths: np.ndarray, amb=None, alt_rows=None):
+    """:meth:`PlacementEngine.postings_inputs` from a batch's encoded rows
+    ``rof`` int32[B, Q] (``r < nl`` light row, ``nl`` miss, ``nl + 1 + h``
+    heavy row ``h``) of one light / heavy table pair with ``light_counts``
+    real postings per light row; ``amb`` the host ambiguity expansion
+    (``kidx`` unused here) and ``alt_rows`` its alternatives' (light,
+    heavy) rows in these tables, or both None."""
+    B = rof.shape[0]
+    hb, hq = np.nonzero(rof > nl)
+    win_read = amb[2] if amb is not None else np.zeros(0, np.int32)
+    uniq_reads = np.unique(np.concatenate([hb, win_read]))
+    slot_of = np.full(B, -1, np.int32)
+    slot_of[uniq_reads] = np.arange(uniq_reads.size, dtype=np.int32)
+    hoff = np.zeros(uniq_reads.size + 1, np.int32)
+    np.cumsum(np.bincount(slot_of[hb], minlength=uniq_reads.size),
+              out=hoff[1:])
+    host = {"lengths": lengths, "slot_of": slot_of,
+            "hrows": (rof[hb, hq] - (nl + 1)).astype(np.int32),
+            "hoff": hoff}
+    if amb is not None:
+        _, alt_win, win_read, win_inv_w, is_mean = amb
+        host["alt_lrows"], host["alt_hrows"] = alt_rows
+        host["win_off"] = window_offsets(alt_win, win_read.shape[0])
+        host["win_slot"] = slot_of[win_read]
+        host["win_inv_w"] = win_inv_w.astype(np.float32)
+        host["win_is_mean"] = is_mean.astype(np.uint8)
+
+    # stable left-pack of the light hit windows; the dropped slots are
+    # misses, whose pad postings never reach a sum
+    hit = rof < nl
+    counts = hit.sum(axis=1)
+    W = int(counts.max()) if counts.size else 0
+    lrows = np.full((B, W), nl, np.int32)
+    if W:
+        bb, qq = np.nonzero(hit)
+        pos = np.cumsum(hit, axis=1) - 1
+        lrows[bb, pos[bb, qq]] = rof[bb, qq]
+    host["lrows"] = lrows
+    plan = kernels.postings_plan(light_counts[lrows].sum(axis=1))
+    if plan.scratch_off is not None:
+        host["scratch_off"] = plan.scratch_off.numpy()
+    return host, plan
+
+
+def alt_rows_of(rof: np.ndarray, nl: int, nh: int):
+    """Encoded rows of ambiguity alternatives -> (light rows, heavy rows):
+    ``nl`` / ``nh`` where the alternative is not in that table."""
+    return (np.minimum(rof, nl).astype(np.int32),
+            np.where(rof > nl, rof - (nl + 1), nh).astype(np.int32))
+
+
 class PlacementEngine:
     #: byte budget for the direct-indexed dense table (above it the JAX
     #: engine takes the compact table).  PLACEHOLDER: the JAX engine's
@@ -323,19 +415,8 @@ class PlacementEngine:
             raise ValueError(
                 "postings table mode is f32-only (the sort payload "
                 "carries exact deltas); use precision='f32'")
-        self.db = db
-        self.k = db.k
-        self.alphabet = db.alphabet
-        self.keep_at_most = keep_at_most
-        self.treat_ambiguities = treat_ambiguities
-        self.ambiguities_with_max = ambiguities_with_max
-        self.precision = precision
-        self.table = table
-        self.n_edges = db.n_edge_slots
-        #: the wire's K and whether it carries int32 edge ids
-        self.wire_k, self.wide, _ = kernels.wire_format(self.n_edges,
-                                                        keep_at_most)
-        self.thr = float(np.float32(db.thr_log10))
+        self._init_params(db, keep_at_most, treat_ambiguities,
+                          ambiguities_with_max, precision, table)
         if table != "postings":
             tabs = device_tables(db, self.device, table, precision)
             self.D, self.keys_dev = tabs.D, tabs.keys
@@ -356,6 +437,23 @@ class PlacementEngine:
             self._stream = torch.cuda.Stream(self.device)
             # the table upload ran on the current stream
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    def _init_params(self, db: PhyloKmerDB, keep_at_most: int,
+                     treat_ambiguities: bool, ambiguities_with_max: bool,
+                     precision: str, table: str) -> None:
+        self.db = db
+        self.k = db.k
+        self.alphabet = db.alphabet
+        self.keep_at_most = keep_at_most
+        self.treat_ambiguities = treat_ambiguities
+        self.ambiguities_with_max = ambiguities_with_max
+        self.precision = precision
+        self.table = table
+        self.n_edges = db.n_edge_slots
+        #: the wire's K and whether it carries int32 edge ids
+        self.wire_k, self.wide, _ = kernels.wire_format(self.n_edges,
+                                                        keep_at_most)
+        self.thr = float(np.float32(db.thr_log10))
 
     # -------------------------------------------------------------- #
     @classmethod
@@ -455,8 +553,22 @@ class PlacementEngine:
         codes = self.encode_batch(matrix)
         if self.table == "postings":
             return self._score_postings(codes, matrix, lengths)
+        host = self.dense_inputs(codes, matrix, lengths)
+        with self._on_stream():
+            dev = stage(host, self.device)
+            acc = self.dense_acc(dev, self.D, self.keys_dev, B, L)
+            wire = kernels.finalize_wire(acc, dev["lengths"], self.thr,
+                                         self.k, self.keep_at_most)
+            return fetch_wire(wire, self._stream, self.wire_k, self.wide)
+
+    def dense_inputs(self, codes: np.ndarray, matrix: np.ndarray,
+                     lengths: np.ndarray) -> dict:
+        """The host arrays of one direct or compact batch: ``lengths``;
+        the direct table's per-read split (:meth:`_split_direct`), the
+        compact table's ``codes`` (keys on the card) or host-searched
+        ``rows``; with ambiguity windows their alternatives' rows and
+        ``win_off``, ``win_read``, ``win_inv_w``, ``win_is_mean``."""
         host = {"lengths": lengths}
-        S = self.alphabet.n_states
         if self.table == "direct":
             self._split_direct(codes, lengths, host)
         elif self.keys_dev is not None:
@@ -466,8 +578,8 @@ class PlacementEngine:
         else:
             # compact, index space above 31 bits: the host searches the
             # keys (engine.py:1370-1373) and C2 sums the rows
-            host["rows"] = self._db_lookup(
-                host_kmer_indices(codes, lengths, self.k, S))
+            host["rows"] = self._db_lookup(host_kmer_indices(
+                codes, lengths, self.k, self.alphabet.n_states))
         amb = (self._expand_ambiguities_host(codes, matrix, lengths)
                if self.treat_ambiguities else None)
         if amb is not None:
@@ -479,34 +591,36 @@ class PlacementEngine:
             host["win_read"] = win_read.astype(np.int32)
             host["win_inv_w"] = win_inv_w.astype(np.float32)
             host["win_is_mean"] = is_mean.astype(np.uint8)
+        return host
 
-        with self._on_stream():
-            dev = self._stage(host)
-            if self.table == "compact":
-                acc = (kernels.accumulate_compact(
-                    self.D, self.keys_dev, dev["codes"], self.k, S,
-                    self.scale) if "codes" in dev else
-                    kernels.accumulate_rows(self.D, dev["rows"], self.scale))
-            else:
-                acc = torch.empty((B, self.D.shape[1]), dtype=torch.float32,
-                                  device=self.device)
-            if self.table == "direct" and "packed" in dev:
-                kernels.accumulate_packed(
-                    self.D, dev["packed"],
-                    dev.get("packed_lengths", dev["lengths"]), L, self.k,
-                    self.scale, acc=acc, dest=dev.get("packed_dest"))
-            if self.table == "direct" and "codes" in dev:
-                kernels.accumulate_codes(
-                    self.D, dev["codes"], self.k, S, self.scale, acc=acc,
-                    dest=dev.get("codes_dest"))
-            if amb is not None:
-                kernels.ambiguous_pass_(
-                    acc, self.D, self.scale, dev["alt_rows"],
-                    dev["win_off"], dev["win_read"], dev["win_inv_w"],
-                    dev["win_is_mean"])
-            wire = kernels.finalize_wire(acc, dev["lengths"], self.thr,
-                                         self.k, self.keep_at_most)
-            return self._fetch(wire)
+    def dense_acc(self, dev: dict, D: torch.Tensor, keys, B: int,
+                  L: int) -> torch.Tensor:
+        """The [B, E] sums of one batch's staged :meth:`dense_inputs` over
+        the table ``D`` (the whole table, or one column shard of it) and
+        its int32 ``keys`` (compact with the keys on the card, else None):
+        K1/K2, C1 or C2, then K4 for the ambiguity windows."""
+        S = self.alphabet.n_states
+        if self.table == "compact":
+            acc = (kernels.accumulate_compact(
+                D, keys, dev["codes"], self.k, S, self.scale)
+                if "codes" in dev else
+                kernels.accumulate_rows(D, dev["rows"], self.scale))
+        else:
+            acc = torch.empty((B, D.shape[1]), dtype=torch.float32,
+                              device=D.device)
+        if self.table == "direct" and "packed" in dev:
+            kernels.accumulate_packed(
+                D, dev["packed"], dev.get("packed_lengths", dev["lengths"]),
+                L, self.k, self.scale, acc=acc, dest=dev.get("packed_dest"))
+        if self.table == "direct" and "codes" in dev:
+            kernels.accumulate_codes(
+                D, dev["codes"], self.k, S, self.scale, acc=acc,
+                dest=dev.get("codes_dest"))
+        if "win_off" in dev:
+            kernels.ambiguous_pass_(
+                acc, D, self.scale, dev["alt_rows"], dev["win_off"],
+                dev["win_read"], dev["win_inv_w"], dev["win_is_mean"])
+        return acc
 
     def _split_direct(self, codes: np.ndarray, lengths: np.ndarray,
                       host: dict) -> None:
@@ -550,38 +664,6 @@ class PlacementEngine:
         return (torch.cuda.stream(self._stream) if self._stream is not None
                 else contextlib.nullcontext())
 
-    def _fetch(self, wire: torch.Tensor) -> PendingBatch:
-        """Start the one D2H copy of a batch's wire words (pinned, on the
-        engine's stream) and return its handle."""
-        if self._stream is None:
-            return PendingBatch(wire, wire=self.wire_k, wide=self.wide)
-        out = torch.empty(wire.shape, dtype=torch.int32, pin_memory=True)
-        out.copy_(wire, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record(self._stream)
-        return PendingBatch(out, wire=self.wire_k, event=done,
-                            wide=self.wide)
-
-    def _stage(self, arrays: dict) -> dict:
-        """Host arrays -> device tensors of the same dtype and shape.  On
-        the card: one pinned staging buffer (16-byte aligned slots) and
-        ONE non-blocking H2D copy on the current stream."""
-        if self._stream is None:
-            return {n: torch.from_numpy(np.ascontiguousarray(a))
-                    for n, a in arrays.items()}
-        offs, total = {}, 0
-        for n, a in arrays.items():
-            offs[n] = total
-            total += -(-a.nbytes // 16) * 16
-        pinned = torch.empty(total, dtype=torch.uint8, pin_memory=True)
-        buf = pinned.numpy()
-        for n, a in arrays.items():
-            buf[offs[n]:offs[n] + a.nbytes] = \
-                np.ascontiguousarray(a).reshape(-1).view(np.uint8)
-        dev = pinned.to(self.device, non_blocking=True)
-        return {n: dev[offs[n]:offs[n] + a.nbytes]
-                .view(_TORCH_DTYPES[a.dtype]).view(a.shape)
-                for n, a in arrays.items()}
 
     # -------------------------------------------------------------- #
     def _expand_ambiguities_host(self, codes: np.ndarray,
@@ -707,7 +789,7 @@ class PlacementEngine:
                         lengths: np.ndarray) -> PendingBatch:
         host, plan = self.postings_inputs(codes, matrix, lengths)
         with self._on_stream():
-            dev = self._stage(host)
+            dev = stage(host, self.device)
             if "scratch_off" in dev:     # P3's plan, staged with the batch
                 plan = plan._replace(scratch_off=dev["scratch_off"])
             acc_c = kernels.dense_side(self.heavy_dense, dev["hrows"],
@@ -720,7 +802,7 @@ class PlacementEngine:
             wire = kernels.finalize_postings_wire(
                 self.pairs, dev["lrows"], acc_c, dev["slot_of"],
                 dev["lengths"], self.thr, self.k, self.keep_at_most, plan)
-            return self._fetch(wire)
+            return fetch_wire(wire, self._stream, self.wire_k, self.wide)
 
     def postings_inputs(self, codes: np.ndarray, matrix: np.ndarray,
                         lengths: np.ndarray):
@@ -740,47 +822,12 @@ class PlacementEngine:
           in window order (``nl`` pads), W the batch's most hits;
         * ``scratch_off`` int64[B + 1] when a read's postings do not fit
           one block's shared memory (``kernels.postings_plan``)."""
-        B = codes.shape[0]
-        nl = self._nl
         rof = self._rows_from_codes(codes, lengths)
-
-        hb, hq = np.nonzero(rof > nl)
         amb = (self._expand_ambiguities_host(codes, matrix, lengths)
                if self.treat_ambiguities else None)
-        win_read = amb[2] if amb is not None else np.zeros(0, np.int32)
-        uniq_reads = np.unique(np.concatenate([hb, win_read]))
-        slot_of = np.full(B, -1, np.int32)
-        slot_of[uniq_reads] = np.arange(uniq_reads.size, dtype=np.int32)
-        hoff = np.zeros(uniq_reads.size + 1, np.int32)
-        np.cumsum(np.bincount(slot_of[hb], minlength=uniq_reads.size),
-                  out=hoff[1:])
-        host = {"lengths": lengths, "slot_of": slot_of,
-                "hrows": (rof[hb, hq] - (nl + 1)).astype(np.int32),
-                "hoff": hoff}
-        if amb is not None:
-            kidx, alt_win, win_read, win_inv_w, is_mean = amb
-            host["alt_lrows"], host["alt_hrows"] = self._map_alt_rows(kidx)
-            host["win_off"] = window_offsets(alt_win, win_read.shape[0])
-            host["win_slot"] = slot_of[win_read]
-            host["win_inv_w"] = win_inv_w.astype(np.float32)
-            host["win_is_mean"] = is_mean.astype(np.uint8)
-
-        # stable left-pack of the light hit windows; the dropped slots are
-        # misses, whose pad postings never reach a sum
-        hit = rof < nl
-        counts = hit.sum(axis=1)
-        W = int(counts.max()) if counts.size else 0
-        lrows = np.full((B, W), nl, np.int32)
-        if W:
-            bb, qq = np.nonzero(hit)
-            pos = np.cumsum(hit, axis=1) - 1
-            lrows[bb, pos[bb, qq]] = rof[bb, qq]
-        host["lrows"] = lrows
-        plan = kernels.postings_plan(
-            self._light_counts[lrows].sum(axis=1))
-        if plan.scratch_off is not None:
-            host["scratch_off"] = plan.scratch_off.numpy()
-        return host, plan
+        return postings_batch(
+            rof, self._nl, self._light_counts, lengths, amb,
+            None if amb is None else self._map_alt_rows(amb[0]))
 
     def _host_rows(self, kidx: np.ndarray) -> np.ndarray:
         """Encoded row per window: ``r < nl`` light row, ``nl`` miss,
@@ -852,7 +899,5 @@ class PlacementEngine:
     def _map_alt_rows(self, kidx: np.ndarray):
         """Raw alternative k-mer indices -> (light rows, heavy rows):
         ``nl`` / ``nh`` where the alternative is not in that table."""
-        rof = self._host_rows(kidx)
-        nl, nh = self._nl, self._heavy_keys_np.shape[0]
-        return (np.minimum(rof, nl).astype(np.int32),
-                np.where(rof > nl, rof - (nl + 1), nh).astype(np.int32))
+        return alt_rows_of(self._host_rows(kidx), self._nl,
+                           self._heavy_keys_np.shape[0])

@@ -1,5 +1,5 @@
 """Device kernels of ``-p p`` placement on the direct, compact and
-postings tables.
+postings tables, on one device or sharded over a mesh.
 
 Two parts:
 
@@ -10,17 +10,21 @@ Two parts:
   :func:`ambiguous_contrib`, :func:`ambiguous_pass`; compact:
   :func:`kmer_indices64`, :func:`compact_rows`; postings:
   :func:`gather_rows`, :func:`scatter_slots`, :func:`light_gather`,
-  :func:`alt_delta_rows_postings`, :func:`finalize_postings`).  They run
-  on any device; the tests hold them against the JAX functions, and
+  :func:`alt_delta_rows_postings`, :func:`finalize_postings`; sharded:
+  :func:`accumulate_range`, :func:`merge_candidates`).  They run on any
+  device; the tests hold them against the JAX functions, and
   ``chip_smoke.py`` holds the kernels against them on the card;
-* the **wrappers** of the nine CUDA kernels of ``csrc/`` (direct:
+* the **wrappers** of the eleven CUDA kernels of ``csrc/`` (direct:
   :func:`accumulate_packed`, :func:`accumulate_codes`,
   :func:`finalize_wire`, :func:`ambiguous_pass_`; compact:
   :func:`accumulate_compact`, :func:`accumulate_rows`; postings:
   :func:`dense_side`, :func:`ambiguous_postings_`,
-  :func:`finalize_postings_wire`).  A wrapper given CPU tensors computes
-  its plain composition; given CUDA tensors it launches its kernel on the
-  current stream or raises -- it never falls back.  Each launch adds one
+  :func:`finalize_postings_wire`, the last two also on one edge-range
+  shard; sharded: :func:`accumulate_rows_range` on one k-mer-range shard,
+  :func:`merge_candidates_wire` over the shards' wires).  A wrapper
+  given CPU tensors computes its plain composition; given CUDA tensors it
+  launches its kernel on the current stream or raises -- it never falls
+  back.  Each launch adds one
   to :data:`LAUNCHES`, under the kernel's name, with ``_u16`` appended
   for the instance that reads a uint16 table.
 
@@ -50,7 +54,8 @@ LAUNCHES = {name + sfx: 0
                          "ambiguous_pass")
             for sfx in ("", "_u16")}
 LAUNCHES.update({"finalize_wire": 0, "dense_side": 0,
-                 "ambiguous_postings": 0, "finalize_postings_wire": 0})
+                 "ambiguous_postings": 0, "finalize_postings_wire": 0,
+                 "accumulate_rows_range": 0, "merge_candidates_wire": 0})
 
 #: wire rows carry edge ids as u16 below this many edge slots, as int32
 #: at or above it (65535 is the u16 "no edge" mark)
@@ -135,6 +140,17 @@ def accumulate(D: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return g.to(torch.float32).sum(dim=1)
 
 
+def accumulate_range(D: torch.Tensor, rows: torch.Tensor, lo: int,
+                     per: int) -> torch.Tensor:
+    """One k-mer-range shard's partial sums (``rappas_tpu/parallel/
+    kmer_sharded.py:76-80``): global rows folded into the shard's range
+    ``[lo, lo + per)`` (any other row -> the shard's zero row ``per``),
+    then :func:`accumulate` over the shard ``D[per + 1, E]``."""
+    local = rows - lo
+    hit = (local >= 0) & (local < per)
+    return accumulate(D, torch.where(hit, local, torch.full_like(local, per)))
+
+
 def finalize(acc: torch.Tensor, lengths: torch.Tensor, thr: torch.Tensor,
              k: int, keep_at_most: int):
     """acc [B, E] -> (top edges, top scores, LWR, |L|).
@@ -193,6 +209,35 @@ def pack_wire(te: torch.Tensor, ts: torch.Tensor, lwr: torch.Tensor,
     ew = torch.where(word >= 1 << 31, word - (1 << 32), word).to(torch.int32)
     sw = ts.contiguous().view(torch.int32)
     return torch.cat([sw, ew, nm.to(torch.int32)[:, None]], dim=1)
+
+
+def wire_fields(words: torch.Tensor, K: int, wide: bool = False):
+    """The inverse of :func:`pack_wire` on tensors: (edges int64 [B, K]
+    with -1 = no edge, scores f32 [B, K], |L| int32 [B])."""
+    B = words.shape[0]
+    ts = words[:, :K].contiguous().view(torch.float32)
+    if wide:
+        return words[:, K:2 * K].to(torch.int64), ts, words[:, 2 * K]
+    w = words[:, K:K + (K + 1) // 2].to(torch.int64) & 0xFFFFFFFF
+    te = torch.stack([w & 0xFFFF, w >> 16], dim=2).reshape(B, -1)[:, :K]
+    return (torch.where(te == 65535, torch.full_like(te, -1), te), ts,
+            words[:, K + (K + 1) // 2])
+
+
+def merge_candidates(te_all: torch.Tensor, ts_all: torch.Tensor,
+                     nm: torch.Tensor, keep: int):
+    """The exact global top-K of edge-range shards' candidates, as the
+    tail of ``rappas_tpu/parallel/postings_sharded.py:192-206`` computes
+    it: ``te_all``/``ts_all`` [B, mp * K_in] the shards' candidates in
+    all-gather order, ``nm`` int [mp, B] their ``|L|``.  The K best by a
+    stable descending sort (ties to the lower index, the lower shard, as
+    ``lax.top_k``), -inf slots with edge -1, ``|L|`` summed over shards
+    (-1 when a shard's is negative) -> (edges, scores, LWR, |L|)."""
+    vals, idx = torch.sort(ts_all, dim=1, descending=True, stable=True)
+    nm_tot = nm.to(torch.int64).sum(dim=0)
+    nm_tot = torch.where((nm < 0).any(dim=0), torch.full_like(nm_tot, -1),
+                         nm_tot)
+    return _top_out(vals[:, :keep], te_all.gather(1, idx[:, :keep]), nm_tot)
 
 
 def alt_delta_rows(D: torch.Tensor, scale,
@@ -257,17 +302,20 @@ def light_gather(pairs: torch.Tensor, lrows: torch.Tensor) -> torch.Tensor:
 
 
 def alt_delta_rows_postings(pairs: torch.Tensor, heavy_dense: torch.Tensor,
-                            alt_lrows: torch.Tensor,
-                            alt_hrows: torch.Tensor) -> torch.Tensor:
+                            alt_lrows: torch.Tensor, alt_hrows: torch.Tensor,
+                            edge_offset: int = 0) -> torch.Tensor:
     """[n_alt, E] f32 delta rows of the ambiguity alternatives: the heavy
     dense row plus the scattered light postings (misses take the heavy
     table's zero row and the light table's all-pad row; pad slots carry
-    ``LIGHT_PAD_EDGE`` and drop out of the scatter)."""
+    ``LIGHT_PAD_EDGE`` and drop out of the scatter).  Under edge-range
+    sharding the columns are the edges ``edge_offset .. edge_offset + E -
+    1`` (``rappas_tpu/parallel/postings_sharded.py:172-177``): a posting
+    adds at column ``edge - edge_offset`` when that lies in ``[0, E)``."""
     E = heavy_dense.shape[1]
     dense = heavy_dense.index_select(0, alt_hrows)
     g = light_gather(pairs, alt_lrows)
     P = g.shape[1] // 2
-    e = g[:, :P].to(torch.int64)
+    e = g[:, :P].to(torch.int64) - edge_offset
     d = g[:, P:].contiguous().view(torch.float32)
     keep = (e >= 0) & (e < E)
     r = torch.arange(e.shape[0], device=e.device)[:, None].expand_as(e)
@@ -277,7 +325,7 @@ def alt_delta_rows_postings(pairs: torch.Tensor, heavy_dense: torch.Tensor,
 def finalize_postings(pairs: torch.Tensor, lrows: torch.Tensor,
                       acc_c: torch.Tensor, slot_of: torch.Tensor,
                       lengths: torch.Tensor, thr: torch.Tensor, k: int,
-                      keep_at_most: int):
+                      keep_at_most: int, edge_offset: int = 0):
     """Postings-mode scoring -> (top edges, top scores, LWR, |L|), as
     ``finalize_postings_local`` (``rappas_tpu/place/engine.py:684-904``)
     computes it on one light table with the slot dense side.
@@ -292,7 +340,13 @@ def finalize_postings(pairs: torch.Tensor, lrows: torch.Tensor,
     best dense values (a stable sort puts light candidates first on
     exact ties, then the lower edge), later duplicates dropped.  ``|L|``
     counts the dense row's positive entries plus the light edges whose
-    dense value is <= 0."""
+    dense value is <= 0.
+
+    Under edge-range sharding (``edge_offset``, as
+    ``finalize_postings_local``'s, :739-741) ``acc_c``'s columns are the
+    edges ``edge_offset .. edge_offset + E - 1``: a light edge's dense
+    value is at column ``edge - edge_offset`` and dense picks are returned
+    as global ids; K is ``min(keep_at_most, E)`` of the shard's width."""
     B, W = lrows.shape
     P = pairs.shape[1] // 2
     n_slots, E = acc_c.shape
@@ -327,7 +381,7 @@ def finalize_postings(pairs: torch.Tensor, lrows: torch.Tensor,
     acc_z = torch.cat([acc_c, acc_c.new_zeros((1, E))]).reshape(-1)
     srow = torch.where(slot_of >= 0, slot_of,
                        torch.full_like(slot_of, n_slots)).to(torch.int64)
-    e_loc = e_s.clamp(0, E - 1).to(torch.int64)
+    e_loc = (e_s.to(torch.int64) - edge_offset).clamp(0, E - 1)
     dense_at = acc_z[srow[:, None] * E + e_loc]
     light_total = seg + dense_at
     l_all, li = torch.sort(torch.where(
@@ -344,7 +398,7 @@ def finalize_postings(pairs: torch.Tensor, lrows: torch.Tensor,
     h_scores = torch.full((B, K), float("-inf"), device=dev)
     h_edges = torch.zeros((B, K), dtype=e_s.dtype, device=dev)
     h_scores[has] = h_all[sl, :K]
-    h_edges[has] = hi[sl, :K].to(e_s.dtype)
+    h_edges[has] = (hi[sl, :K] + edge_offset).to(e_s.dtype)
 
     cedge = torch.cat([l_edges, h_edges], dim=1)
     cscore, order = torch.sort(torch.cat([l_scores, h_scores], dim=1),
@@ -545,13 +599,36 @@ def accumulate_rows(D: torch.Tensor, rows: torch.Tensor,
     return acc
 
 
-def wire_format(n_edges: int, keep_at_most: int) -> tuple[int, bool, int]:
+def accumulate_rows_range(D: torch.Tensor, rows: torch.Tensor, lo: int,
+                          per: int) -> torch.Tensor:
+    """C3 (``csrc/accumulate.cu``): :func:`accumulate_range` -> a new f32
+    [B, E], one k-mer-range shard's partial sums: int32 global rows [B, Q]
+    of the compact table (host-searched; a miss is ``n_kmers``) against the
+    f32 shard ``D[per + 1, E]`` that holds global rows ``lo .. lo + per -
+    1``."""
+    B, Q = rows.shape
+    if not _on_card(D, rows):
+        return accumulate_range(D, rows, lo, per)
+    E = D.shape[1]
+    _check(D, "D", torch.float32, (per + 1, E))
+    _check(rows, "rows", torch.int32, (B, Q))
+    acc = torch.empty((B, E), dtype=torch.float32, device=D.device)
+    from rappas_tpu_torch._kernels import lib
+    _launch("accumulate_rows_range", lib().rp_accumulate_rows_range,
+            D.data_ptr(), E, rows.data_ptr(), B, Q, int(lo), int(per),
+            acc.data_ptr(), _stream(D))
+    return acc
+
+
+def wire_format(n_edges: int, keep_at_most: int,
+                n_cols: int | None = None) -> tuple[int, bool, int]:
     """The wire of a DB with ``n_edges`` edge slots, the one place that
     decides it: ``(K, wide, words per read)``.  ``K = min(keep_at_most,
-    n_edges)``; ``wide`` (int32 edge ids) when the ids do not fit u16;
-    the row width is :func:`pack_wire`'s.  The kernels take ``wide`` and
-    the width from here."""
-    K = min(keep_at_most, n_edges)
+    n_cols)``, where ``n_cols`` (default ``n_edges``) is the width scored,
+    one edge-range shard's under sharding; ``wide`` (int32 edge ids) when
+    the DB's ids do not fit u16; the row width is :func:`pack_wire`'s.
+    The kernels take ``wide`` and the width from here."""
+    K = min(keep_at_most, n_edges if n_cols is None else n_cols)
     wide = n_edges >= WIDE_EDGES
     return K, wide, (2 * K + 1 if wide else K + (K + 1) // 2 + 1)
 
@@ -690,13 +767,15 @@ def ambiguous_postings_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
                         pairs: torch.Tensor, alt_lrows: torch.Tensor,
                         alt_hrows: torch.Tensor, win_off: torch.Tensor,
                         win_slot: torch.Tensor, win_inv_w: torch.Tensor,
-                        win_is_mean: torch.Tensor) -> torch.Tensor:
+                        win_is_mean: torch.Tensor,
+                        edge_offset: int = 0) -> torch.Tensor:
     """P2 (``csrc/ambiguous.cu``, K4's template with the postings row
     source): ``ambiguous_pass(alt_delta_rows_postings(pairs, heavy_dense,
     alt_lrows, alt_hrows), alt_win, win_slot, ...)`` added into ``acc_c``
     IN PLACE; returns ``acc_c``.  Window ``w`` owns alternatives
     ``win_off[w] .. win_off[w + 1]`` and adds into slot ``win_slot[w]``;
-    on the card the adds are atomic, as in K4."""
+    on the card the adds are atomic, as in K4.  ``edge_offset``: the
+    global id of column 0 on an edge-range shard (0 on one device)."""
     n_win = win_slot.shape[0]
     if not _on_card(acc_c, heavy_dense, pairs, alt_lrows, alt_hrows,
                     win_off, win_slot, win_inv_w, win_is_mean):
@@ -705,7 +784,7 @@ def ambiguous_postings_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
             torch.arange(n_win, device=acc_c.device), counts)
         return acc_c.copy_(ambiguous_pass(
             alt_delta_rows_postings(pairs, heavy_dense, alt_lrows,
-                                    alt_hrows),
+                                    alt_hrows, edge_offset),
             alt_win, win_slot, win_inv_w, win_is_mean, acc_c))
     E = heavy_dense.shape[1]
     n_alt = alt_lrows.shape[0]
@@ -723,17 +802,23 @@ def ambiguous_postings_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
             heavy_dense.data_ptr(), E, pairs.data_ptr(), pairs.shape[1] // 2,
             alt_lrows.data_ptr(), alt_hrows.data_ptr(), win_off.data_ptr(),
             win_slot.data_ptr(), win_inv_w.data_ptr(),
-            win_is_mean.data_ptr(), n_win, acc_c.data_ptr(), _stream(acc_c))
+            win_is_mean.data_ptr(), n_win, int(edge_offset), acc_c.data_ptr(),
+            _stream(acc_c))
     return acc_c
 
 
 def finalize_postings_wire(pairs: torch.Tensor, lrows: torch.Tensor,
                            acc_c: torch.Tensor, slot_of: torch.Tensor,
                            lengths: torch.Tensor, thr: float, k: int,
-                           keep_at_most: int,
-                           plan: PostingsPlan) -> torch.Tensor:
+                           keep_at_most: int, plan: PostingsPlan,
+                           edge_offset: int = 0,
+                           n_edges: int | None = None) -> torch.Tensor:
     """P3 (``csrc/postings.cu``): ``pack_wire(*finalize_postings(...))``
-    -> int32 [B, words] in the wire of :func:`wire_format`.
+    -> int32 [B, words] in the wire of :func:`wire_format`.  On an
+    edge-range shard ``acc_c`` holds the edges ``edge_offset ..
+    edge_offset + E - 1`` of a DB of ``n_edges`` edge slots (default E):
+    the wire carries global ids, K of the shard's width, and is wide when
+    ``n_edges`` is.
 
     ``plan`` (:func:`postings_plan` of the reads' real light posting
     counts, its offsets on the tensors' device) says where each read
@@ -742,14 +827,15 @@ def finalize_postings_wire(pairs: torch.Tensor, lrows: torch.Tensor,
     which :func:`unpack_wire` rejects."""
     B, W = lrows.shape
     n_slots, E = acc_c.shape
-    K, wide, n_words = wire_format(E, keep_at_most)
+    K, wide, n_words = wire_format(E if n_edges is None else n_edges,
+                                   keep_at_most, E)
     so = plan.scratch_off
     if not _on_card(pairs, lrows, acc_c, slot_of, lengths,
                     *([] if so is None else [so])):
         thr_t = torch.tensor(thr, dtype=torch.float32)
         return pack_wire(*finalize_postings(pairs, lrows, acc_c, slot_of,
-                                            lengths, thr_t, k,
-                                            keep_at_most), wide=wide)
+                                            lengths, thr_t, k, keep_at_most,
+                                            edge_offset), wide=wide)
     P = pairs.shape[1] // 2
     _check(pairs, "pairs", torch.int32, tuple(pairs.shape))
     _check(lrows, "lrows", torch.int32, (B, W))
@@ -767,6 +853,34 @@ def finalize_postings_wire(pairs: torch.Tensor, lrows: torch.Tensor,
             pairs.data_ptr(), P, pairs.shape[0] - 1, lrows.data_ptr(), B, W,
             acc_c.data_ptr(), E, slot_of.data_ptr(), lengths.data_ptr(),
             float(thr), k, K, plan.smem_pairs, _ptr(so), keys.data_ptr(),
-            tot.data_ptr(), n_words, int(wide), wire.data_ptr(),
-            _stream(acc_c))
+            tot.data_ptr(), n_words, int(wide), int(edge_offset),
+            wire.data_ptr(), _stream(acc_c))
     return wire
+
+
+def merge_candidates_wire(wires: torch.Tensor, K_in: int, keep: int,
+                          wide: bool) -> torch.Tensor:
+    """M1 (``csrc/merge.cu``): the merged wire int32 [B, words] of ``keep``
+    candidates from the shards' wires ``wires`` int32 [mp, B, words_in]
+    (each of ``K_in`` candidates, :func:`finalize_postings_wire` on one
+    edge-range shard, stacked in shard order): ``pack_wire(
+    *merge_candidates(...))`` of their decoded fields."""
+    mp, B, w_in = wires.shape
+    if keep > mp * K_in:
+        raise ValueError(f"keep {keep} > {mp} shards x {K_in} candidates")
+    n_words = 2 * keep + 1 if wide else keep + (keep + 1) // 2 + 1
+    if not _on_card(wires):
+        parts = [wire_fields(wires[j], K_in, wide) for j in range(mp)]
+        return pack_wire(*merge_candidates(
+            torch.cat([p[0] for p in parts], dim=1),
+            torch.cat([p[1] for p in parts], dim=1),
+            torch.stack([p[2] for p in parts]), keep), wide=wide)
+    _check(wires, "wires", torch.int32, (mp, B, w_in))
+    if w_in != (2 * K_in + 1 if wide else K_in + (K_in + 1) // 2 + 1):
+        raise ValueError(f"wires: {w_in} words is not a wire of {K_in}")
+    out = torch.empty((B, n_words), dtype=torch.int32, device=wires.device)
+    from rappas_tpu_torch._kernels import lib
+    _launch("merge_candidates_wire", lib().rp_merge_candidates,
+            wires.data_ptr(), mp, B, K_in, w_in, keep, n_words, int(wide),
+            out.data_ptr(), _stream(wires))
+    return out

@@ -127,8 +127,7 @@ class PlacementConfig:
     device: str = "cuda"
     #: (host_id, num_hosts) -- this process places only its round-robin
     #: shard of the reads and writes ``placements_<q>.jplace.part<id>``
-    #: (multi-host mode; the port CLI does not reach it yet, ROADMAP
-    #: queue 1 item 8)
+    #: (multi-host mode: ``--num-hosts``, ``--coordinator``)
     read_shard: tuple | None = None
 
 

@@ -14,7 +14,9 @@ passes within 2e-4 (atomic add order); P3 against its plain version with
 ``|L|`` exact and edges and scores as the engine tests hold them: scores
 within 2e-4 (the kernel sums each edge's postings directly, the plain
 version by a running cumsum), or two f32 ulps of the score where that is
-more (a 3,000 bp read scores about -6,000, where one ulp is 4.9e-4).
+more (a 3,000 bp read scores about -6,000, where one ulp is 4.9e-4).  The
+sharded kernels: C3 as the other f32 accumulators, M1's wire words
+bitwise, and the postings kernels on edge-range shards as P3.
 """
 
 import numpy as np
@@ -337,3 +339,126 @@ def test_wide_wire_on_card(card):
     torch.cuda.synchronize()
     _same_placements(unpack_wire(wire.cpu().numpy(), 7, True),
                      unpack_wire(want.cpu().numpy(), 7, True))
+
+
+@pytest.mark.cuda
+def test_accumulate_rows_range_matches_plain_on_card(card):
+    """C3 on each k-mer-range shard: global rows folded into the shard's
+    range (the miss row and other shards' rows add nothing)."""
+    rng = np.random.default_rng(41)
+    n, E, B, Q, mp = 5000, 300, 256, 143, 3
+    per = -(-n // mp)
+    rows = torch.from_numpy(rng.integers(0, n + 1, (B, Q))
+                            .astype(np.int32)).to(card)
+    for i in range(mp):
+        D = torch.from_numpy(_table(rng, per + 1, E, 0.05)).to(card)
+        got = T.accumulate_rows_range(D, rows, i * per, per)
+        want = T.accumulate_range(D, rows, i * per, per)
+        torch.cuda.synchronize()
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got > 0, want > 0)
+    assert T.LAUNCHES["accumulate_rows_range"] >= mp
+
+
+def _shard_wires(rng, mp, B, K, E, wide):
+    """``mp`` candidate wires as P3 writes them on edge-range shards:
+    scores descending, -inf tails, distinct global edges per shard range,
+    |L| per shard; exact score ties across shards and within one."""
+    bounds = np.linspace(0, E, mp + 1).astype(np.int64)
+    wires = []
+    for j in range(mp):
+        ts = -np.sort(-(rng.integers(0, 40, (B, K)) * 0.25 - 30.0)
+                      .astype(np.float32), axis=1)
+        n_valid = rng.integers(0, K + 1, B)
+        ts[np.arange(K)[None, :] >= n_valid[:, None]] = -np.inf
+        te = np.stack([rng.choice(np.arange(bounds[j], bounds[j + 1]), K,
+                                  replace=False) for _ in range(B)])
+        te = np.where(np.isfinite(ts), te, -1)
+        nm = np.maximum(n_valid + rng.integers(0, 5, B), n_valid)
+        wires.append(T.pack_wire(
+            torch.from_numpy(te.astype(np.int32)), torch.from_numpy(ts),
+            torch.zeros(B, K), torch.from_numpy(nm.astype(np.int32)),
+            wide=wide))
+    return torch.stack(wires)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mp, K_in, keep, E, wide", [
+    (2, 7, 7, 7999, False), (4, 3, 7, 20, False), (8, 7, 7, 300, False),
+    (3, 5, 5, 70000, True)])
+def test_merge_candidates_wire_matches_plain_on_card(card, mp, K_in, keep,
+                                                     E, wide):
+    """M1 against its plain version, wire words bitwise: ties go to the
+    lower shard, -inf slots stay empty, |L| sums (-1 propagates)."""
+    rng = np.random.default_rng(42 + mp)
+    B = 1000
+    wires = _shard_wires(rng, mp, B, K_in, E, wide)
+    wires[1, 5, -1] = -1                # a shard that could not sort read 5
+    got = T.merge_candidates_wire(wires.to(card), K_in, keep, wide)
+    want = T.merge_candidates_wire(wires, K_in, keep, wide)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert int(want[5, -1]) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp, mp", [(1, 2), (2, 4)])
+def test_postings_shards_match_plain_on_card(card, dp, mp):
+    """P1, P2 and P3 with a shard's edge offset, and M1, through
+    ``PostingsShardedPlacement`` on the card against the same placement's
+    plain versions on the CPU (a mesh that repeats the card)."""
+    from rappas_tpu_torch.parallel.mesh import make_mesh
+    from rappas_tpu_torch.parallel.postings_sharded import \
+        PostingsShardedPlacement
+    rng = np.random.default_rng(43)
+    db = _postings_db(5)
+    mat, lens = _reads(rng, 64 * dp, 60, 16 * dp)
+    base = db.alphabet.kmer_to_string(int(db.keys[0]), db.k) * 12
+    mat[:4] = np.frombuffer(base.encode(), np.uint8)[None]
+    host = PlacementEngine(db, device="cpu", table="postings")
+    codes = host.encode_batch(mat)
+    amb = host._expand_ambiguities_host(codes, mat, lens)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        sp = PostingsShardedPlacement(
+            db, make_mesh([dev] * (dp * mp), dp=dp, mp=mp))
+        before = dict(T.LAUNCHES)
+        runs[dev] = sp.score(codes, lens, amb)
+        torch.cuda.synchronize()
+    for name in ("dense_side", "ambiguous_postings",
+                 "finalize_postings_wire", "merge_candidates_wire"):
+        assert T.LAUNCHES[name] > before[name], name
+    _same_placements(runs["cuda"], runs["cpu"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["direct", "compact", "postings", "kmer"])
+def test_sharded_engines_on_distinct_cards(card, table):
+    """The sharded engines on a mesh of distinct cards (the all-gather's
+    cross-device copies after an event on the source card's stream)
+    against the same engines on a mesh that repeats the CPU.  Needs two
+    or more cards; four make a (dp=2, mp=2) mesh."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards (cross-device copies)")
+    from rappas_tpu_torch.parallel.engine import ShardedEngine
+    from rappas_tpu_torch.parallel.kmer_sharded import KmerShardedPlacement
+    from rappas_tpu_torch.parallel.mesh import make_mesh
+    dp = 2 if n >= 4 else 1
+    rng = np.random.default_rng(44)
+    db = _postings_db(6, n_edges=60)
+    mat, lens = _reads(rng, 256, 80, 40)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        devices = ([f"cuda:{i}" for i in range(2 * dp)] if dev == "cuda"
+                   else ["cpu"] * (2 * dp))
+        mesh = make_mesh(devices, dp=dp, mp=2)
+        if table == "kmer":
+            eng = PlacementEngine(db, device="cpu", table="direct")
+            runs[dev] = KmerShardedPlacement(db, mesh).score(
+                eng.encode_batch(mat), lens)
+        else:
+            runs[dev] = ShardedEngine(db, mesh, table=table).score(mat, lens)
+        torch.cuda.synchronize()
+    _same_placements(runs["cuda"], runs["cpu"])
+    assert (runs["cuda"].n_matched > 0).any()

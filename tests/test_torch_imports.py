@@ -59,6 +59,9 @@ _BLOCKED_RUN = textwrap.dedent("""
                                               "rappas_tpu_torch.")]
     for n in names:
         importlib.import_module(n)
+    assert {{"rappas_tpu_torch.parallel." + m for m in (
+        "mesh", "engine", "kmer_sharded", "postings_sharded",
+        "distributed")}} <= set(names), names
     from rappas_tpu_torch import cli
     from rappas_tpu_torch.alphabet import DNA
     from rappas_tpu_torch.db import PhyloKmerDB, build_csr
@@ -88,6 +91,12 @@ _BLOCKED_RUN = textwrap.dedent("""
                            "--precision", precision])
             assert rc == 0
             assert (tmp / "placements_q.fasta.jplace").stat().st_size > 0
+        # a (dp=2, mp=2) mesh that repeats the CPU
+        (tmp / "placements_q.fasta.jplace").unlink()
+        assert cli.main(["-p", "p", "-d", str(tmp / "db.rptpu"),
+                         "-q", str(tmp / "q.fasta"), "-w", str(tmp),
+                         "--device", "cpu", "--dp", "2", "--mp", "2"]) == 0
+        assert (tmp / "placements_q.fasta.jplace").stat().st_size > 0
         # the native key probe of the postings layout's big key spaces
         from rappas_tpu_torch.native import probe_rows
         keys = np.arange(0, 4 ** 5, 3, dtype=np.int64)
@@ -153,16 +162,30 @@ def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
 @pytest.mark.parametrize("extra, item", [
     (["--dp", "2"], "item 7"),
     (["--mp", "2"], "item 7"),
-    (["--coordinator", "localhost:1234"], "item 7"),
+    (["--coordinator", "127.0.0.1:PORT"], "item 7"),
     (["--num-hosts", "2"], "item 7"),
     (["--profile", "trace"], "item 8"),
 ])
 def test_cli_not_ported_options_exit_nonzero(tmp_path, capsys, extra, item):
+    """An option not yet ported exits with status 2 and names its ROADMAP
+    item.  Item 7's options (multi-device and multi-host placement) are
+    ported now: they place, ``--num-hosts`` without a coordinator into
+    this host's part of the jplace."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        extra = [x.replace("PORT", str(s.getsockname()[1])) for x in extra]
     _tiny_db().save(tmp_path / "db.rptpu")
     (tmp_path / "q.fasta").write_text(">q\nACGTACGTACGTAC\n")
     rc = cli.main(["-p", "p", "-d", str(tmp_path / "db.rptpu"),
                    "-q", str(tmp_path / "q.fasta"), "-w", str(tmp_path),
                    "--device", "cpu", *extra])
+    if item == "item 7":
+        assert rc == 0
+        out = tmp_path / ("placements_q.fasta.jplace" +
+                          (".part0" if "--num-hosts" in extra else ""))
+        assert json.loads(out.read_text())["placements"]
+        return
     assert rc == 2
     err = capsys.readouterr().err
     assert "not" in err and "ported" in err and f"queue 1 {item}" in err
