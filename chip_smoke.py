@@ -8,8 +8,8 @@ CUDA toolkit:
 
 It needs one card, builds the CUDA kernels from ``rappas_tpu_torch/csrc``
 (into ``rappas_tpu_torch/_build/``) and drives ``-p p`` placement on DBs
-made from the seed, at the widths of four configurations, in every table
-layout and precision a single device resolves to:
+made from the seed, at the widths of five configurations, in every table
+layout, precision and height split a single device resolves to:
 
 * config 1, the direct layout (k=8, E=300 edge slots, a table
   ``D[4^8 + 1, 300]`` f32 of 79 MB, 150 bp reads):
@@ -32,13 +32,30 @@ layout and precision a single device resolves to:
   5. compact f32 (``table="compact"``: ``D[39,322, 300]``, 47 MB, the
      int32 keys on the card) -- an engine phase through C1
      accumulate_compact whose placements must equal the direct engine's;
+* config 2, the direct table height-split (``bench.py:60-84``'s recipe
+  at k=10, 5% of the k-mers present: ``D[4^10 + 1, 300]``, 1.26 GB f32
+  in 13 parts of 96 MB, 629 MB u16 in 7; ``DIRECT_SPLIT_MIN`` lowered on
+  a subclass, as the JAX default never splits): D1 routed_accumulate and
+  A1 ambiguous_pass_split (f32 and u16) against their plain versions,
+  then engine phases of the unsplit direct engine and of the split f32
+  and u16 engines on the same batches, the split ones held against the
+  unsplit; half of each batch from a chain of DB k-mers;
 * config 5, the postings layout (k=12, a 4000-taxon star: E=7999; 2M
   light k-mers with 1-7 postings, 10k heavy ones with 32-199, as
   ``scripts/scale_check.py:21-48`` builds it, with every 12-mer of a
-  400 kb reference among the keys): the same three phases for P1
-  dense_side, P2 ambiguous_postings and P3 finalize_postings_wire
-  (B=8192), the CLI with ``--table auto``; half of each batch is
-  sampled from the reference (every window hits), half is uniform;
+  400 kb reference among the keys): kernel phases for P1 dense_side,
+  P2 ambiguous_postings and P3 finalize_postings_wire on the one light
+  table, and for R1 (routed and part-select), G1 gather_compact and A1
+  ambiguous_postings_parts on the default engine's 2 parts (B=8192; R1's
+  and the two-stage wires bitwise P3's); engine phases of the default
+  engine (its 128 MB light table past the 96 MB budget: 2 routed parts),
+  the one-table engine, the two-stage and pipelined paths, 4 routed
+  parts (a 32 MB budget), the select fallback after the unique-overflow
+  halving, and max-mode ambiguity reads over the parts, each held
+  against the one-table engine and checked for its path (parts, handle
+  type, launches); the CLI with ``--table auto`` (routed); half of each
+  batch is sampled from the reference (every window hits), half is
+  uniform;
 * the sharded phases, on a (dp=2, mp=2) mesh of four distinct cards or
   of the one card repeated (``smoke_mesh``):
   1. config 1 through ``ShardedEngine`` (two 150-column shards of the
@@ -118,13 +135,27 @@ def config1_db(seed: int):
     """BASELINE config 1 widths from the seed (``bench.py:60-84``'s
     recipe): k=8, 300 edge slots, 60% of the 4^8 k-mers present with 5
     postings each, deltas uniform in (0, 2.5]."""
+    return bench_db(seed, 8, 0.6)
+
+
+def config2_db(seed: int):
+    """BASELINE config 2's table size from the seed (``bench.py:60-84``'s
+    recipe at k=10 and an occupancy of 0.05, as ``bench.py:384``): 300
+    edge slots, 52,428 k-mers with 5 postings each; its direct table
+    ``D[4^10 + 1, 300]`` takes 1.26 GB in f32, 629 MB in u16."""
+    return bench_db(seed, 10, 0.05)
+
+
+def bench_db(seed: int, k: int, occupancy: float):
+    """``bench.py:60-84``'s synthetic DB: 300 edge slots, a share
+    ``occupancy`` of the 4^k k-mers present with 5 postings each."""
     import numpy as np
 
     from rappas_tpu_torch.alphabet import DNA
     from rappas_tpu_torch.db import PhyloKmerDB, build_csr
     from rappas_tpu_torch.tree import parse_newick
 
-    k, n_edges, per_kmer, occupancy = 8, 300, 5, 0.6
+    n_edges, per_kmer = 300, 5
     rng = np.random.default_rng(seed)
     labels = ",".join(f"L{i}:0.1" for i in range(n_edges - 1))
     tree = parse_newick(f"({labels})root;")
@@ -852,6 +883,241 @@ def sharded_postings_kernel_phase(sp, eng, seed: int, ref) -> dict:
     return out
 
 
+def split_postings_kernel_phase(eng, one, seed: int, ref,
+                                device: str = "cuda") -> dict:
+    """R1 (routed and part-select), G1 and A1's P2 instance at B=8192 on
+    one batch of the split engine ``eng``'s host inputs (half the reads
+    sampled from ``ref``), each against its plain version on the card;
+    R1's wires and P3's on G1's compact table must equal the one-table P3
+    wire of ``one`` (the same DB unsplit) bitwise."""
+    import numpy as np
+    import torch
+
+    from rappas_tpu_torch.place import kernels as K
+    from rappas_tpu_torch.place.engine import unpack_wire
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(seed + 12)
+    mat, lens = random_reads(rng, B_POSTINGS, B_POSTINGS // 100, ref=ref)
+    host, plan = eng.postings_inputs(eng.encode_batch(mat), mat, lens)
+    host.pop("scratch_off", None)
+    plan = plan.to(dev)
+    routed_np = eng._route_windows(host["lrows"])
+    d = {n: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+         for n, a in host.items()}
+    routed = torch.from_numpy(routed_np).to(dev)
+    H, parts, tables = eng.heavy_dense, eng._light, eng.light_parts
+    E, P = H.shape[1], tables[0].shape[1] // 2
+    nl = eng._nl
+    out = {}
+
+    # A1, P2 over the parts ------------------------------------------- #
+    acc_c = K.dense_side(H, d["hrows"], d["hoff"])
+    spec = [d[n] for n in ("alt_lrows", "alt_hrows", "win_off", "win_slot",
+                           "win_inv_w", "win_is_mean")]
+    alt_win = torch.repeat_interleave(
+        torch.arange(spec[3].numel(), device=dev),
+        (spec[2][1:] - spec[2][:-1]).long())
+
+    def a1(acc):
+        return K.ambiguous_postings_parts_(acc, H, parts, *spec)
+
+    def a1_plain():
+        return K.ambiguous_pass(K.alt_delta_rows_postings(
+            tables, H, spec[0], spec[1]), alt_win, *spec[3:], acc_c)
+    got, want = a1(acc_c.clone()), a1_plain()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    check(err <= 2e-4 and torch.equal(got > 0, want > 0),
+          f"A1 ambiguous_postings_parts disagrees with its plain version "
+          f"(max abs err {err})")
+    n_alt, n_w = spec[0].numel(), spec[3].numel()
+    lr, hr = spec[0][spec[0] != nl], spec[1][spec[1] != H.shape[0] - 1]
+    b, why = bound(torch.unique(hr).numel() * E * 4 +
+                   torch.unique(lr).numel() * 2 * P * 4 + n_alt * 8 +
+                   n_w * 13 + 4 + 2 * torch.unique(spec[3]).numel() * E * 4,
+                   (n_alt * 3 + 3 * n_w) * E + n_alt * P)
+    scratch = acc_c.clone()
+    out["ambiguous_postings_parts"] = dict(
+        max_abs_err=err, bound_ms=b, bound_by=why, windows=n_w,
+        alternatives=n_alt, parts=len(tables),
+        ms=cuda_ms(lambda: a1(scratch)), plain_ms=cuda_ms(a1_plain),
+        library_ms=None)
+    acc_c = got
+
+    # R1 and G1 --------------------------------------------------------- #
+    args = (acc_c, d["slot_of"], d["lengths"], eng.thr, eng.k, K_KEEP, plan)
+    thr_t = torch.tensor(np.float32(eng.thr), device=dev)
+    Kk = min(K_KEEP, E)
+    one_wire = K.finalize_postings_wire(one.pairs, d["lrows"], *args)
+    counts = eng._light_counts[host["lrows"]].sum(axis=1)
+    n_b = counts[counts > 1].astype(np.float64)
+    sort_ops = float((n_b * np.ceil(np.log2(n_b))).sum())
+    n_slots = d["hoff"].numel() - 1
+    distinct = torch.unique(d["lrows"][d["lrows"] != nl]).numel()
+
+    def plain_wire(**source):
+        return K.pack_wire(*K.finalize_postings(
+            None, source.pop("lrows", None), acc_c, d["slot_of"],
+            d["lengths"], thr_t, eng.k, K_KEEP, light_parts=tables,
+            **source), wide=eng.wide)
+    r1 = {
+        "finalize_postings_wire_routed": (
+            lambda: K.finalize_postings_wire_routed(parts, routed, *args),
+            lambda: plain_wire(routed_lrows=tuple(routed)), routed.numel()),
+        "finalize_postings_wire_parts": (
+            lambda: K.finalize_postings_wire_parts(parts, d["lrows"], *args,
+                                                   miss=nl),
+            lambda: plain_wire(lrows=d["lrows"]), d["lrows"].numel())}
+    for name, (run, plain, n_rows) in r1.items():
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(got, one_wire), f"R1 {name}: wire differs from "
+              "the one-table P3's")
+        res = unpack_wire(got.cpu().numpy(), Kk, eng.wide)
+        ref_res = unpack_wire(want.cpu().numpy(), Kk, eng.wide)
+        diff = same_placements(res, ref_res)
+        check(diff is None, f"R1 {name} vs its plain version: {diff}")
+        fin = np.isfinite(ref_res.top_scores)
+        b, why = bound(distinct * 2 * P * 4 + n_rows * 4 + B_POSTINGS * 8 +
+                       n_slots * E * 4 + got.numel() * 4,
+                       sort_ops + n_slots * E)
+        out[name] = dict(
+            max_abs_err=float(np.abs(res.top_scores - ref_res.top_scores)
+                              [fin].max()) if fin.any() else 0.0,
+            wire_equals_one_table_p3=True, bound_ms=b, bound_by=why,
+            parts=len(tables), window_columns=int(n_rows // B_POSTINGS),
+            ms=cuda_ms(run), plain_ms=cuda_ms(plain, reps=5),
+            library_ms=None)
+
+    # G1 on the two-stage path's unique rows (the budget of this batch) -- #
+    two = dict(host)
+    eng.enable_routed_windows(False)
+    src = eng._light_source(two)
+    eng.enable_routed_windows(True)
+    check(src[0] == "compact", f"G1: the batch took {src}, not the "
+          "two-stage path")
+    uniq = torch.from_numpy(two["uniq"]).to(dev)
+    uniq_off = torch.from_numpy(two["uniq_off"]).to(dev)
+    inv = torch.from_numpy(two["lrows"]).to(dev)
+    bounds = two["uniq_off"].tolist()
+    runs = [uniq[a:c].long() for a, c in zip(bounds[:-1], bounds[1:])]
+    got = K.gather_compact_(parts, uniq, uniq_off)
+    want = K.gather_compact(tables, tuple(runs))
+    wire = K.finalize_postings_wire(got, inv, *args, miss=src[1])
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "G1 gather_compact: rows differ from the "
+          "plain version")
+    check(torch.equal(wire, one_wire), "P3 on G1's compact table: wire "
+          "differs from the one-table P3's")
+    U = uniq.numel()
+    b, why = bound(U * 4 + uniq_off.numel() * 4 + 2 * U * 2 * P * 4, 0)
+    out["gather_compact"] = dict(
+        max_abs_err=0.0, bound_ms=b, bound_by=why, compact_rows=U,
+        parts=len(tables),
+        ms=cuda_ms(lambda: K.gather_compact_(parts, uniq, uniq_off)),
+        plain_ms=cuda_ms(lambda: K.gather_compact(tables, tuple(runs))),
+        library_ms=cuda_ms(lambda: torch.cat([
+            t.index_select(0, r) for t, r in zip(tables, runs)])))
+    return out
+
+
+def split_direct_kernel_phase(eng, whole, seed: int, ref,
+                              device: str = "cuda") -> dict:
+    """D1 and A1's K4 instance on the split direct table of ``eng`` (f32
+    or uint16) at B=16384 (half the reads from ``ref``), against their
+    plain versions on the card; D1 also within 1e-5 relative of the
+    unsplit engine ``whole``'s sums (bitwise on uint16)."""
+    import numpy as np
+    import torch
+
+    from rappas_tpu_torch.place import kernels as K
+    from rappas_tpu_torch.place.engine import (host_kmer_indices,
+                                               window_offsets)
+
+    dev = torch.device(device)
+    parts, tables, scale = eng._direct, eng.direct_parts, eng.scale
+    u16 = tables[0].dtype == torch.uint16
+    sfx = "_u16" if u16 else ""
+    E, item = tables[0].shape[1], tables[0].element_size()
+    rng = np.random.default_rng(seed + 14)
+    mat, lens = random_reads(rng, B_KERNEL, B_KERNEL // 100, 0.05, ref=ref)
+    codes = eng.encode_batch(mat)
+    kidx = host_kmer_indices(codes, lens, eng.k, 4)
+    miss = eng.n_rows - 1
+    rows_np = np.where(kidx >= 0, kidx, miss).astype(np.int32)
+    routed = torch.from_numpy(eng._route_direct(rows_np)).to(dev)
+    rows = torch.from_numpy(rows_np).to(dev)
+    out = {}
+
+    def d1():
+        return K.routed_accumulate_(parts, routed, scale)
+
+    def d1_plain():
+        return K.routed_accumulate(tables, tuple(routed)) * scale
+    got, want = d1(), d1_plain()
+    whole_acc = K.accumulate(whole.D, rows) * whole.scale
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(held(got, want, u16) and held(got, whole_acc, u16),
+          f"D1 routed_accumulate{sfx} disagrees with its plain version "
+          f"(max abs err {err}) or the unsplit table's sums")
+    hit = rows[rows != miss]
+    D32 = whole.D.float()               # embedding_bag takes no uint16
+    rows_long = rows.long()
+    b, why = bound(routed.numel() * 4 + torch.unique(hit).numel() * E * item +
+                   B_KERNEL * E * 4, (hit.numel() + B_KERNEL) * E)
+    codes_d = torch.from_numpy(codes).to(dev)
+    out["routed_accumulate" + sfx] = dict(
+        max_abs_err=err, bound_ms=b, bound_by=why, parts=len(tables),
+        window_columns=int(routed.shape[2]), hit_windows=hit.numel(),
+        # K2 on the unsplit table, the same reads: what the split saves
+        unsplit_k2_ms=cuda_ms(lambda: K.accumulate_codes(
+            whole.D, codes_d, eng.k, 4, whole.scale)),
+        ms=cuda_ms(d1), plain_ms=cuda_ms(d1_plain, reps=5),
+        library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
+            rows_long, D32, mode="sum")))
+    acc = got
+    del D32
+
+    kidx_a, alt_win, win_read, inv_w, is_mean = eng._expand_ambiguities_host(
+        codes, mat, lens)
+    errs = []
+    for mean in (True, False):
+        spec = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (
+            kidx_a.astype(np.int32), window_offsets(alt_win, win_read.size),
+            win_read.astype(np.int32), inv_w.astype(np.float32),
+            np.full(win_read.size, mean, np.uint8))]
+        alt_win_d = torch.from_numpy(alt_win.astype(np.int64)).to(dev)
+        got = K.ambiguous_pass_split_(acc.clone(), parts, scale, *spec)
+        want = K.ambiguous_pass(K.alt_delta_rows_split(tables, scale,
+                                                       spec[0]),
+                                alt_win_d, *spec[2:], acc)
+        torch.cuda.synchronize()
+        errs.append(float((got - want).abs().max()))
+        check(errs[-1] <= 2e-4 and torch.equal(got > 0, want > 0),
+              f"A1 ambiguous_pass_split{sfx} (mean {mean}) disagrees with "
+              f"its plain version (max abs err {errs[-1]})")
+        if mean:
+            mean_spec, mean_alt_win = spec, alt_win_d
+    alt_rows = mean_spec[0]
+    n_alt, n_w = alt_rows.numel(), mean_spec[2].numel()
+    b, why = bound(torch.unique(alt_rows).numel() * E * item + n_alt * 4 +
+                   n_w * 13 + 4 +
+                   2 * torch.unique(mean_spec[2]).numel() * E * 4,
+                   (n_alt + n_w) * E * 4)
+    scratch = acc.clone()
+    out["ambiguous_pass_split" + sfx] = dict(
+        max_abs_err=max(errs), bound_ms=b, bound_by=why, windows=n_w,
+        alternatives=n_alt, parts=len(tables),
+        ms=cuda_ms(lambda: K.ambiguous_pass_split_(scratch, parts, scale,
+                                                   *mean_spec)),
+        plain_ms=cuda_ms(lambda: K.ambiguous_pass(K.alt_delta_rows_split(
+            tables, scale, alt_rows), mean_alt_win, *mean_spec[2:], acc)),
+        library_ms=None)
+    return out
+
+
 def kmer_sharded_phase(db, mesh, seed: int, ref, n_batches: int = 10,
                        device: str = "cuda") -> tuple:
     """``KmerShardedPlacement`` on ``mesh``: C3 on shard 1 at a mesh row's
@@ -1015,15 +1281,21 @@ def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
                  n_batches: int = 10, length: int = READ_LEN,
                  letters: bytes = b"ACGT", n_ambiguous: int | None = None,
                  ref=None, engine_kw=None, against=None,
-                 device: str = "cuda", mesh=None, engine=None) -> dict:
+                 device: str = "cuda", mesh=None, engine=None,
+                 engine_cls=None, prepare=None, inspect=None,
+                 absent=()) -> dict:
     """``n_batches`` batches back to back through ``score_async`` (a few
-    in flight) of ``PlacementEngine(db, **engine_kw)`` (with ``mesh``:
-    ``ShardedEngine(db, mesh, **engine_kw)``); every kernel in ``names``
-    must launch; the first batch's first 512 reads are held against the
-    one-device engine on the CPU and, with ``against = (kw,
-    tol_score)``, against the card's ``PlacementEngine(db, **kw)`` with
-    scores within ``tol_score`` (LWR not held when it passes 2e-4).  An
-    ``engine`` already built on ``mesh`` is driven as it is."""
+    in flight) of ``engine_cls(db, **engine_kw)`` (default
+    ``PlacementEngine``; with ``mesh``: ``ShardedEngine(db, mesh,
+    **engine_kw)``), ``prepare(engine)`` applied first; every kernel in
+    ``names`` must launch and none in ``absent``; ``inspect(engine,
+    handles)`` (the type names of the ``score_async`` handles) checks the
+    path that ran and returns what to report.  The first batch's first
+    512 reads are held against the one-device engine of the same class on
+    the CPU and, with ``against = (kw, tol_score[, cls])``, against the
+    card's ``cls(db, **kw)`` with scores within ``tol_score`` (LWR not
+    held when it passes 2e-4).  An ``engine`` already built on ``mesh``
+    is driven as it is."""
     import numpy as np
     import torch
 
@@ -1033,34 +1305,43 @@ def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
     from rappas_tpu_torch.place.engine import PlacementEngine
 
     kw = engine_kw or {}
+    cls = engine_cls or PlacementEngine
     rng = np.random.default_rng(seed + 2)
     n_amb = batch // 100 if n_ambiguous is None else n_ambiguous
     batches = [random_reads(rng, batch, n_amb, 0.05, length, letters, ref)
                for _ in range(n_batches)]
     t0 = time.perf_counter()
-    eng = engine or (PlacementEngine(db, device=device, **kw) if mesh is None
+    eng = engine or (cls(db, device=device, **kw) if mesh is None
                      else ShardedEngine(db, mesh, **kw))
+    if prepare is not None:
+        prepare(eng)
     setup_s = time.perf_counter() - t0
     eng.score(*batches[0])                    # warm-up
     torch.cuda.synchronize()
     K.reset_launches()
     native.PROBE_CALLS["probe_rows"] = 0
     t0 = time.perf_counter()
-    pend, results = [], []
+    pend, results, handles = [], [], set()
     issue_s = 0.0      # host time inside score_async: encode, lookups,
     for mat, lens in batches:      # expansion, stage, enqueue
         t1 = time.perf_counter()
         pend.append(eng.score_async(mat, lens))
         issue_s += time.perf_counter() - t1
+        handles.add(type(pend[-1]).__name__)
         if len(pend) > 3:
             results.append(pend.pop(0).result())
     results.extend(p.result() for p in pend)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {n: K.LAUNCHES[n] for n in names}
+    launches = {n: K.LAUNCHES[n] for n in names + tuple(absent)}
     probes = native.PROBE_CALLS["probe_rows"]
-    for name, n in launches.items():
-        check(n > 0, f"engine phase: kernel {name} was never launched")
+    for name in names:
+        check(launches[name] > 0,
+              f"engine phase: kernel {name} was never launched")
+    for name in absent:
+        check(launches[name] == 0, f"engine phase: kernel {name} was "
+              f"launched {launches[name]} times off this path")
+    path = inspect(eng, handles) if inspect is not None else None
     steps = {}
     if eng.table == "postings" and mesh is None:
         # the postings host side on one batch, each step timed once on
@@ -1082,30 +1363,72 @@ def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
         per_read = eng._light_counts[host["lrows"]].sum(axis=1)
         steps["postings_per_read_mean"] = float(per_read.mean())
         steps["postings_per_read_max"] = int(per_read.max())
+        if eng._light_slow or len(eng.light_parts) > 1:
+            # the split table's row source: routing, or the batch-unique
+            # rows and their inverse map
+            t1 = time.perf_counter()
+            eng._light_source(host)
+            steps["light_source"] = time.perf_counter() - t1
     elif eng.table == "postings":
         steps = sharded_postings_host_steps(eng, *batches[1])
+    elif getattr(eng, "direct_parts", None) is not None:
+        steps = direct_split_host_steps(eng, *batches[1])
     table, keys_on_card = eng.table, getattr(eng, "keys_dev", None) is not None
     del eng
     mat, lens = batches[0]
     r0 = results[0]
     sub = type(r0)(*(x[:512] for x in r0))
-    ref = PlacementEngine(db, device="cpu", **kw).score(mat[:512], lens[:512])
-    diff = same_placements(sub, ref)
+    cpu = cls(db, device="cpu", **kw)
+    if prepare is not None:
+        prepare(cpu)
+    diff = same_placements(sub, cpu.score(mat[:512], lens[:512]))
+    del cpu
     check(diff is None, f"engine phase: card vs CPU engine: {diff}")
+    same_bits = None
     if against is not None:
-        other_kw, tol = against
-        other = PlacementEngine(db, device=device, **other_kw).score(
-            mat[:512], lens[:512])
+        other_kw, tol, *other_cls = against
+        other = (other_cls[0] if other_cls else PlacementEngine)(
+            db, device=device, **other_kw).score(mat[:512], lens[:512])
         diff = same_placements(sub, other, tol,
                                1e-4 if tol <= 2e-4 else None)
-        check(diff is None, f"engine phase: {kw} vs {other_kw} on the "
-              f"card: {diff}")
+        check(diff is None, f"engine phase: {cls.__name__}({kw}) vs "
+              f"{other_kw} on the card: {diff}")
+        same_bits = bool(np.array_equal(sub.top_edges, other.top_edges) and
+                         np.array_equal(sub.top_scores.view(np.uint32),
+                                        other.top_scores.view(np.uint32)))
     return {"table": table, "keys_on_card": keys_on_card,
+            "engine": cls.__name__,
             "mesh": None if mesh is None else dict(mesh.shape),
             "reads_per_s": n_batches * batch / dt,
             "seconds": dt, "score_async_s": issue_s, "setup_s": setup_s,
             "batches": n_batches, "batch_size": batch, "launches": launches,
+            "handles": sorted(handles), "path": path,
+            "bitwise_vs_against": same_bits,
             "probe_rows_calls": probes, "host_steps_s": steps}
+
+
+def direct_split_host_steps(eng, mat, lens) -> dict:
+    """The split direct engine's host steps on one batch, each timed once
+    on the host clock: encode, the k-mer indices, the routing of the
+    windows to the parts, the ambiguity expansion."""
+    import numpy as np
+
+    from rappas_tpu_torch.place.engine import host_kmer_indices
+
+    steps = {}
+    t1 = time.perf_counter()
+    codes = eng.encode_batch(mat)
+    steps["encode"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    kidx = host_kmer_indices(codes, lens, eng.k, eng.alphabet.n_states)
+    steps["kmer_indices"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    eng._route_direct(np.where(kidx >= 0, kidx, eng.n_rows - 1))
+    steps["route"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    eng._expand_ambiguities_host(codes, mat, lens)
+    steps["ambiguity_expansion"] = time.perf_counter() - t1
+    return steps
 
 
 def sharded_postings_host_steps(eng, mat, lens) -> dict:
@@ -1258,6 +1581,19 @@ HOST_ROWS = ("accumulate_rows", "finalize_wire", "ambiguous_pass")
 HOST_ROWS_U16 = ("accumulate_rows_u16", "finalize_wire",
                  "ambiguous_pass_u16")
 POSTINGS_SHARDED = POSTINGS + ("merge_candidates_wire",)
+#: the split light table's paths: routed (the default), two-stage (and
+#: pipelined), the select fallback; the split direct table
+POSTINGS_ROUTED = ("dense_side", "ambiguous_postings_parts",
+                   "finalize_postings_wire_routed")
+TWO_STAGE = ("dense_side", "ambiguous_postings_parts", "gather_compact",
+             "finalize_postings_wire")
+SELECT = ("dense_side", "ambiguous_postings_parts",
+          "finalize_postings_wire_parts")
+SPLIT_POSTINGS = ("ambiguous_postings_parts", "finalize_postings_wire_routed",
+                  "gather_compact", "finalize_postings_wire_parts")
+SPLIT_DIRECT = ("routed_accumulate", "ambiguous_pass_split", "finalize_wire")
+SPLIT_DIRECT_U16 = ("routed_accumulate_u16", "ambiguous_pass_split_u16",
+                    "finalize_wire")
 #: kernel instance -> (source in csrc/, the JAX functions it replaces,
 #: the main-path run whose launches its line reports)
 _E = "rappas_tpu/place/engine.py:"
@@ -1270,10 +1606,10 @@ SOURCES = {
     "ambiguous_pass": ("ambiguous.cu", _E + "907,967,1005", "config1",
                        "cli"),
     "dense_side": ("postings.cu", _E + "484,773", "config5", "cli"),
-    "ambiguous_postings": ("ambiguous.cu", _E + "950,967,1433", "config5",
-                           "cli"),
-    "finalize_postings_wire": ("postings.cu", _E + "654,684,68", "config5",
-                               "cli"),
+    "ambiguous_postings": ("ambiguous.cu", _E + "950,967,1433",
+                           "config5_one", "engine"),
+    "finalize_postings_wire": ("postings.cu", _E + "654,684,68",
+                               "config5_one", "engine"),
     "accumulate_packed_u16": ("accumulate.cu", _E + "253,195",
                               "config1_u16", "cli"),
     "accumulate_codes_u16": ("accumulate.cu", _E + "175,195", "config1_u16",
@@ -1296,6 +1632,22 @@ SOURCES = {
                                       "config5_sharded", "engine"),
     "merge_candidates_wire": ("merge.cu", _PS + "217,223,192-206",
                               "config5_sharded", "engine"),
+    "finalize_postings_wire_routed": ("postings.cu", _E + "609,632,68",
+                                      "config5", "cli"),
+    "finalize_postings_wire_parts": ("postings.cu", _E + "654-681,535,68",
+                                     "config5_select", "engine"),
+    "gather_compact": ("postings.cu", _E + "557,566", "config5_two_stage",
+                       "engine"),
+    "ambiguous_postings_parts": ("ambiguous.cu", _E + "950,654-681,967",
+                                 "config5", "cli"),
+    "routed_accumulate": ("accumulate.cu", _E + "915", "config2_split",
+                          "engine"),
+    "routed_accumulate_u16": ("accumulate.cu", _E + "915",
+                              "config2_split_u16", "engine"),
+    "ambiguous_pass_split": ("ambiguous.cu", _E + "931,967,1005",
+                             "config2_split", "engine"),
+    "ambiguous_pass_split_u16": ("ambiguous.cu", _E + "931,967,1005",
+                                 "config2_split_u16", "engine"),
 }
 #: kernel-line rows of an instance counted under its kernel's name
 LAUNCH_KEY = {"ambiguous_postings_offset": "ambiguous_postings",
@@ -1304,6 +1656,31 @@ PROTEIN = b"ARNDCQEGHILKMFPSTWYV"
 #: reads of the u16 CLI phases (configs 1 and 6) and of the config-1
 #: sharded place_queries phase
 CLI_READS_U16 = 20_000
+
+
+def engine_class(name: str, **consts):
+    """A ``PlacementEngine`` with other values of its constants (the split
+    budgets have no CLI flag, as in JAX)."""
+    from rappas_tpu_torch.place.engine import PlacementEngine
+    return type(name, (PlacementEngine,), consts)
+
+
+def path_check(handle: str, light_parts=None, direct_parts=None):
+    """An ``engine_phase`` inspection: every handle of the run is a
+    ``handle``, the light or direct table is in that many parts, and a
+    pipeline's tail was flushed."""
+    def inspect(eng, handles):
+        check(handles == {handle}, f"the run's handles are {handles}, not "
+              f"{handle}")
+        got = {"light_parts": len(eng.light_parts),
+               "direct_parts": len(eng.direct_parts or ())}
+        want = {"light_parts": light_parts, "direct_parts": direct_parts}
+        for key, n in want.items():
+            check(n is None or got[key] == n, f"{key}: {got[key]}, not {n}")
+        check(eng._pp_tail is None, "the pipeline's tail was not flushed")
+        return dict(got, handle=handle, routed=eng._routed_windows,
+                    pipelined=eng._pp_enabled)
+    return inspect
 
 
 def smoke_mesh():
@@ -1412,13 +1789,64 @@ def main() -> int:
         show("config1 sharded place_queries", pl)
         results["config1_sharded"] = {"engine": eng, "place": pl}
 
+        # config 2: the direct table height-split (k=10) ------------ #
+        db, path = make_db("config2", config2_db, work)
+        chain2 = key_chain(db, args.seed)
+        Split2 = engine_class("DirectSplit", DIRECT_SPLIT_MIN=0)
+        for precision, n_parts in (("f32", 13), ("u16", 7)):
+            t0 = time.perf_counter()
+            whole = PlacementEngine(db, device="cuda", table="direct",
+                                    precision=precision)
+            split = Split2(db, device="cuda", table="direct",
+                           precision=precision)
+            check(len(split.direct_parts) == n_parts and split.D is None,
+                  f"config 2 {precision}: {len(split.direct_parts)} parts, "
+                  f"not {n_parts}")
+            print(f"config2 {precision} set-up {time.perf_counter() - t0:.1f}"
+                  f" s: table {tuple(whole.D.shape)} "
+                  f"{whole.D.nbytes / 1e6:.0f} MB whole, "
+                  f"{len(split.direct_parts)} parts of "
+                  f"{split.direct_parts[0].nbytes / 1e6:.0f} MB", flush=True)
+            k2 = split_direct_kernel_phase(split, whole, args.seed, chain2)
+            del whole, split
+            for name, r in k2.items():
+                show(f"kernel {name}", r)
+            kern.update(k2)
+        e2 = engine_phase(db, args.seed, DIRECT, ref=chain2,
+                          engine_kw={"table": "direct"})
+        show("config2 engine", e2)
+        e2s = engine_phase(db, args.seed, SPLIT_DIRECT, ref=chain2,
+                           engine_cls=Split2, engine_kw={"table": "direct"},
+                           against=({"table": "direct"}, 2e-4),
+                           absent=("accumulate_packed", "accumulate_codes",
+                                   "ambiguous_pass"),
+                           inspect=path_check("PendingBatch",
+                                              direct_parts=13))
+        show("config2 split engine", e2s)
+        kw16 = {"table": "direct", "precision": "u16"}
+        e2u = engine_phase(db, args.seed, SPLIT_DIRECT_U16, ref=chain2,
+                           engine_cls=Split2, engine_kw=kw16,
+                           against=(kw16, 2e-4),
+                           absent=("accumulate_packed_u16",
+                                   "accumulate_codes_u16",
+                                   "ambiguous_pass_u16"),
+                           inspect=path_check("PendingBatch",
+                                              direct_parts=7))
+        show("config2 split u16 engine", e2u)
+        results["config2"] = {"engine": e2}
+        results["config2_split"] = {"engine": e2s}
+        results["config2_split_u16"] = {"engine": e2u}
+        del db
+
         # config 5: postings layout, large tree --------------------- #
         db, path = make_db("config5", config5_db, work)
+        OneTable = engine_class("OneTable", LIGHT_SPLIT_BYTES=1 << 62)
         t0 = time.perf_counter()
-        peng = PlacementEngine(db, device="cuda")
-        check(peng.table == "postings" and peng._rof_np is not None,
-              f"config 5 resolved to {peng.table}, not postings with a "
-              "direct index")
+        peng = OneTable(db, device="cuda")
+        check(peng.table == "postings" and peng._rof_np is not None and
+              len(peng.light_parts) == 1,
+              f"config 5 resolved to {peng.table}, not postings on one "
+              "light table with a direct index")
         print(f"config5 engine set-up {time.perf_counter() - t0:.1f} s: "
               f"light table {tuple(peng.pairs.shape)} "
               f"{peng.pairs.nbytes / 1e6:.0f} MB, heavy_dense "
@@ -1428,17 +1856,57 @@ def main() -> int:
               "host", flush=True)
         ref = config5_reference(args.seed)
         pk = postings_kernel_phase(peng, args.seed, ref)
-        del peng
+        # the default engine: the 128 MB light table in 2 routed parts
+        deng = PlacementEngine(db, device="cuda")
+        check(len(deng.light_parts) == 2 and deng._routed_windows,
+              f"config 5 default: {len(deng.light_parts)} light parts, "
+              f"routed {deng._routed_windows}")
+        pk.update(split_postings_kernel_phase(deng, peng, args.seed, ref))
+        del peng, deng
         for name, r in pk.items():
             show(f"kernel {name}", r)
         kern.update(pk)
-        eng5 = engine_phase(db, args.seed, POSTINGS, batch=B_POSTINGS,
-                            ref=ref)
+        against = ({}, 2e-4, OneTable)
+        two_parts = path_check("PendingBatch", light_parts=2)
+        eng5 = engine_phase(db, args.seed, POSTINGS_ROUTED, batch=B_POSTINGS,
+                            ref=ref, against=against, inspect=two_parts,
+                            absent=("ambiguous_postings",
+                                    "finalize_postings_wire",
+                                    "gather_compact"))
         show("config5 engine", eng5)
+        one5 = engine_phase(db, args.seed, POSTINGS, batch=B_POSTINGS,
+                            ref=ref, engine_cls=OneTable,
+                            absent=SPLIT_POSTINGS,
+                            inspect=path_check("PendingBatch",
+                                               light_parts=1))
+        show("config5 one-table engine", one5)
         cl5 = cli_phase(db, path, work, args.cli_reads, args.seed,
-                        POSTINGS, ref)
+                        POSTINGS_ROUTED, ref)
         show("config5 cli", cl5)
         results["config5"] = {"engine": eng5, "cli": cl5}
+        results["config5_one"] = {"engine": one5}
+        for tag, names, cls, prep, inspect, kw in (
+                ("two_stage", TWO_STAGE, None,
+                 lambda e: e.enable_routed_windows(False), two_parts, {}),
+                ("pipelined", TWO_STAGE, None, lambda e: e.enable_pipeline(),
+                 path_check("PipelinedBatch", light_parts=2), {}),
+                ("four_parts", POSTINGS_ROUTED,
+                 engine_class("FourParts", LIGHT_SPLIT_BYTES=32 << 20), None,
+                 path_check("PendingBatch", light_parts=4), {}),
+                ("select", SELECT,
+                 engine_class("SelectFallback", TWO_STAGE_MAX_UNIQUE=0),
+                 lambda e: e.enable_routed_windows(False),
+                 path_check("SplitPending", light_parts=2),
+                 {"n_batches": 3}),
+                ("ambiguity_max", POSTINGS_ROUTED, None, None, two_parts,
+                 {"n_batches": 3, "n_ambiguous": B_POSTINGS // 10,
+                  "engine_kw": {"ambiguities_with_max": True}})):
+            other = kw.get("engine_kw", {})
+            e = engine_phase(db, args.seed, names, batch=B_POSTINGS, ref=ref,
+                             engine_cls=cls, prepare=prep, inspect=inspect,
+                             against=(other, 2e-4, OneTable), **kw)
+            show(f"config5 {tag} engine", e)
+            results[f"config5_{tag}"] = {"engine": e}
 
         # config 5 on the mesh: two edge ranges of 4,000 edges --------- #
         t0 = time.perf_counter()

@@ -27,6 +27,8 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "_build"
 SOURCES = ("accumulate.cu", "finalize.cu", "ambiguous.cu", "postings.cu",
            "merge.cu")
+#: headers the sources include (part of the build's hash)
+HEADERS = ("parts.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,7 +52,7 @@ def _nvcc() -> str:
 
 def _tag() -> str:
     h = hashlib.sha256(" ".join(ARCH + FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -132,6 +134,15 @@ def lib() -> ctypes.CDLL:
                 "rp_finalize_postings": [p, i, i, p, i, i, p, i, p, p, f, i,
                                          i, i, p, p, p, i, i, i, p, p],
                 "rp_merge_candidates": [p, i, i, i, i, i, i, i, p, p],
+                "rp_finalize_postings_split": [i, p, i, i, i, p, i, i, p, i,
+                                               p, p, f, i, i, i, p, p, p, i,
+                                               i, i, p, p],
+                "rp_gather_compact": [p, i, i, p, p, i, p, p],
+                "rp_routed_accumulate": [p, i, i, i, p, i, i, f, p, p],
+                "rp_ambiguous_pass_split": [p, i, i, i, f, p, p, p, p, p, i,
+                                            p, p],
+                "rp_ambiguous_postings_parts": [p, i, p, i, i, p, p, p, p, p,
+                                                p, i, p, p],
             }
             for name, argtypes in sigs.items():
                 fn = getattr(handle, name)

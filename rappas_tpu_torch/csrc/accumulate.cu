@@ -52,9 +52,21 @@
 // in f32 (kCols columns per thread per pass, more passes when E > kThreads
 // * kCols).  No block carries state to another, so the blocks run in any
 // order.  Simple first: no async copies, no row reuse across reads.
+//
+// D1 routed_accumulate replaces routed_accumulate (:915) on the direct
+// table height-split into parts (parts.cuh; each part its body rows plus a
+// trailing zero row, f32 or uint16): the host routed each read's windows
+// to their parts, routed[p, b, :W] part p's part-local rows, pads >= the
+// part's height (its zero row).  The same block design, with the part
+// loop outside the window loop: per column a sum over each part's windows,
+// the partial sums added in part order (JAX's `acc = a_0 + a_1 + ...` of
+// one accumulate per part), then scale once.  What bounds it: bytes, as
+// K2; the routing pads cost a shared-memory row id each, no row read.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "parts.cuh"
 
 namespace {
 
@@ -188,6 +200,53 @@ accumulate_kernel(Rows row_of, const T* __restrict__ D, int E, float scale,
   }
 }
 
+template <class T>
+__global__ void __launch_bounds__(kThreads)
+routed_accumulate_kernel(Parts parts, const int32_t* __restrict__ routed,
+                         int B, int W, int E, float scale,
+                         float* __restrict__ acc) {
+  __shared__ int rows[kTile];
+  const int b = blockIdx.x;
+  float* out = acc + static_cast<int64_t>(b) * E;
+  for (int c0 = 0; c0 < E; c0 += kThreads * kCols) {
+    float a[kCols];
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) a[j] = 0.f;
+    for (int p = 0; p < parts.n; ++p) {
+      const T* D = static_cast<const T*>(parts.base(p));
+      const int64_t H = parts.height(p);
+      const int32_t* rp = routed + (static_cast<int64_t>(p) * B + b) * W;
+      float s[kCols];
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) s[j] = 0.f;
+      for (int t0 = 0; t0 < W; t0 += kTile) {
+        const int n = min(kTile, W - t0);
+        __syncthreads();  // the previous tile's rows are consumed
+        for (int i = threadIdx.x; i < n; i += kThreads)
+          rows[i] = __ldg(rp + t0 + i);
+        __syncthreads();
+#pragma unroll 4
+        for (int i = 0; i < n; ++i) {
+          const int r = rows[i];
+          if (r >= H) continue;  // a pad: the zero row, uniform
+          const T* d = D + static_cast<int64_t>(r) * E + c0 + threadIdx.x;
+#pragma unroll
+          for (int j = 0; j < kCols; ++j)
+            if (c0 + j * kThreads + static_cast<int>(threadIdx.x) < E)
+              s[j] += static_cast<float>(__ldg(d + j * kThreads));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) a[j] += s[j];
+    }
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) {
+      const int col = c0 + j * kThreads + threadIdx.x;
+      if (col < E) out[col] = a[j] * scale;
+    }
+  }
+}
+
 // one launch of B blocks on an f32 (u16 == 0) or uint16 table
 template <class Rows>
 int launch(Rows rows, const void* D, int u16, int E, float scale,
@@ -258,6 +317,23 @@ int rp_accumulate_rows_range(const float* D, int E, const int32_t* rows,
   if (B > 0)
     accumulate_kernel<<<B, kThreads, 0, stream>>>(RangeRow{rows, Q, lo, per},
                                                   D, E, 1.f, nullptr, acc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// D1.  meta: int64[3, n] (parts.cuh) of the direct table's parts, f32
+// (u16 = 0) or uint16 (u16 = 1) [H_i + 1, E], heights H_i; routed:
+// int32[n, B, W] part-local rows (pads >= H_i); acc: f32[B, E], written.
+int rp_routed_accumulate(const int64_t* meta, int n, int u16, int E,
+                         const int32_t* routed, int B, int W, float scale,
+                         float* acc, cudaStream_t stream) {
+  if (B > 0) {
+    if (u16)
+      routed_accumulate_kernel<uint16_t><<<B, kThreads, 0, stream>>>(
+          Parts{meta, n}, routed, B, W, E, scale, acc);
+    else
+      routed_accumulate_kernel<float><<<B, kThreads, 0, stream>>>(
+          Parts{meta, n}, routed, B, W, E, scale, acc);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,7 @@
 // K4 ambiguous_pass and P2 ambiguous_postings: IUPAC-ambiguous k-mer
 // windows scored and added into an accumulator, IN PLACE.  One template,
-// two row sources.
+// four row sources: K4's and P2's, and A1's instances of each on a table
+// height-split into parts (parts.cuh).
 //
 // K4 replaces (rappas_tpu/place/engine.py) alt_delta_rows (:907) +
 // ambiguous_contrib (:967) + ambiguous_pass (:1005): an alternative's row
@@ -20,6 +21,16 @@
 // - 1, and a posting adds into column edge - offset when that lies in
 // [0, E) (JAX clips instead; its out-of-range postings are pads with zero
 // deltas, so both add nothing there).
+//
+// A1 ambiguous_pass_split replaces alt_delta_rows_split (:931) + :967 +
+// :1005: K4 on the split direct table (f32 or uint16), an alternative's
+// global row read from the part that JAX's select chain picks (the last
+// part whose first row is <= it), clipped to that part's body height, so
+// the global miss row (the total body height) reads the last part's zero
+// row.  A1 ambiguous_postings_parts replaces alt_delta_rows_postings
+// (:950) on a split light table: P2 with the light row of an alternative
+// taken from its part as light_gather does (:654-681), clipped into it.
+// One device: edge offset 0.  What bounds A1: as K4 and P2.
 //
 // For window w with alternatives win_off[w] .. win_off[w+1]:
 //
@@ -49,6 +60,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "parts.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -71,20 +84,57 @@ struct DirectRows {
   }
 };
 
+// A1 (K4 on a split direct table): global rows, each in its part
+template <class T>
+struct SplitRows {
+  Parts parts;
+  int E;
+  float scale;
+  const int32_t* alt_rows;
+  __device__ float operator()(int i, int e) const {
+    const int r = alt_rows[i];
+    const int p = parts.part_of(r);
+    const int64_t local = clip(r - parts.first(p), parts.height(p));
+    const T* D = static_cast<const T*>(parts.base(p));
+    return __fmul_rn(static_cast<float>(__ldg(D + local * E + e)), scale);
+  }
+};
+
+// P2's light row of an alternative: row r of one light table
+struct OneLight {
+  const int32_t* pairs;
+  int P;
+  __device__ const int32_t* row(int r) const {
+    return pairs + static_cast<int64_t>(r) * 2 * P;
+  }
+};
+
+// A1's: global row r of a split light table, in its part
+struct PartLight {
+  Parts parts;
+  int P;
+  __device__ const int32_t* row(int r) const {
+    const int p = parts.part_of(r);
+    const int64_t local = clip(r - parts.first(p), parts.height(p) - 1);
+    return static_cast<const int32_t*>(parts.base(p)) + local * 2 * P;
+  }
+};
+
 // P2: heavy dense row plus the light row's postings scattered over E; a
 // posting of global edge g lands on column g - offset (offset 0 on one
 // device, the shard's first edge under edge-range sharding)
+template <class Light>
 struct PostingsRows {
   const float* H;
   int E;
   const int32_t* alt_hrows;
-  const int32_t* pairs;
+  Light light;
   int P;
   const int32_t* alt_lrows;
   int offset;
   __device__ float operator()(int i, int e) const {
     float v = __ldg(H + static_cast<int64_t>(alt_hrows[i]) * E + e);
-    const int32_t* row = pairs + static_cast<int64_t>(alt_lrows[i]) * 2 * P;
+    const int32_t* row = light.row(alt_lrows[i]);
     for (int p = 0; p < P; ++p)
       if (__ldg(row + p) == e + offset)
         v = __fadd_rn(v, __int_as_float(__ldg(row + P + p)));
@@ -164,8 +214,50 @@ int rp_ambiguous_postings(const float* H, int E, const int32_t* pairs, int P,
                           cudaStream_t stream) {
   if (n_win > 0)
     ambiguous_kernel<<<n_win, kThreads, 0, stream>>>(
-        PostingsRows{H, E, alt_hrows, pairs, P, alt_lrows, offset}, E,
-        win_off, win_slot, win_inv_w, win_is_mean, acc_c);
+        PostingsRows<OneLight>{H, E, alt_hrows, OneLight{pairs, P}, P,
+                               alt_lrows, offset},
+        E, win_off, win_slot, win_inv_w, win_is_mean, acc_c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A1, K4 on a split direct table.  meta: int64[3, n] (parts.cuh) of the
+// parts, f32 (u16 = 0) or uint16 (u16 = 1) [H_i + 1, E], heights H_i;
+// alt_rows: int32[n_alt] global body rows; the rest as K4's.
+int rp_ambiguous_pass_split(const int64_t* meta, int n, int u16, int E,
+                            float scale, const int32_t* alt_rows,
+                            const int32_t* win_off, const int32_t* win_read,
+                            const float* win_inv_w,
+                            const uint8_t* win_is_mean, int n_win,
+                            float* acc, cudaStream_t stream) {
+  if (n_win > 0) {
+    if (u16)
+      ambiguous_kernel<<<n_win, kThreads, 0, stream>>>(
+          SplitRows<uint16_t>{Parts{meta, n}, E, scale, alt_rows}, E,
+          win_off, win_read, win_inv_w, win_is_mean, acc);
+    else
+      ambiguous_kernel<<<n_win, kThreads, 0, stream>>>(
+          SplitRows<float>{Parts{meta, n}, E, scale, alt_rows}, E, win_off,
+          win_read, win_inv_w, win_is_mean, acc);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A1, P2 on a split light table.  meta: int64[3, n] of the light parts,
+// int32[H_i, 2P]; alt_lrows: global light rows (nl = miss, the last part's
+// last row); the rest as P2's at offset 0.
+int rp_ambiguous_postings_parts(const float* H, int E, const int64_t* meta,
+                                int n, int P, const int32_t* alt_lrows,
+                                const int32_t* alt_hrows,
+                                const int32_t* win_off,
+                                const int32_t* win_slot,
+                                const float* win_inv_w,
+                                const uint8_t* win_is_mean, int n_win,
+                                float* acc_c, cudaStream_t stream) {
+  if (n_win > 0)
+    ambiguous_kernel<<<n_win, kThreads, 0, stream>>>(
+        PostingsRows<PartLight>{H, E, alt_hrows, PartLight{Parts{meta, n}, P},
+                                P, alt_lrows, 0},
+        E, win_off, win_slot, win_inv_w, win_is_mean, acc_c);
   return static_cast<int>(cudaGetLastError());
 }
 

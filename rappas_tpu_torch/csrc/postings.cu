@@ -1,5 +1,6 @@
 // P1 dense_side and P3 finalize_postings_wire: the postings layout's dense
-// side and its per-read scoring, top-K and wire.
+// side and its per-read scoring, top-K and wire; R1, P3's instances on a
+// height-split light table, and G1 gather_compact.
 //
 // P1 replaces (rappas_tpu/place/engine.py) gather_rows (:484) + the dense
 // scatter of finalize_postings_local (:773-780):
@@ -61,10 +62,36 @@
 // from a shared atomic counter: the sort by full key makes the result
 // independent of that order.  A read with more postings than its region
 // writes |L| = -1, which the host decode rejects.
+//
+// R1: P3 with another row source for step 1 (as K4 and P2 share one
+// template in ambiguous.cu), on a light table height-split into parts
+// (parts.cuh); every later step, and so the wire, is P3's:
+//   finalize_postings_wire_routed replaces routed_light_gather (:609) +
+//     finalize_postings_routed (:632): each part's [B, W] part-local rows,
+//     pads >= the part's height;
+//   finalize_postings_wire_parts replaces light_gather over N parts
+//     (:654-681) + finalize_postings_v2 with uniq_rows=None (:535), the
+//     select fallback: global rows, each read from its own part.
+// Because step 2 sorts by the full (edge, delta bits) key, a read's wire is
+// the same bits whichever source gathered its postings and in whatever
+// order: routed, select, the two-stage compact table (P3 itself, on G1's
+// output) and one table agree bitwise.  What bounds R1: as P3.
+//
+// G1 gather_compact replaces _gather_compact / gather_compact (:557-570):
+// the batch-unique compact table of the two-stage and pipelined paths,
+//
+//   out[u, :] = part_p[uniq[u], :]   for uniq_off[p] <= u < uniq_off[p+1]
+//
+// each unique row fetched from its own part only (a single slow table is
+// one part).  A plain row copy: one thread per output word, neighbouring
+// threads on neighbouring words of a row.  What bounds it: bytes (each
+// unique row read once and written once).
 
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "parts.cuh"
 
 namespace {
 
@@ -121,9 +148,62 @@ __device__ void block_best(float& v, int& i, float* red_v, int* red_i) {
     }
 }
 
+// Where P3 finds read b's light postings: width() slots per read, slot s
+// holding one light row of 2P words (P edge ids, then P bit-cast deltas),
+// or none (null).
+//
+// P3: rows of one light table; row `miss` (all pads) holds none.
+struct OneTable {
+  const int32_t* pairs;
+  int P, miss;
+  const int32_t* lrows;  // [B, W]
+  int W;
+  __device__ int width() const { return W; }
+  __device__ const int32_t* row(int b, int s) const {
+    const int r = lrows[static_cast<int64_t>(b) * W + s];
+    return r == miss ? nullptr : pairs + static_cast<int64_t>(r) * 2 * P;
+  }
+};
+
+// R1, the select fallback: global rows of a split light table, each in the
+// part that JAX's light_gather selects (clipped into it, as there); the
+// global miss row `miss` (nl, the last part's last row) holds none.
+struct PartRows {
+  Parts parts;
+  int P, miss;
+  const int32_t* lrows;  // [B, W]
+  int W;
+  __device__ int width() const { return W; }
+  __device__ const int32_t* row(int b, int s) const {
+    const int r = lrows[static_cast<int64_t>(b) * W + s];
+    if (r == miss) return nullptr;
+    const int p = parts.part_of(r);
+    const int64_t local = clip(r - parts.first(p), parts.height(p) - 1);
+    return static_cast<const int32_t*>(parts.base(p)) + local * 2 * P;
+  }
+};
+
+// R1, routed: part p's part-LOCAL rows of read b at routed[p, b, :W]; a pad
+// slot (>= the part's height) holds none.  Slot s is part s / W's window
+// s % W: the windows come part-major, which the sort makes irrelevant.
+struct RoutedRows {
+  Parts parts;
+  int P;
+  const int32_t* routed;  // [n, B, W]
+  int B, W;
+  __device__ int width() const { return parts.n * W; }
+  __device__ const int32_t* row(int b, int s) const {
+    const int p = s / W;
+    const int r = routed[(static_cast<int64_t>(p) * B + b) * W + s % W];
+    if (r >= parts.height(p)) return nullptr;
+    return static_cast<const int32_t*>(parts.base(p)) +
+           static_cast<int64_t>(r) * 2 * P;
+  }
+};
+
+template <class Rows>
 __global__ void __launch_bounds__(kThreads)
-finalize_postings_kernel(const int32_t* __restrict__ pairs, int P, int miss,
-                         const int32_t* __restrict__ lrows, int W,
+finalize_postings_kernel(Rows rows, int P,
                          const float* __restrict__ acc_c, int E,
                          const int32_t* __restrict__ slot_of,
                          const int32_t* __restrict__ lengths, float thr,
@@ -155,11 +235,9 @@ finalize_postings_kernel(const int32_t* __restrict__ pairs, int P, int miss,
   // 1. gather the real postings
   if (tid == 0) s_n = 0;
   __syncthreads();
-  const int32_t* lr = lrows + static_cast<int64_t>(b) * W;
-  for (int j = tid; j < W * P; j += kThreads) {
-    const int r = lr[j / P];
-    if (r == miss) continue;
-    const int32_t* row = pairs + static_cast<int64_t>(r) * 2 * P;
+  for (int j = tid; j < rows.width() * P; j += kThreads) {
+    const int32_t* row = rows.row(b, j / P);
+    if (row == nullptr) continue;
     const uint32_t e = static_cast<uint32_t>(__ldg(row + j % P));
     if (e == kPadEdge) continue;
     const uint32_t d = static_cast<uint32_t>(__ldg(row + P + j % P));
@@ -320,6 +398,44 @@ finalize_postings_kernel(const int32_t* __restrict__ pairs, int P, int miss,
   }
 }
 
+__global__ void gather_compact_kernel(Parts parts, int w,
+                                      const int32_t* __restrict__ uniq,
+                                      const int32_t* __restrict__ uniq_off,
+                                      int U, int32_t* __restrict__ out) {
+  const int64_t total = static_cast<int64_t>(U) * w;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const int u = static_cast<int>(i / w);
+    int p = parts.n - 1;
+    while (p > 0 && u < uniq_off[p]) --p;
+    const int32_t* part = static_cast<const int32_t*>(parts.base(p));
+    out[i] = __ldg(part + static_cast<int64_t>(uniq[u]) * w + i % w);
+  }
+}
+
+// one P3 launch of B blocks with the row source `rows`
+template <class Rows>
+int launch_p3(Rows rows, int P, int B, const float* acc_c, int E,
+              const int32_t* slot_of, const int32_t* lengths, float thr,
+              int k, int K, int cap, const int64_t* scratch_off,
+              uint64_t* scratch_keys, float* scratch_tot, int wire_w,
+              int wide, int offset, int32_t* wire, cudaStream_t stream) {
+  // keys (8 B) and totals (4 B) per sort slot, 2K candidate (score, edge)
+  const size_t smem =
+      static_cast<size_t>(cap) * 12 + static_cast<size_t>(K) * 16;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        finalize_postings_kernel<Rows>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (B > 0)
+    finalize_postings_kernel<Rows><<<B, kThreads, smem, stream>>>(
+        rows, P, acc_c, E, slot_of, lengths, thr, k, K, cap, scratch_off,
+        scratch_keys, scratch_tot, wire_w, wide, offset, wire);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -335,7 +451,7 @@ int rp_dense_side(const float* H, int E, const int32_t* hrows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// P3.  pairs: int32[nl + 1, 2P] (row miss = nl is all pads); lrows:
+// P3.  pairs: int32[R, 2P] (row miss all pads, skipped; -1: none); lrows:
 // int32[B, W]; acc_c: f32[n_slots, E]; slot_of: int32[B] (-1: no slot);
 // lengths: int32[B]; cap: sort slots in shared memory (a power of two);
 // scratch_off: int64[B + 1] offsets into scratch_keys/scratch_tot (an
@@ -351,19 +467,49 @@ int rp_finalize_postings(const int32_t* pairs, int P, int miss,
                          uint64_t* scratch_keys, float* scratch_tot,
                          int wire_w, int wide, int offset, int32_t* wire,
                          cudaStream_t stream) {
-  // keys (8 B) and totals (4 B) per sort slot, 2K candidate (score, edge)
-  const size_t smem =
-      static_cast<size_t>(cap) * 12 + static_cast<size_t>(K) * 16;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        finalize_postings_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_p3(OneTable{pairs, P, miss, lrows, W}, P, B, acc_c, E,
+                   slot_of, lengths, thr, k, K, cap, scratch_off,
+                   scratch_keys, scratch_tot, wire_w, wide, offset, wire,
+                   stream);
+}
+
+// R1.  meta: int64[3, n] (parts.cuh) of the light parts, each int32[H_i,
+// 2P]; routed = 1: rows int32[n, B, W] part-local rows (pads >= H_i),
+// miss unused; routed = 0: rows int32[B, W] global rows, miss the global
+// miss row (or -1).  The rest as P3's.
+int rp_finalize_postings_split(int routed, const int64_t* meta, int n, int P,
+                               int miss, const int32_t* rows, int B, int W,
+                               const float* acc_c, int E,
+                               const int32_t* slot_of, const int32_t* lengths,
+                               float thr, int k, int K, int cap,
+                               const int64_t* scratch_off,
+                               uint64_t* scratch_keys, float* scratch_tot,
+                               int wire_w, int wide, int offset,
+                               int32_t* wire, cudaStream_t stream) {
+  const Parts parts{meta, n};
+  if (routed)
+    return launch_p3(RoutedRows{parts, P, rows, B, W}, P, B, acc_c, E,
+                     slot_of, lengths, thr, k, K, cap, scratch_off,
+                     scratch_keys, scratch_tot, wire_w, wide, offset, wire,
+                     stream);
+  return launch_p3(PartRows{parts, P, miss, rows, W}, P, B, acc_c, E, slot_of,
+                   lengths, thr, k, K, cap, scratch_off, scratch_keys,
+                   scratch_tot, wire_w, wide, offset, wire, stream);
+}
+
+// G1.  meta: int64[3, n] of the light parts, rows of w = 2P int32 words;
+// uniq: int32[U] part-local rows, part p's at uniq_off[p] .. uniq_off[p+1]
+// (uniq_off: int32[n + 1]); out: int32[U, w], written.
+int rp_gather_compact(const int64_t* meta, int n, int w, const int32_t* uniq,
+                      const int32_t* uniq_off, int U, int32_t* out,
+                      cudaStream_t stream) {
+  const int64_t total = static_cast<int64_t>(U) * w;
+  if (total > 0) {
+    const int64_t blocks = (total + 255) / 256;
+    gather_compact_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096),
+                            256, 0, stream>>>(Parts{meta, n}, w, uniq,
+                                              uniq_off, U, out);
   }
-  if (B > 0)
-    finalize_postings_kernel<<<B, kThreads, smem, stream>>>(
-        pairs, P, miss, lrows, W, acc_c, E, slot_of, lengths, thr, k, K, cap,
-        scratch_off, scratch_keys, scratch_tot, wire_w, wide, offset, wire);
   return static_cast<int>(cudaGetLastError());
 }
 

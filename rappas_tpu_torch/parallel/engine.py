@@ -39,7 +39,10 @@ from rappas_tpu_torch.place.engine import (BatchResult, PendingBatch,
 
 
 class ShardedEngine(PlacementEngine):
-    """Drop-in ``PlacementEngine`` over a (dp, mp) device mesh."""
+    """Drop-in ``PlacementEngine`` over a (dp, mp) device mesh.  Its
+    tables are sharded, never height-split."""
+
+    SINGLE_DEVICE = False
 
     def __init__(self, db: PhyloKmerDB, mesh: Mesh,
                  keep_at_most: int = 7,

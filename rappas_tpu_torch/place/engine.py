@@ -58,6 +58,23 @@ The wire carries edge ids as u16 below 65535 edge slots and as int32 at
 or above (``kernels.WIDE_EDGES``).  On ``device="cpu"`` the wrappers
 compute their plain PyTorch versions.
 
+Height-split tables (one device; JAX's rules and constants, so a DB
+takes the same path in both packages): a light table past
+``LIGHT_SPLIT_BYTES`` lives as up to ``MAX_LIGHT_PARTS`` parts
+(``convert.light_parts``), and P3 reads it through one of JAX's row
+sources (:meth:`PlacementEngine._light_source`): the **routed** windows
+(the default; R1 ``finalize_postings_wire_routed``), the **two-stage**
+compact table of the batch's unique rows (G1 ``gather_compact``, then P3
+on it; with :meth:`PlacementEngine.enable_pipeline`, G1 of the next batch
+runs on a second stream beside this batch's P3), the **select** fallback
+(R1 ``finalize_postings_wire_parts``) after halving a batch whose unique
+rows overflow (:class:`SplitPending`); A1 ``ambiguous_postings_parts``
+scores ambiguity windows over the parts.  A direct table past
+``DIRECT_SPLIT_MIN`` (never, by default) lives as parts of
+``LIGHT_SPLIT_BYTES`` (``convert.direct_parts``): the host routes each
+read's windows to their parts, D1 ``routed_accumulate`` and A1
+``ambiguous_pass_split`` replace K1/K2 and K4.
+
 Host side (copied from the JAX engine): the ASCII -> code table, the
 ambiguity expansion and its cycling order, 2-bit packing, the k-mer
 lookups, the table layout rule and the wire decode.  Per batch the host
@@ -74,12 +91,14 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import threading
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from rappas_tpu_torch.convert import device_tables, postings_device_tables
+from rappas_tpu_torch.convert import (device_tables, direct_split_tables,
+                                      postings_device_tables)
 from rappas_tpu_torch.db import PhyloKmerDB
 from rappas_tpu_torch.place import kernels
 
@@ -150,6 +169,79 @@ class PendingBatch:
         if self._event is not None:
             self._event.synchronize()
         return unpack_wire(self._out.numpy(), self._wire, self._wide)
+
+
+class SplitPending:
+    """Handle for a batch scored as two halves (the two-stage path's
+    unique-overflow halving, ``rappas_tpu/place/engine.py:134-148``):
+    reads are independent, so the results concatenate."""
+
+    def __init__(self, p1, p2):
+        self._parts = (p1, p2)
+
+    def result(self) -> BatchResult:
+        r1, r2 = (p.result() for p in self._parts)
+        return BatchResult(*(np.concatenate([a, b]) for a, b in zip(r1, r2)))
+
+
+class PipelinedBatch:
+    """Handle for a batch riding the postings software pipeline
+    (``rappas_tpu/place/engine.py:151-168``): its P3 is issued when the
+    next batch arrives, so that the next batch's G1 overlaps it;
+    ``result()`` issues it first if it is still the pipeline's tail."""
+
+    def __init__(self, engine, entry: dict):
+        self._engine = engine
+        self._entry = entry
+
+    def result(self) -> BatchResult:
+        if self._entry["out"] is None:
+            self._engine._pp_flush(self._entry)
+        return self._entry["out"].result()
+
+
+def _bucket_size(n: int) -> int:
+    """Smallest padded size >= n on a ladder of four steps per power of
+    two (``rappas_tpu/place/engine.py:506-520``): the padded length of a
+    part's batch-unique rows and of the routed window matrices."""
+    n = max(int(n), 1)
+    if n <= 16:
+        return 1 << (n - 1).bit_length()       # the power of two
+    step = 1 << ((n - 1).bit_length() - 3)
+    return -(-n // step) * step
+
+
+def _fast_unique_inverse(flat: np.ndarray):
+    """(sorted unique values, inverse map) by ``torch.unique`` on the
+    host (``rappas_tpu/place/engine.py:523-532``)."""
+    u, inv = torch.unique(torch.from_numpy(flat), return_inverse=True)
+    return u.numpy(), inv.numpy()
+
+
+def route_rows(rows: np.ndarray, cuts: np.ndarray,
+               drop=None) -> np.ndarray:
+    """Rows [B, Q] routed to the parts that ``cuts`` bound
+    (``rappas_tpu/place/engine.py:1705-1734``): int32[n_parts, B, W], part
+    ``p``'s part-LOCAL rows of each read stable-left-packed, W one shared
+    :func:`_bucket_size` width, pad slots holding the part's height; rows
+    equal to ``drop`` (and rows past the last cut) are left out."""
+    B = rows.shape[0]
+    n = len(cuts) - 1
+    masks = []
+    for p in range(n):
+        m = (rows >= cuts[p]) & (rows < cuts[p + 1])
+        if drop is not None:
+            m &= rows != drop
+        masks.append(m)
+    w_max = max((int(m.sum(axis=1).max()) if m.size else 0) for m in masks)
+    out = np.empty((n, B, _bucket_size(max(w_max, 1))), np.int32)
+    for p, m in enumerate(masks):
+        out[p] = int(cuts[p + 1] - cuts[p])
+        bb, qq = np.nonzero(m)
+        if bb.size:
+            pos = (np.cumsum(m, axis=1) - 1)[bb, qq]
+            out[p, bb, pos] = rows[bb, qq] - cuts[p]
+    return out
 
 
 def fetch_wire(wire: torch.Tensor, stream, K: int,
@@ -353,11 +445,16 @@ def postings_batch(rof: np.ndarray, nl: int, light_counts: np.ndarray,
         host["win_inv_w"] = win_inv_w.astype(np.float32)
         host["win_is_mean"] = is_mean.astype(np.uint8)
 
-    # stable left-pack of the light hit windows; the dropped slots are
-    # misses, whose pad postings never reach a sum
+    # stable left-pack of the light hit windows into JAX's width ladder
+    # (rappas_tpu/place/engine.py:1460-1479), so that the two-stage path
+    # sees the same rows; the dropped slots are misses, whose pad postings
+    # never reach a sum
     hit = rof < nl
     counts = hit.sum(axis=1)
-    W = int(counts.max()) if counts.size else 0
+    w_max = int(counts.max()) if counts.size else 0
+    Q = rof.shape[1]
+    W = next((c for c in (8, 16, 32, 48, 64, 96, 128, 192, 256)
+              if w_max <= c < Q - 8), Q)
     lrows = np.full((B, W), nl, np.int32)
     if W:
         bb, qq = np.nonzero(hit)
@@ -387,8 +484,27 @@ class PlacementEngine:
     #: (int32[S^k + 1]); above it the host searches the sorted keys
     DIRECT_INDEX_LIMIT = 1 << 30
     #: PLACEHOLDER, as above: the JAX engine's fast-gather zone edge on
-    #: the v5e (``resolve_table`` picks direct below twice this size).
+    #: the v5e (``resolve_table`` picks direct below twice this size).  A
+    #: light table past it is height-split into parts of at most this
+    #: size, and so is a direct table past DIRECT_SPLIT_MIN.
     LIGHT_SPLIT_BYTES = 96 << 20
+    #: PLACEHOLDERS, as above, with the JAX engine's values
+    #: (``rappas_tpu/place/engine.py:1035-1064``) so that a DB takes the
+    #: same path in both packages: the light table's part cap (past it,
+    #: one slow table); the two-stage path's batch-unique row cap; the
+    #: batch size down to which a unique-budget overflow halves the batch
+    #: before the select fallback; the direct table size past which it is
+    #: split (1 << 62: never, the JAX default); the direct table's part
+    #: cap.
+    MAX_LIGHT_PARTS = 32
+    TWO_STAGE_MAX_UNIQUE = 1 << 21
+    MIN_SPLIT_B = 1024
+    DIRECT_SPLIT_MIN = 1 << 62
+    MAX_DIRECT_PARTS = 64
+    #: tables are height-split, routed and pipelined only on the
+    #: one-device engine (JAX: ``type(self) is PlacementEngine``); the
+    #: sharded engine sets it False
+    SINGLE_DEVICE = True
 
     def __init__(self, db: PhyloKmerDB, keep_at_most: int = 7,
                  treat_ambiguities: bool = True,
@@ -417,24 +533,55 @@ class PlacementEngine:
                 "carries exact deltas); use precision='f32'")
         self._init_params(db, keep_at_most, treat_ambiguities,
                           ambiguities_with_max, precision, table)
-        if table != "postings":
+        split = None
+        if table == "direct" and self.SINGLE_DEVICE:
+            split = direct_split_tables(
+                db, self.device, precision, self.LIGHT_SPLIT_BYTES,
+                self.DIRECT_SPLIT_MIN, self.MAX_DIRECT_PARTS)
+        if split is not None:
+            # a split direct table lives only as its parts
+            parts, cuts, scale = split
+            self.direct_parts = tuple(parts)
+            self._direct_cuts = cuts
+            self._direct = kernels.make_parts(parts, np.diff(cuts))
+            self.D, self.keys_dev = None, None
+            self.scale = float(scale)
+            self.n_rows = int(cuts[-1]) + 1
+        elif table != "postings":
             tabs = device_tables(db, self.device, table, precision)
             self.D, self.keys_dev = tabs.D, tabs.keys
             self.scale = float(tabs.scale)
             self.n_rows = self.D.shape[0]
         else:
-            ps = postings_device_tables(db, postings_width, self.device,
-                                        self.DIRECT_INDEX_LIMIT)
-            self.pairs, self.heavy_dense = ps.pairs, ps.heavy_dense
+            ps = postings_device_tables(
+                db, postings_width, self.device, self.DIRECT_INDEX_LIMIT,
+                self.LIGHT_SPLIT_BYTES if self.SINGLE_DEVICE else None,
+                self.MAX_LIGHT_PARTS)
+            self.light_parts, self.heavy_dense = ps.light_parts, \
+                ps.heavy_dense
+            self._light_slow = ps.light_slow
+            #: the light table when it is one part
+            self.pairs = self.light_parts[0] \
+                if len(self.light_parts) == 1 else None
+            self._light = kernels.make_parts(
+                self.light_parts, [p.shape[0] for p in self.light_parts])
             self._light_counts = ps.light_counts
             self._light_keys_np = ps.light_keys
             self._heavy_keys_np = ps.heavy_keys
             self._rof_np = ps.rof
             self._nl = ps.light_keys.shape[0]
+            # split light tables route windows to their parts by default
+            # (rappas_tpu/place/engine.py:1143-1152); enable_routed_windows
+            # (False) restores the two-stage path
+            self._routed_windows = (self.SINGLE_DEVICE and
+                                    len(self.light_parts) > 1)
         self._init_host_codec()
-        self._stream = None
+        self._stream = self._gather_stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
+            # G1 of the software pipeline's next batch runs on its own
+            # stream, beside P3 of this batch on the engine's
+            self._gather_stream = torch.cuda.Stream(self.device)
             # the table upload ran on the current stream
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
 
@@ -454,6 +601,18 @@ class PlacementEngine:
         self.wire_k, self.wide, _ = kernels.wire_format(self.n_edges,
                                                         keep_at_most)
         self.thr = float(np.float32(db.thr_log10))
+        #: the height-split direct table (None: whole), and the light
+        #: table's parts (set by the postings layout)
+        self.direct_parts = None
+        self.light_parts = ()
+        #: part-routed windows on a split light table; the software
+        #: pipeline of the two-stage path, its tail and the lock that
+        #: serialises the tail's hand-off between the issuing thread and a
+        #: result's flush (rappas_tpu/place/engine.py:1205-1216)
+        self._routed_windows = False
+        self._pp_enabled = False
+        self._pp_tail = None
+        self._pp_lock = threading.Lock()
 
     # -------------------------------------------------------------- #
     @classmethod
@@ -553,6 +712,8 @@ class PlacementEngine:
         codes = self.encode_batch(matrix)
         if self.table == "postings":
             return self._score_postings(codes, matrix, lengths)
+        if self.direct_parts is not None:
+            return self._score_direct_split(codes, matrix, lengths)
         host = self.dense_inputs(codes, matrix, lengths)
         with self._on_stream():
             dev = stage(host, self.device)
@@ -580,18 +741,58 @@ class PlacementEngine:
             # keys (engine.py:1370-1373) and C2 sums the rows
             host["rows"] = self._db_lookup(host_kmer_indices(
                 codes, lengths, self.k, self.alphabet.n_states))
+        self._ambiguity_inputs(codes, matrix, lengths, host)
+        return host
+
+    def _ambiguity_inputs(self, codes: np.ndarray, matrix: np.ndarray,
+                          lengths: np.ndarray, host: dict) -> None:
+        """A direct or compact batch's ambiguity windows into ``host``:
+        their alternatives' rows (the k-mer index on the direct table, the
+        host key search on the compact one), ``win_off``, ``win_read``,
+        ``win_inv_w``, ``win_is_mean``; nothing without windows."""
         amb = (self._expand_ambiguities_host(codes, matrix, lengths)
                if self.treat_ambiguities else None)
-        if amb is not None:
-            kidx, alt_win, win_read, win_inv_w, is_mean = amb
-            host["alt_rows"] = (kidx.astype(np.int32)
-                                if self.table == "direct"
-                                else self._db_lookup(kidx))
-            host["win_off"] = window_offsets(alt_win, win_read.shape[0])
-            host["win_read"] = win_read.astype(np.int32)
-            host["win_inv_w"] = win_inv_w.astype(np.float32)
-            host["win_is_mean"] = is_mean.astype(np.uint8)
-        return host
+        if amb is None:
+            return
+        kidx, alt_win, win_read, win_inv_w, is_mean = amb
+        host["alt_rows"] = (kidx.astype(np.int32) if self.table == "direct"
+                            else self._db_lookup(kidx))
+        host["win_off"] = window_offsets(alt_win, win_read.shape[0])
+        host["win_read"] = win_read.astype(np.int32)
+        host["win_inv_w"] = win_inv_w.astype(np.float32)
+        host["win_is_mean"] = is_mean.astype(np.uint8)
+
+    # -------------------------------------------------------------- #
+    # the height-split direct table (rappas_tpu/place/engine.py:1675-1757):
+    # the host computes the k-mer indices and routes each read's windows to
+    # their parts; D1 sums them part by part, A1 scores the ambiguity
+    # windows, K3 finishes.  The 2-bit packed path does not apply.
+    def _score_direct_split(self, codes: np.ndarray, matrix: np.ndarray,
+                            lengths: np.ndarray) -> PendingBatch:
+        kidx = host_kmer_indices(codes, lengths, self.k,
+                                 self.alphabet.n_states)
+        rows = np.where(kidx >= 0, kidx, kidx.dtype.type(self.n_rows - 1))
+        host = {"lengths": lengths, "routed": self._route_direct(rows)}
+        self._ambiguity_inputs(codes, matrix, lengths, host)
+        with self._on_stream():
+            dev = stage(host, self.device)
+            acc = kernels.routed_accumulate_(self._direct, dev["routed"],
+                                             self.scale)
+            if "win_off" in dev:
+                kernels.ambiguous_pass_split_(
+                    acc, self._direct, self.scale, dev["alt_rows"],
+                    dev["win_off"], dev["win_read"], dev["win_inv_w"],
+                    dev["win_is_mean"])
+            wire = kernels.finalize_wire(acc, dev["lengths"], self.thr,
+                                         self.k, self.keep_at_most)
+            return fetch_wire(wire, self._stream, self.wire_k, self.wide)
+
+    def _route_direct(self, rows: np.ndarray) -> np.ndarray:
+        """Split direct table: each read's rows routed to their parts
+        (pads = the part's height, its zero row); the global miss row lies
+        past the last cut and drops out
+        (``rappas_tpu/place/engine.py:1736-1739``)."""
+        return route_rows(rows, self._direct_cuts)
 
     def dense_acc(self, dev: dict, D: torch.Tensor, keys, B: int,
                   L: int) -> torch.Tensor:
@@ -786,23 +987,238 @@ class PlacementEngine:
     # to an encoded row once, gathers the dense sources into slots and
     # left-packs the light hits; the device runs P1, P2 and P3
     def _score_postings(self, codes: np.ndarray, matrix: np.ndarray,
-                        lengths: np.ndarray) -> PendingBatch:
+                        lengths: np.ndarray):
         host, plan = self.postings_inputs(codes, matrix, lengths)
+        src = self._light_source(host)
+        if src is None:
+            # too many batch-unique rows for one compact table: halve the
+            # batch (rappas_tpu/place/engine.py:1527-1545)
+            h = codes.shape[0] // 2
+            return SplitPending(
+                self._score_postings(codes[:h], matrix[:h], lengths[:h]),
+                self._score_postings(codes[h:], matrix[h:], lengths[h:]))
         with self._on_stream():
-            dev = stage(host, self.device)
-            if "scratch_off" in dev:     # P3's plan, staged with the batch
-                plan = plan._replace(scratch_off=dev["scratch_off"])
-            acc_c = kernels.dense_side(self.heavy_dense, dev["hrows"],
-                                       dev["hoff"])
-            if "win_off" in dev:
-                kernels.ambiguous_postings_(
-                    acc_c, self.heavy_dense, self.pairs, dev["alt_lrows"],
-                    dev["alt_hrows"], dev["win_off"], dev["win_slot"],
-                    dev["win_inv_w"], dev["win_is_mean"])
-            wire = kernels.finalize_postings_wire(
-                self.pairs, dev["lrows"], acc_c, dev["slot_of"],
-                dev["lengths"], self.thr, self.k, self.keep_at_most, plan)
+            dev, acc_c, plan = self._postings_dense(host, plan)
+            if src[0] == "compact" and self._pp_enabled:
+                return self._pp_submit(dev, acc_c, plan, src[1])
+            wire = self._postings_wire(src, dev, acc_c, plan)
             return fetch_wire(wire, self._stream, self.wire_k, self.wide)
+
+    def _postings_dense(self, host: dict, plan):
+        """Stage a postings batch and run its dense side on the engine's
+        stream: P1, then P2 (A1 on a split light table) for its ambiguity
+        windows.  Returns the staged inputs, ``acc_c`` and P3's plan."""
+        dev = stage(host, self.device)
+        if "scratch_off" in dev:         # P3's plan, staged with the batch
+            plan = plan._replace(scratch_off=dev["scratch_off"])
+        acc_c = kernels.dense_side(self.heavy_dense, dev["hrows"],
+                                   dev["hoff"])
+        if "win_off" in dev:
+            spec = (dev["alt_lrows"], dev["alt_hrows"], dev["win_off"],
+                    dev["win_slot"], dev["win_inv_w"], dev["win_is_mean"])
+            if len(self.light_parts) > 1:
+                kernels.ambiguous_postings_parts_(acc_c, self.heavy_dense,
+                                                  self._light, *spec)
+            else:
+                kernels.ambiguous_postings_(acc_c, self.heavy_dense,
+                                            self.pairs, *spec)
+        return dev, acc_c, plan
+
+    def _postings_wire(self, src: tuple, dev: dict, acc_c, plan,
+                       compact=None) -> torch.Tensor:
+        """P3 of a staged postings batch from the light row source that
+        :meth:`_light_source` chose: R1 routed or part-select, P3 on the
+        compact table (G1 first unless ``compact`` is given) or on the one
+        light table."""
+        args = (acc_c, dev["slot_of"], dev["lengths"], self.thr, self.k,
+                self.keep_at_most, plan)
+        kind = src[0]
+        if kind == "routed":
+            return kernels.finalize_postings_wire_routed(
+                self._light, dev["routed"], *args)
+        if kind == "parts":
+            return kernels.finalize_postings_wire_parts(
+                self._light, dev["lrows"], *args, miss=self._nl)
+        if kind == "compact":
+            if compact is None:
+                compact = kernels.gather_compact_(self._light, dev["uniq"],
+                                                  dev["uniq_off"])
+            return kernels.finalize_postings_wire(
+                compact, dev["lrows"], *args, miss=src[1])
+        return kernels.finalize_postings_wire(self.pairs, dev["lrows"],
+                                              *args)
+
+    def _light_source(self, host: dict):
+        """Where P3 reads this batch's light rows
+        (``rappas_tpu/place/engine.py:1496-1584``), rewriting ``host``:
+
+        * ``("table",)`` -- the one light table at ``lrows``;
+        * ``("routed",)`` -- a split table with routed windows: ``lrows``
+          becomes ``routed`` int32[n_parts, B, W] (:meth:`_route_windows`);
+        * ``("compact", miss)`` -- the two-stage path, on a split table or a
+          single one past the split budget whose batch-unique rows pay:
+          ``uniq``/``uniq_off`` give each part's unique rows (part-local,
+          each run padded to a :func:`_bucket_size`; a single table's pads
+          are the miss row), ``lrows`` becomes the inverse map into the
+          compact table G1 gathers, and ``miss`` is the light miss row's
+          position there (-1: absent);
+        * ``("parts",)`` -- a split table whose unique rows overflow the
+          compact budget at the smallest batch: the select fallback over
+          global ``lrows``;
+        * None -- the unique rows overflow and the batch can still be
+          halved (:class:`SplitPending`).
+
+        P3's plan was made from the rows before any of these rewrites."""
+        parts = self.light_parts
+        nparts = len(parts)
+        if nparts > 1 and self._routed_windows:
+            host["routed"] = self._route_windows(host.pop("lrows"))
+            return ("routed",)
+        if not (self._light_slow or nparts > 1):
+            return ("table",)
+        lrows = host["lrows"]
+        B = lrows.shape[0]
+        uniq, inv = _fast_unique_inverse(lrows.ravel())
+        U = uniq.shape[0]
+        # the compact [U, 2P] table must itself stay within the split
+        # budget
+        compact_ok = (U <= self.TWO_STAGE_MAX_UNIQUE and
+                      U * parts[0].shape[1] * 4 <= self.LIGHT_SPLIT_BYTES)
+        if not compact_ok and nparts > 1 and B >= 2 * self.MIN_SPLIT_B:
+            return None
+        if not (compact_ok and (nparts > 1 or U * 3 <= lrows.size)):
+            return ("parts",) if nparts > 1 else ("table",)
+        if nparts > 1:
+            # uniq is sorted, so each part's unique rows are one run; each
+            # is fetched from its own part only.  Pad slots hold row 0 of
+            # the part; the inverse map never points at them.
+            offs = np.concatenate([[0], np.cumsum([p.shape[0]
+                                                   for p in parts])])
+            cuts = np.searchsorted(uniq, offs[1:])
+            starts = np.concatenate([[0], cuts[:-1]])
+            pads = np.array([_bucket_size(max(int(c - a), 1))
+                             for a, c in zip(starts, cuts)], np.int64)
+            pad_off = np.concatenate([[0], np.cumsum(pads)])
+            uq = np.zeros(int(pad_off[-1]), np.int32)
+            for i in range(nparts):
+                uq[pad_off[i]:pad_off[i] + cuts[i] - starts[i]] = \
+                    uniq[starts[i]:cuts[i]] - offs[i]
+
+            def compact_pos(j):
+                part = np.searchsorted(cuts, j, side="right")
+                return pad_off[part] + (j - starts[part])
+        else:
+            pad_off = np.array([0, _bucket_size(U)], np.int64)
+            uq = np.full(int(pad_off[-1]), self._nl, np.int32)
+            uq[:U] = uniq
+
+            def compact_pos(j):
+                return j
+        host["uniq"] = uq
+        host["uniq_off"] = pad_off.astype(np.int32)
+        host["lrows"] = compact_pos(inv).reshape(lrows.shape).astype(
+            np.int32)
+        # lrows <= nl, so the miss row, when present, is the last unique
+        miss = int(compact_pos(U - 1)) if U and uniq[-1] == self._nl else -1
+        return ("compact", miss)
+
+    def _route_windows(self, lrows: np.ndarray) -> np.ndarray:
+        """Split light table: each read's light rows routed to their parts
+        (pads = the part's height); the global miss row ``nl`` drops out
+        (``rappas_tpu/place/engine.py:1768-1773``)."""
+        cuts = np.concatenate([[0], np.cumsum([p.shape[0]
+                                               for p in self.light_parts])])
+        return route_rows(lrows, cuts, drop=self._nl)
+
+    def enable_routed_windows(self, on: bool = True) -> None:
+        """Toggle part-routed windows on a split light table (on by
+        default for the one-device engine); ``False`` restores the
+        two-stage path (``rappas_tpu/place/engine.py:1759-1766``)."""
+        if on and self.table != "postings":
+            raise ValueError("routed windows apply to postings mode")
+        self._routed_windows = on
+
+    # ---- the postings software pipeline (two-stage path, one device) -- #
+    # rappas_tpu/place/engine.py:1586-1659.  JAX hides batch i+1's unique
+    # gather inside batch i's program; here G1 of batch i+1 runs on the
+    # gather stream, after its H2D, while P3 of batch i runs on the
+    # engine's stream, and P3 of batch i+1 waits for its G1.
+    def enable_pipeline(self, on: bool = True) -> None:
+        """Opt into the software pipeline of the two-stage gather
+        (``rappas_tpu/place/engine.py:1615-1631``): it rides the two-stage
+        path, so routed windows go off; turning it off restores them on a
+        split table."""
+        if on and not (self.table == "postings" and self.SINGLE_DEVICE):
+            raise ValueError("pipelining applies to the single-device "
+                             "postings engine only")
+        self._pp_enabled = on
+        self._routed_windows = (not on and self.SINGLE_DEVICE and
+                                len(self.light_parts) > 1)
+
+    def _pp_submit(self, dev, acc_c, plan, miss) -> PipelinedBatch:
+        """Queue a staged two-stage batch: it becomes the pipeline's tail,
+        and the batch before it is issued with this one's G1 beside it."""
+        staged = None
+        if self._stream is not None:
+            staged = torch.cuda.Event()
+            staged.record(self._stream)
+        entry = {"dev": dev, "acc_c": acc_c, "plan": plan, "miss": miss,
+                 "staged": staged, "compact": None, "gathered": None,
+                 "out": None}
+        with self._pp_lock:
+            prev, self._pp_tail = self._pp_tail, entry
+            if prev is not None:
+                self._pp_issue(prev, entry)
+        return PipelinedBatch(self, entry)
+
+    def _pp_issue(self, prev: dict, nxt: dict | None) -> None:
+        """Issue ``prev``'s P3 (G1 first on the engine's stream for the
+        pipeline's first batch); when ``nxt`` is given, its G1 goes to the
+        gather stream before, to run beside ``prev``'s P3."""
+        with self._on_stream():
+            if prev["compact"] is None:
+                prev["compact"] = kernels.gather_compact_(
+                    self._light, prev["dev"]["uniq"],
+                    prev["dev"]["uniq_off"])
+            if nxt is not None:
+                self._pp_gather(nxt)
+            if prev["gathered"] is not None:
+                self._stream.wait_event(prev["gathered"])
+            wire = self._postings_wire(("compact", prev["miss"]),
+                                       prev["dev"], prev["acc_c"],
+                                       prev["plan"], prev["compact"])
+            prev["out"] = fetch_wire(wire, self._stream, self.wire_k,
+                                     self.wide)
+        for key in ("dev", "acc_c", "plan", "compact", "staged", "gathered"):
+            prev[key] = None
+
+    def _pp_gather(self, entry: dict) -> None:
+        """G1 of a queued batch, on the gather stream after its H2D (on
+        the CPU: in place)."""
+        uniq, uniq_off = entry["dev"]["uniq"], entry["dev"]["uniq_off"]
+        g = self._gather_stream
+        if g is None:
+            entry["compact"] = kernels.gather_compact_(self._light, uniq,
+                                                       uniq_off)
+            return
+        g.wait_event(entry["staged"])
+        with torch.cuda.stream(g):
+            entry["compact"] = kernels.gather_compact_(self._light, uniq,
+                                                       uniq_off)
+            entry["gathered"] = torch.cuda.Event()
+            entry["gathered"].record(g)
+        # the staged inputs were allocated on the engine's stream and are
+        # read on the gather stream; the compact table the other way round
+        uniq.record_stream(g)
+        entry["compact"].record_stream(self._stream)
+
+    def _pp_flush(self, entry: dict) -> None:
+        """Issue the pipeline's tail, unless the next batch already did."""
+        with self._pp_lock:
+            if entry is not self._pp_tail:
+                return
+            self._pp_tail = None
+            self._pp_issue(entry, None)
 
     def postings_inputs(self, codes: np.ndarray, matrix: np.ndarray,
                         lengths: np.ndarray):
@@ -819,7 +1235,9 @@ class PlacementEngine:
           ``win_off`` int32[n_win + 1], ``win_slot``, ``win_inv_w``,
           ``win_is_mean``;
         * ``lrows`` int32[B, W]: each read's light hit rows, left-packed
-          in window order (``nl`` pads), W the batch's most hits;
+          in window order (``nl`` pads), W the least step of JAX's ladder
+          (8 .. 256, below Q - 8) that holds the batch's most hits, else
+          Q;
         * ``scratch_off`` int64[B + 1] when a read's postings do not fit
           one block's shared memory (``kernels.postings_plan``)."""
         rof = self._rows_from_codes(codes, lengths)

@@ -11,17 +11,26 @@ Two parts:
   :func:`kmer_indices64`, :func:`compact_rows`; postings:
   :func:`gather_rows`, :func:`scatter_slots`, :func:`light_gather`,
   :func:`alt_delta_rows_postings`, :func:`finalize_postings`; sharded:
-  :func:`accumulate_range`, :func:`merge_candidates`).  They run on any
-  device; the tests hold them against the JAX functions, and
-  ``chip_smoke.py`` holds the kernels against them on the card;
-* the **wrappers** of the eleven CUDA kernels of ``csrc/`` (direct:
+  :func:`accumulate_range`, :func:`merge_candidates`; height-split
+  tables: :func:`routed_light_gather`, :func:`gather_compact`,
+  :func:`routed_accumulate`, :func:`alt_delta_rows_split`, and the
+  multi-part forms of :func:`light_gather` and
+  :func:`finalize_postings`).  They run on any device; the tests hold
+  them against the JAX functions, and ``chip_smoke.py`` holds the
+  kernels against them on the card;
+* the **wrappers** of the CUDA kernels of ``csrc/`` (direct:
   :func:`accumulate_packed`, :func:`accumulate_codes`,
   :func:`finalize_wire`, :func:`ambiguous_pass_`; compact:
   :func:`accumulate_compact`, :func:`accumulate_rows`; postings:
   :func:`dense_side`, :func:`ambiguous_postings_`,
   :func:`finalize_postings_wire`, the last two also on one edge-range
   shard; sharded: :func:`accumulate_rows_range` on one k-mer-range shard,
-  :func:`merge_candidates_wire` over the shards' wires).  A wrapper
+  :func:`merge_candidates_wire` over the shards' wires; height-split
+  tables, given as :class:`Parts`: :func:`finalize_postings_wire_routed`
+  and :func:`finalize_postings_wire_parts` (R1), :func:`gather_compact_`
+  (G1), :func:`ambiguous_postings_parts_` and
+  :func:`ambiguous_pass_split_` (A1), :func:`routed_accumulate_` (D1)).
+  A wrapper
   given CPU tensors computes its plain composition; given CUDA tensors it
   launches its kernel on the current stream or raises -- it never falls
   back.  Each launch adds one
@@ -55,7 +64,13 @@ LAUNCHES = {name + sfx: 0
             for sfx in ("", "_u16")}
 LAUNCHES.update({"finalize_wire": 0, "dense_side": 0,
                  "ambiguous_postings": 0, "finalize_postings_wire": 0,
-                 "accumulate_rows_range": 0, "merge_candidates_wire": 0})
+                 "accumulate_rows_range": 0, "merge_candidates_wire": 0,
+                 "finalize_postings_wire_routed": 0,
+                 "finalize_postings_wire_parts": 0, "gather_compact": 0,
+                 "ambiguous_postings_parts": 0})
+LAUNCHES.update({name + sfx: 0
+                 for name in ("routed_accumulate", "ambiguous_pass_split")
+                 for sfx in ("", "_u16")})
 
 #: wire rows carry edge ids as u16 below this many edge slots, as int32
 #: at or above it (65535 is the u16 "no edge" mark)
@@ -247,6 +262,35 @@ def alt_delta_rows(D: torch.Tensor, scale,
     return D.index_select(0, alt_rows).to(torch.float32) * scale
 
 
+def routed_accumulate(parts: tuple, routed) -> torch.Tensor:
+    """f32[B, E] from a height-split direct table
+    (``rappas_tpu/place/engine.py:915-928``): :func:`accumulate` of each
+    part over its routed part-LOCAL rows ``routed[p]`` [B, W] (pads point
+    at the part's trailing zero row), the partial sums added in part
+    order; the caller applies the scale."""
+    acc = None
+    for p, r in zip(parts, routed):
+        a = accumulate(p, r)
+        acc = a if acc is None else acc + a
+    return acc
+
+
+def alt_delta_rows_split(parts: tuple, scale,
+                         alt_rows: torch.Tensor) -> torch.Tensor:
+    """[n_alt, E] f32 delta rows from a height-split direct table
+    (``rappas_tpu/place/engine.py:931-947``): ``alt_rows`` are global body
+    rows, each part carries one trailing zero row, and the global miss row
+    (the total body height) clips to the last part's zero row."""
+    out, off = None, 0
+    for p in parts:
+        H = p.shape[0] - 1
+        g = p.index_select(0, (alt_rows - off).clamp(0, H)).to(torch.float32)
+        out = g if out is None else \
+            torch.where((alt_rows >= off)[:, None], g, out)
+        off += H
+    return out * scale
+
+
 def ambiguous_contrib(rows: torch.Tensor, alt_win: torch.Tensor,
                       win_inv_w: torch.Tensor,
                       win_is_mean: torch.Tensor) -> torch.Tensor:
@@ -295,22 +339,66 @@ def scatter_slots(rows: torch.Tensor, slots: torch.Tensor,
         0, slots, rows)
 
 
-def light_gather(pairs: torch.Tensor, lrows: torch.Tensor) -> torch.Tensor:
-    """Row gather from the (single-part) light table: ``pairs[lrows]``."""
-    return pairs.index_select(0, lrows.reshape(-1)).reshape(
-        *lrows.shape, pairs.shape[1])
+def light_gather(parts, lrows: torch.Tensor) -> torch.Tensor:
+    """Row gather from the light table, whole (a tensor: ``pairs[lrows]``)
+    or height-split (a tuple of parts, ``rappas_tpu/place/engine.py:
+    654-681``): global rows, part ``i`` holding rows ``off_i .. off_i +
+    H_i``; every part is gathered for every row (clipped into it) and the
+    last part whose first row is ``<= lrows`` is selected."""
+    if isinstance(parts, torch.Tensor):
+        parts = (parts,)
+    if len(parts) == 1:
+        return parts[0].index_select(0, lrows.reshape(-1)).reshape(
+            *lrows.shape, parts[0].shape[1])
+    out, off = None, 0
+    for p in parts:
+        H = p.shape[0]
+        g = light_gather(p, (lrows - off).clamp(0, H - 1))
+        out = g if out is None else \
+            torch.where((lrows >= off)[..., None], g, out)
+        off += H
+    return out
 
 
-def alt_delta_rows_postings(pairs: torch.Tensor, heavy_dense: torch.Tensor,
+def routed_light_gather(parts: tuple, routed) -> torch.Tensor:
+    """[B, sum(W_p), 2P] window gather with per-part routing
+    (``rappas_tpu/place/engine.py:609-629``): ``routed[p]`` holds part
+    ``p``'s part-LOCAL rows [B, W_p], pad slots ``>= H_p``, which become
+    the sentinel edge ``LIGHT_PAD_EDGE`` and a zero delta."""
+    gs = []
+    for p, r in zip(parts, routed):
+        H = p.shape[0]
+        g = light_gather(p, r.clamp_max(H - 1))
+        P = g.shape[-1] // 2
+        pad = (r >= H)[..., None]
+        gs.append(torch.cat([
+            torch.where(pad, int(LIGHT_PAD_EDGE), g[..., :P]),
+            torch.where(pad, 0, g[..., P:])], dim=-1))
+    return torch.cat(gs, dim=1)
+
+
+def gather_compact(parts: tuple, uniq) -> torch.Tensor:
+    """The batch-unique compact table (``rappas_tpu/place/engine.py:
+    557-570``): with ``uniq`` a tuple of part-LOCAL rows per part, each
+    part's rows gathered from that part and concatenated in part order;
+    with one tensor of global rows, :func:`light_gather`."""
+    if isinstance(uniq, (tuple, list)):
+        return torch.cat([light_gather(p, u) for p, u in zip(parts, uniq)])
+    return light_gather(parts, uniq)
+
+
+def alt_delta_rows_postings(pairs, heavy_dense: torch.Tensor,
                             alt_lrows: torch.Tensor, alt_hrows: torch.Tensor,
                             edge_offset: int = 0) -> torch.Tensor:
     """[n_alt, E] f32 delta rows of the ambiguity alternatives: the heavy
     dense row plus the scattered light postings (misses take the heavy
     table's zero row and the light table's all-pad row; pad slots carry
-    ``LIGHT_PAD_EDGE`` and drop out of the scatter).  Under edge-range
-    sharding the columns are the edges ``edge_offset .. edge_offset + E -
-    1`` (``rappas_tpu/parallel/postings_sharded.py:172-177``): a posting
-    adds at column ``edge - edge_offset`` when that lies in ``[0, E)``."""
+    ``LIGHT_PAD_EDGE`` and drop out of the scatter).  ``pairs`` is the
+    light table or a tuple of its parts (:func:`light_gather`).  Under
+    edge-range sharding the columns are the edges ``edge_offset ..
+    edge_offset + E - 1`` (``rappas_tpu/parallel/postings_sharded.py:
+    172-177``): a posting adds at column ``edge - edge_offset`` when that
+    lies in ``[0, E)``."""
     E = heavy_dense.shape[1]
     dense = heavy_dense.index_select(0, alt_hrows)
     g = light_gather(pairs, alt_lrows)
@@ -322,13 +410,25 @@ def alt_delta_rows_postings(pairs: torch.Tensor, heavy_dense: torch.Tensor,
     return dense.index_put_((r[keep], e[keep]), d[keep], accumulate=True)
 
 
-def finalize_postings(pairs: torch.Tensor, lrows: torch.Tensor,
+def finalize_postings(pairs: torch.Tensor | None, lrows: torch.Tensor | None,
                       acc_c: torch.Tensor, slot_of: torch.Tensor,
                       lengths: torch.Tensor, thr: torch.Tensor, k: int,
-                      keep_at_most: int, edge_offset: int = 0):
+                      keep_at_most: int, edge_offset: int = 0, *,
+                      light_parts: tuple | None = None,
+                      uniq_rows=None, compact_table: torch.Tensor | None = None,
+                      routed_lrows=None):
     """Postings-mode scoring -> (top edges, top scores, LWR, |L|), as
     ``finalize_postings_local`` (``rappas_tpu/place/engine.py:684-904``)
-    computes it on one light table with the slot dense side.
+    computes it with the slot dense side.
+
+    The light rows come from one of JAX's row sources (:767-803): the
+    table ``pairs`` (or its height-split ``light_parts``) at ``lrows``;
+    ``routed_lrows``, each part's part-local rows
+    (:func:`routed_light_gather`); ``compact_table`` at ``lrows``, the
+    inverse map into it; or ``uniq_rows``, from which that compact table
+    is first gathered (:func:`gather_compact`).  A read's postings are
+    then the same whatever the source, in another order on the routed
+    one.
 
     Read ``b``'s light postings (the rows ``lrows[b]`` of ``pairs``: P
     edge ids, then P bit-cast f32 deltas) are sorted by edge and summed
@@ -347,12 +447,20 @@ def finalize_postings(pairs: torch.Tensor, lrows: torch.Tensor,
     edges ``edge_offset .. edge_offset + E - 1``: a light edge's dense
     value is at column ``edge - edge_offset`` and dense picks are returned
     as global ids; K is ``min(keep_at_most, E)`` of the shard's width."""
-    B, W = lrows.shape
-    P = pairs.shape[1] // 2
+    parts = light_parts if light_parts is not None else (pairs,)
+    if routed_lrows is not None:
+        g = routed_light_gather(parts, routed_lrows)
+    elif compact_table is not None:
+        g = light_gather(compact_table, lrows)
+    elif uniq_rows is not None:
+        g = light_gather(gather_compact(parts, uniq_rows), lrows)
+    else:
+        g = light_gather(parts, lrows)
+    B, W = g.shape[:2]
+    P = g.shape[2] // 2
     n_slots, E = acc_c.shape
     K = min(keep_at_most, E)
-    dev = lrows.device
-    g = light_gather(pairs, lrows)
+    dev = g.device
     e = g[:, :, :P].reshape(B, W * P)
     d = g[:, :, P:].contiguous().view(torch.float32).reshape(B, W * P)
     if W * P < K:     # a light list shorter than K: pad it with pads
@@ -653,6 +761,27 @@ def finalize_wire(acc: torch.Tensor, lengths: torch.Tensor, thr: float,
     return wire
 
 
+def _alt_win(win_off: torch.Tensor) -> torch.Tensor:
+    """Each alternative's window id, from the windows' CSR offsets."""
+    n_win = win_off.shape[0] - 1
+    return torch.repeat_interleave(
+        torch.arange(n_win, device=win_off.device),
+        (win_off[1:] - win_off[:-1]).to(torch.int64))
+
+
+def _check_windows(acc, E, alt_rows, win_off, win_dest, win_inv_w,
+                   win_is_mean) -> None:
+    """The argument checks of K4, P2 and their split instances."""
+    n_win = win_dest.shape[0]
+    _check(acc, "acc", torch.float32, (acc.shape[0], E))
+    for name, rows in alt_rows.items():
+        _check(rows, name, torch.int32, (rows.shape[0],))
+    _check(win_off, "win_off", torch.int32, (n_win + 1,))
+    _check(win_dest, "win_dest", torch.int32, (n_win,))
+    _check(win_inv_w, "win_inv_w", torch.float32, (n_win,))
+    _check(win_is_mean, "win_is_mean", torch.uint8, (n_win,))
+
+
 def ambiguous_pass_(acc: torch.Tensor, D: torch.Tensor, scale: float,
                     alt_rows: torch.Tensor, win_off: torch.Tensor,
                     win_read: torch.Tensor, win_inv_w: torch.Tensor,
@@ -668,24 +797,106 @@ def ambiguous_pass_(acc: torch.Tensor, D: torch.Tensor, scale: float,
     n_win = win_read.shape[0]
     if not _on_card(acc, D, alt_rows, win_off, win_read, win_inv_w,
                     win_is_mean):
-        counts = (win_off[1:] - win_off[:-1]).to(torch.int64)
-        alt_win = torch.repeat_interleave(
-            torch.arange(n_win, device=acc.device), counts)
         return acc.copy_(ambiguous_pass(
-            alt_delta_rows(D, scale, alt_rows), alt_win, win_read,
+            alt_delta_rows(D, scale, alt_rows), _alt_win(win_off), win_read,
             win_inv_w, win_is_mean, acc))
     E = D.shape[1]
     sfx = _table_type(D)
-    _check(acc, "acc", torch.float32, (acc.shape[0], E))
-    _check(alt_rows, "alt_rows", torch.int32, (alt_rows.shape[0],))
-    _check(win_off, "win_off", torch.int32, (n_win + 1,))
-    _check(win_read, "win_read", torch.int32, (n_win,))
-    _check(win_inv_w, "win_inv_w", torch.float32, (n_win,))
-    _check(win_is_mean, "win_is_mean", torch.uint8, (n_win,))
+    _check_windows(acc, E, {"alt_rows": alt_rows}, win_off, win_read,
+                   win_inv_w, win_is_mean)
     from rappas_tpu_torch._kernels import lib
     _launch("ambiguous_pass" + sfx, lib().rp_ambiguous_pass, D.data_ptr(),
             int(bool(sfx)), E, float(scale), alt_rows.data_ptr(),
             win_off.data_ptr(), win_read.data_ptr(), win_inv_w.data_ptr(),
+            win_is_mean.data_ptr(), n_win, acc.data_ptr(), _stream(acc))
+    return acc
+
+
+# ---- height-split tables ---------------------------------------------- #
+
+class Parts(NamedTuple):
+    """A table height-split into parts, as the split kernels take it:
+    ``tables`` the parts (contiguous 2-D tensors of one dtype and width on
+    one device) and ``meta`` int64[3, n] on that device -- each part's
+    base address, its height (the rows a global row can select: every row
+    of a light part, the body of a direct part without its trailing zero
+    row) and its first global row (the heights summed before it)."""
+    tables: tuple
+    meta: torch.Tensor
+
+
+def make_parts(tables, heights) -> Parts:
+    """:class:`Parts` of ``tables`` with the given heights."""
+    heights = [int(h) for h in heights]
+    first = np.concatenate([[0], np.cumsum(heights)[:-1]]).astype(np.int64)
+    meta = torch.tensor([[t.data_ptr() for t in tables], heights,
+                         first.tolist()], dtype=torch.int64)
+    return Parts(tuple(tables), meta.to(tables[0].device))
+
+
+def _check_parts(parts: Parts) -> torch.Tensor:
+    """Checks the parts' layout; returns the first part."""
+    t0 = parts.tables[0]
+    _check(parts.meta, "parts.meta", torch.int64, (3, len(parts.tables)))
+    for t in parts.tables:
+        if (t.device != parts.meta.device or t.dtype != t0.dtype or
+                t.dim() != 2 or t.shape[1] != t0.shape[1] or
+                not t.is_contiguous()):
+            raise ValueError(f"parts: want contiguous 2-D {t0.dtype} parts "
+                             f"of width {t0.shape[1]} on {parts.meta.device}"
+                             f", got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+    return t0
+
+
+def routed_accumulate_(parts: Parts, routed: torch.Tensor,
+                       scale: float = 1.0) -> torch.Tensor:
+    """D1 (``csrc/accumulate.cu``): ``routed_accumulate(parts.tables,
+    routed)`` times ``scale`` -> a new f32 [B, E], for the parts of a
+    split direct table (f32 or uint16, heights = body rows) and their
+    routed part-LOCAL rows int32[n_parts, B, W] (pads ``>=`` the part's
+    height).  Per column the card sums each part's windows, then adds the
+    partial sums in part order, as JAX does."""
+    n, B, W = routed.shape
+    if not _on_card(parts.meta, routed):
+        return routed_accumulate(parts.tables, tuple(routed)) * scale
+    t0 = _check_parts(parts)
+    sfx = _table_type(t0)
+    E = t0.shape[1]
+    _check(routed, "routed", torch.int32, (len(parts.tables), B, W))
+    acc = torch.empty((B, E), dtype=torch.float32, device=t0.device)
+    from rappas_tpu_torch._kernels import lib
+    _launch("routed_accumulate" + sfx, lib().rp_routed_accumulate,
+            parts.meta.data_ptr(), n, int(bool(sfx)), E, routed.data_ptr(),
+            B, W, float(scale), acc.data_ptr(), _stream(t0))
+    return acc
+
+
+def ambiguous_pass_split_(acc: torch.Tensor, parts: Parts, scale: float,
+                          alt_rows: torch.Tensor, win_off: torch.Tensor,
+                          win_read: torch.Tensor, win_inv_w: torch.Tensor,
+                          win_is_mean: torch.Tensor) -> torch.Tensor:
+    """A1 (``csrc/ambiguous.cu``, K4's template with a split row source):
+    ``ambiguous_pass(alt_delta_rows_split(parts.tables, scale, alt_rows),
+    ...)`` added into ``acc`` IN PLACE, as :func:`ambiguous_pass_`;
+    ``alt_rows`` are global body rows (the miss row is the total body
+    height)."""
+    n_win = win_read.shape[0]
+    if not _on_card(acc, parts.meta, alt_rows, win_off, win_read, win_inv_w,
+                    win_is_mean):
+        return acc.copy_(ambiguous_pass(
+            alt_delta_rows_split(parts.tables, scale, alt_rows),
+            _alt_win(win_off), win_read, win_inv_w, win_is_mean, acc))
+    t0 = _check_parts(parts)
+    sfx = _table_type(t0)
+    E = t0.shape[1]
+    _check_windows(acc, E, {"alt_rows": alt_rows}, win_off, win_read,
+                   win_inv_w, win_is_mean)
+    from rappas_tpu_torch._kernels import lib
+    _launch("ambiguous_pass_split" + sfx, lib().rp_ambiguous_pass_split,
+            parts.meta.data_ptr(), len(parts.tables), int(bool(sfx)), E,
+            float(scale), alt_rows.data_ptr(), win_off.data_ptr(),
+            win_read.data_ptr(), win_inv_w.data_ptr(),
             win_is_mean.data_ptr(), n_win, acc.data_ptr(), _stream(acc))
     return acc
 
@@ -779,24 +990,16 @@ def ambiguous_postings_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
     n_win = win_slot.shape[0]
     if not _on_card(acc_c, heavy_dense, pairs, alt_lrows, alt_hrows,
                     win_off, win_slot, win_inv_w, win_is_mean):
-        counts = (win_off[1:] - win_off[:-1]).to(torch.int64)
-        alt_win = torch.repeat_interleave(
-            torch.arange(n_win, device=acc_c.device), counts)
         return acc_c.copy_(ambiguous_pass(
             alt_delta_rows_postings(pairs, heavy_dense, alt_lrows,
                                     alt_hrows, edge_offset),
-            alt_win, win_slot, win_inv_w, win_is_mean, acc_c))
+            _alt_win(win_off), win_slot, win_inv_w, win_is_mean, acc_c))
     E = heavy_dense.shape[1]
-    n_alt = alt_lrows.shape[0]
-    _check(acc_c, "acc_c", torch.float32, (acc_c.shape[0], E))
     _check(heavy_dense, "heavy_dense", torch.float32, tuple(heavy_dense.shape))
     _check(pairs, "pairs", torch.int32, tuple(pairs.shape))
-    _check(alt_lrows, "alt_lrows", torch.int32, (n_alt,))
-    _check(alt_hrows, "alt_hrows", torch.int32, (n_alt,))
-    _check(win_off, "win_off", torch.int32, (n_win + 1,))
-    _check(win_slot, "win_slot", torch.int32, (n_win,))
-    _check(win_inv_w, "win_inv_w", torch.float32, (n_win,))
-    _check(win_is_mean, "win_is_mean", torch.uint8, (n_win,))
+    _check_windows(acc_c, E, {"alt_lrows": alt_lrows, "alt_hrows": alt_hrows},
+                   win_off, win_slot, win_inv_w, win_is_mean)
+    _check(alt_hrows, "alt_hrows", torch.int32, alt_lrows.shape)
     from rappas_tpu_torch._kernels import lib
     _launch("ambiguous_postings", lib().rp_ambiguous_postings,
             heavy_dense.data_ptr(), E, pairs.data_ptr(), pairs.shape[1] // 2,
@@ -807,38 +1010,49 @@ def ambiguous_postings_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
     return acc_c
 
 
-def finalize_postings_wire(pairs: torch.Tensor, lrows: torch.Tensor,
-                           acc_c: torch.Tensor, slot_of: torch.Tensor,
-                           lengths: torch.Tensor, thr: float, k: int,
-                           keep_at_most: int, plan: PostingsPlan,
-                           edge_offset: int = 0,
-                           n_edges: int | None = None) -> torch.Tensor:
-    """P3 (``csrc/postings.cu``): ``pack_wire(*finalize_postings(...))``
-    -> int32 [B, words] in the wire of :func:`wire_format`.  On an
-    edge-range shard ``acc_c`` holds the edges ``edge_offset ..
-    edge_offset + E - 1`` of a DB of ``n_edges`` edge slots (default E):
-    the wire carries global ids, K of the shard's width, and is wide when
-    ``n_edges`` is.
+def ambiguous_postings_parts_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
+                              parts: Parts, alt_lrows: torch.Tensor,
+                              alt_hrows: torch.Tensor, win_off: torch.Tensor,
+                              win_slot: torch.Tensor, win_inv_w: torch.Tensor,
+                              win_is_mean: torch.Tensor) -> torch.Tensor:
+    """A1 (``csrc/ambiguous.cu``, P2 with a split light table):
+    :func:`ambiguous_postings_` with the light rows ``alt_lrows`` global
+    rows of the height-split light table ``parts``
+    (``alt_delta_rows_postings`` over ``light_gather``'s part select,
+    ``rappas_tpu/place/engine.py:950-964``; one device, edge offset 0)."""
+    n_win = win_slot.shape[0]
+    if not _on_card(acc_c, heavy_dense, parts.meta, alt_lrows, alt_hrows,
+                    win_off, win_slot, win_inv_w, win_is_mean):
+        return acc_c.copy_(ambiguous_pass(
+            alt_delta_rows_postings(parts.tables, heavy_dense, alt_lrows,
+                                    alt_hrows),
+            _alt_win(win_off), win_slot, win_inv_w, win_is_mean, acc_c))
+    E = heavy_dense.shape[1]
+    t0 = _check_parts(parts)
+    _check(heavy_dense, "heavy_dense", torch.float32, tuple(heavy_dense.shape))
+    if t0.dtype != torch.int32:
+        raise ValueError(f"parts: want int32 light parts, got {t0.dtype}")
+    _check_windows(acc_c, E, {"alt_lrows": alt_lrows, "alt_hrows": alt_hrows},
+                   win_off, win_slot, win_inv_w, win_is_mean)
+    _check(alt_hrows, "alt_hrows", torch.int32, alt_lrows.shape)
+    from rappas_tpu_torch._kernels import lib
+    _launch("ambiguous_postings_parts", lib().rp_ambiguous_postings_parts,
+            heavy_dense.data_ptr(), E, parts.meta.data_ptr(),
+            len(parts.tables), t0.shape[1] // 2, alt_lrows.data_ptr(),
+            alt_hrows.data_ptr(), win_off.data_ptr(), win_slot.data_ptr(),
+            win_inv_w.data_ptr(), win_is_mean.data_ptr(), n_win,
+            acc_c.data_ptr(), _stream(acc_c))
+    return acc_c
 
-    ``plan`` (:func:`postings_plan` of the reads' real light posting
-    counts, its offsets on the tensors' device) says where each read
-    sorts on the card; the plain version needs none.  A read with more
-    postings than its plan gives it makes the kernel write ``|L| = -1``,
-    which :func:`unpack_wire` rejects."""
-    B, W = lrows.shape
+
+def _p3(name: str, fn, head: tuple, B: int, acc_c, slot_of, lengths, thr,
+        k, keep_at_most, plan, edge_offset=0, n_edges=None) -> torch.Tensor:
+    """Checks and launches one P3 instance; ``head`` its row-source
+    arguments.  Returns the wire."""
     n_slots, E = acc_c.shape
     K, wide, n_words = wire_format(E if n_edges is None else n_edges,
                                    keep_at_most, E)
     so = plan.scratch_off
-    if not _on_card(pairs, lrows, acc_c, slot_of, lengths,
-                    *([] if so is None else [so])):
-        thr_t = torch.tensor(thr, dtype=torch.float32)
-        return pack_wire(*finalize_postings(pairs, lrows, acc_c, slot_of,
-                                            lengths, thr_t, k, keep_at_most,
-                                            edge_offset), wide=wide)
-    P = pairs.shape[1] // 2
-    _check(pairs, "pairs", torch.int32, tuple(pairs.shape))
-    _check(lrows, "lrows", torch.int32, (B, W))
     _check(acc_c, "acc_c", torch.float32, (n_slots, E))
     _check(slot_of, "slot_of", torch.int32, (B,))
     _check(lengths, "lengths", torch.int32, (B,))
@@ -848,14 +1062,144 @@ def finalize_postings_wire(pairs: torch.Tensor, lrows: torch.Tensor,
     tot = torch.empty(plan.n_scratch, dtype=torch.float32,
                       device=acc_c.device)
     wire = torch.empty((B, n_words), dtype=torch.int32, device=acc_c.device)
-    from rappas_tpu_torch._kernels import lib
-    _launch("finalize_postings_wire", lib().rp_finalize_postings,
-            pairs.data_ptr(), P, pairs.shape[0] - 1, lrows.data_ptr(), B, W,
-            acc_c.data_ptr(), E, slot_of.data_ptr(), lengths.data_ptr(),
-            float(thr), k, K, plan.smem_pairs, _ptr(so), keys.data_ptr(),
-            tot.data_ptr(), n_words, int(wide), int(edge_offset),
-            wire.data_ptr(), _stream(acc_c))
+    _launch(name, fn, *head, acc_c.data_ptr(), E, slot_of.data_ptr(),
+            lengths.data_ptr(), float(thr), k, K, plan.smem_pairs, _ptr(so),
+            keys.data_ptr(), tot.data_ptr(), n_words, int(wide),
+            int(edge_offset), wire.data_ptr(), _stream(acc_c))
     return wire
+
+
+def _p3_plain(acc_c, slot_of, lengths, thr, k, keep_at_most, edge_offset,
+              n_edges, pairs, lrows, **source) -> torch.Tensor:
+    E = acc_c.shape[1]
+    _, wide, _ = wire_format(E if n_edges is None else n_edges,
+                             keep_at_most, E)
+    thr_t = torch.tensor(thr, dtype=torch.float32)
+    return pack_wire(*finalize_postings(pairs, lrows, acc_c, slot_of,
+                                        lengths, thr_t, k, keep_at_most,
+                                        edge_offset, **source), wide=wide)
+
+
+def _scratch(plan: PostingsPlan) -> list:
+    return [] if plan.scratch_off is None else [plan.scratch_off]
+
+
+def finalize_postings_wire(pairs: torch.Tensor, lrows: torch.Tensor,
+                           acc_c: torch.Tensor, slot_of: torch.Tensor,
+                           lengths: torch.Tensor, thr: float, k: int,
+                           keep_at_most: int, plan: PostingsPlan,
+                           edge_offset: int = 0,
+                           n_edges: int | None = None,
+                           miss: int | None = None) -> torch.Tensor:
+    """P3 (``csrc/postings.cu``): ``pack_wire(*finalize_postings(...))``
+    -> int32 [B, words] in the wire of :func:`wire_format`.  On an
+    edge-range shard ``acc_c`` holds the edges ``edge_offset ..
+    edge_offset + E - 1`` of a DB of ``n_edges`` edge slots (default E):
+    the wire carries global ids, K of the shard's width, and is wide when
+    ``n_edges`` is.  ``miss`` (default: the table's last row) is a row of
+    ``pairs`` that holds only pads, which the card skips, or -1 for none;
+    on the two-stage path ``pairs`` is the batch's compact table and the
+    light miss row sits among its rows, if at all.
+
+    ``plan`` (:func:`postings_plan` of the reads' real light posting
+    counts, its offsets on the tensors' device) says where each read
+    sorts on the card; the plain version needs none.  A read with more
+    postings than its plan gives it makes the kernel write ``|L| = -1``,
+    which :func:`unpack_wire` rejects."""
+    B, W = lrows.shape
+    if not _on_card(pairs, lrows, acc_c, slot_of, lengths, *_scratch(plan)):
+        return _p3_plain(acc_c, slot_of, lengths, thr, k, keep_at_most,
+                         edge_offset, n_edges, pairs, lrows)
+    _check(pairs, "pairs", torch.int32, tuple(pairs.shape))
+    _check(lrows, "lrows", torch.int32, (B, W))
+    from rappas_tpu_torch._kernels import lib
+    return _p3("finalize_postings_wire", lib().rp_finalize_postings,
+               (pairs.data_ptr(), pairs.shape[1] // 2,
+                pairs.shape[0] - 1 if miss is None else int(miss),
+                lrows.data_ptr(), B, W),
+               B, acc_c, slot_of, lengths, thr, k, keep_at_most, plan,
+               edge_offset, n_edges)
+
+
+def finalize_postings_wire_routed(parts: Parts, routed: torch.Tensor,
+                                  acc_c: torch.Tensor, slot_of: torch.Tensor,
+                                  lengths: torch.Tensor, thr: float, k: int,
+                                  keep_at_most: int,
+                                  plan: PostingsPlan) -> torch.Tensor:
+    """R1 (``csrc/postings.cu``, P3 with a routed row source):
+    ``finalize_postings_routed`` + ``pack_wire``
+    (``rappas_tpu/place/engine.py:609-651``) -> the wire, one device.
+    ``routed`` int32[n_parts, B, W]: part ``p``'s part-LOCAL light rows of
+    each read, pad slots ``>= H_p`` (no postings).  P3 sorts each read's
+    postings by (edge, delta bits), so on the card the wire equals the
+    one-table P3's bitwise."""
+    n, B, W = routed.shape
+    if not _on_card(parts.meta, routed, acc_c, slot_of, lengths,
+                    *_scratch(plan)):
+        return _p3_plain(acc_c, slot_of, lengths, thr, k, keep_at_most, 0,
+                         None, None, None, light_parts=parts.tables,
+                         routed_lrows=tuple(routed))
+    t0 = _check_parts(parts)
+    _check(t0, "parts[0]", torch.int32, tuple(t0.shape))
+    _check(routed, "routed", torch.int32, (len(parts.tables), B, W))
+    from rappas_tpu_torch._kernels import lib
+    return _p3("finalize_postings_wire_routed",
+               lib().rp_finalize_postings_split,
+               (1, parts.meta.data_ptr(), n, t0.shape[1] // 2, -1,
+                routed.data_ptr(), B, W),
+               B, acc_c, slot_of, lengths, thr, k, keep_at_most, plan)
+
+
+def finalize_postings_wire_parts(parts: Parts, lrows: torch.Tensor,
+                                 acc_c: torch.Tensor, slot_of: torch.Tensor,
+                                 lengths: torch.Tensor, thr: float, k: int,
+                                 keep_at_most: int, plan: PostingsPlan,
+                                 miss: int = -1) -> torch.Tensor:
+    """R1 (``csrc/postings.cu``, P3 with a part-select row source): the
+    select fallback, ``light_gather`` over the parts +
+    ``finalize_postings_v2`` with ``uniq_rows=None`` + ``pack_wire``
+    (``rappas_tpu/place/engine.py:535-554, 654-681``) -> the wire, one
+    device.  ``lrows`` int32[B, W] are global rows of the split light
+    table; ``miss`` (the global miss row ``nl``, or -1) is skipped on the
+    card."""
+    B, W = lrows.shape
+    if not _on_card(parts.meta, lrows, acc_c, slot_of, lengths,
+                    *_scratch(plan)):
+        return _p3_plain(acc_c, slot_of, lengths, thr, k, keep_at_most, 0,
+                         None, None, lrows, light_parts=parts.tables)
+    t0 = _check_parts(parts)
+    _check(t0, "parts[0]", torch.int32, tuple(t0.shape))
+    _check(lrows, "lrows", torch.int32, (B, W))
+    from rappas_tpu_torch._kernels import lib
+    return _p3("finalize_postings_wire_parts",
+               lib().rp_finalize_postings_split,
+               (0, parts.meta.data_ptr(), len(parts.tables), t0.shape[1] // 2,
+                int(miss), lrows.data_ptr(), B, W),
+               B, acc_c, slot_of, lengths, thr, k, keep_at_most, plan)
+
+
+def gather_compact_(parts: Parts, uniq: torch.Tensor,
+                    uniq_off: torch.Tensor) -> torch.Tensor:
+    """G1 (``csrc/postings.cu``): the batch-unique compact table int32[U,
+    2P] of ``gather_compact`` (``rappas_tpu/place/engine.py:557-570``):
+    ``uniq`` int32[U] holds part ``i``'s part-LOCAL rows at ``uniq_off[i]
+    .. uniq_off[i + 1]`` (``uniq_off`` int32[n_parts + 1]); each is copied
+    from its own part, in order."""
+    U = uniq.shape[0]
+    if not _on_card(parts.meta, uniq, uniq_off):
+        bounds = uniq_off.tolist()
+        return gather_compact(parts.tables, tuple(
+            uniq[a:b] for a, b in zip(bounds[:-1], bounds[1:])))
+    t0 = _check_parts(parts)
+    _check(t0, "parts[0]", torch.int32, tuple(t0.shape))
+    _check(uniq, "uniq", torch.int32, (U,))
+    _check(uniq_off, "uniq_off", torch.int32, (len(parts.tables) + 1,))
+    out = torch.empty((U, t0.shape[1]), dtype=torch.int32, device=t0.device)
+    from rappas_tpu_torch._kernels import lib
+    _launch("gather_compact", lib().rp_gather_compact, parts.meta.data_ptr(),
+            len(parts.tables), t0.shape[1], uniq.data_ptr(),
+            uniq_off.data_ptr(), U, out.data_ptr(), _stream(uniq))
+    return out
 
 
 def merge_candidates_wire(wires: torch.Tensor, K_in: int, keep: int,

@@ -462,3 +462,152 @@ def test_sharded_engines_on_distinct_cards(card, table):
         torch.cuda.synchronize()
     _same_placements(runs["cuda"], runs["cpu"])
     assert (runs["cuda"].n_matched > 0).any()
+
+
+@pytest.mark.cuda
+def test_split_postings_kernels_match_plain_on_card(card):
+    """R1 (routed and part-select), G1 and A1 (P2 over the parts) on a
+    light table split in 3 against their plain versions; R1's wires and P3
+    on G1's compact table equal the one-table P3's wire bitwise (P3 sorts
+    each read's postings by (edge, delta bits))."""
+    rng = np.random.default_rng(51)
+    db = _postings_db(7)
+    mat, lens = _reads(rng, 400, 60, 40)
+    base = db.alphabet.kmer_to_string(int(db.keys[0]), db.k) * 12
+    mat[:4] = np.frombuffer(base.encode(), np.uint8)[None]
+    one = PlacementEngine(db, device=card, table="postings")
+
+    class Split(PlacementEngine):
+        LIGHT_SPLIT_BYTES = one.pairs.nbytes // 3 + 64
+    eng = Split(db, device=card, table="postings")
+    assert len(eng.light_parts) == 3 and eng._routed_windows
+    host, plan = eng.postings_inputs(eng.encode_batch(mat), mat, lens)
+    host.pop("scratch_off", None)
+    plan = plan.to(card)
+    dev = {n: torch.from_numpy(np.ascontiguousarray(a)).to(card)
+           for n, a in host.items()}
+    H = eng.heavy_dense
+    acc_c = T.dense_side(H, dev["hrows"], dev["hoff"])
+    spec = [dev[n] for n in ("alt_lrows", "alt_hrows", "win_off",
+                             "win_slot", "win_inv_w", "win_is_mean")]
+    got = T.ambiguous_postings_parts_(acc_c.clone(), H, eng._light, *spec)
+    alt_win = torch.repeat_interleave(
+        torch.arange(spec[3].shape[0], device=card),
+        (spec[2][1:] - spec[2][:-1]).long())
+    want = T.ambiguous_pass(T.alt_delta_rows_postings(
+        eng.light_parts, H, spec[0], spec[1]), alt_win, *spec[3:], acc_c)
+    torch.cuda.synchronize()
+    assert torch.allclose(got, want, atol=2e-4, rtol=0)
+    assert torch.equal(got > 0, want > 0)
+    args = (got, dev["slot_of"], dev["lengths"], eng.thr, eng.k, 7, plan)
+    one_wire = T.finalize_postings_wire(one.pairs, dev["lrows"], *args)
+    parts_wire = T.finalize_postings_wire_parts(eng._light, dev["lrows"],
+                                                *args, miss=eng._nl)
+    routed = torch.from_numpy(eng._route_windows(host["lrows"])).to(card)
+    routed_wire = T.finalize_postings_wire_routed(eng._light, routed, *args)
+    eng.enable_routed_windows(False)
+    eng.LIGHT_SPLIT_BYTES = 1 << 30     # a compact budget for every row
+    src = eng._light_source(host)
+    assert src[0] == "compact"
+    uniq = torch.from_numpy(host["uniq"]).to(card)
+    off = torch.from_numpy(host["uniq_off"]).to(card)
+    compact = T.gather_compact_(eng._light, uniq, off)
+    bounds = host["uniq_off"].tolist()
+    want_c = T.gather_compact(eng.light_parts, tuple(
+        uniq[a:b] for a, b in zip(bounds[:-1], bounds[1:])))
+    inv = torch.from_numpy(host["lrows"]).to(card)
+    compact_wire = T.finalize_postings_wire(compact, inv, *args, miss=src[1])
+    torch.cuda.synchronize()
+    assert torch.equal(compact, want_c)
+    for wire in (parts_wire, routed_wire, compact_wire):
+        assert torch.equal(wire, one_wire)
+    plain = T.pack_wire(*T.finalize_postings(
+        None, None, got, dev["slot_of"], dev["lengths"],
+        torch.tensor(np.float32(eng.thr)), eng.k, 7,
+        light_parts=eng.light_parts, routed_lrows=tuple(routed)))
+    _same_placements(unpack_wire(routed_wire.cpu().numpy(), 7),
+                     unpack_wire(plain.cpu().numpy(), 7))
+    for name in ("finalize_postings_wire_routed",
+                 "finalize_postings_wire_parts", "gather_compact",
+                 "ambiguous_postings_parts"):
+        assert T.LAUNCHES[name] > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u16", [False, True])
+def test_direct_split_kernels_match_plain_on_card(card, u16):
+    """D1 and A1 (K4 over the parts) on a direct table split in 5, f32
+    and uint16, against their plain versions: D1 bitwise on uint16 (exact
+    f32 sums), within 1e-5 relative on f32; the ambiguity pass within
+    2e-4 (atomic order), the global miss row reading a zero row."""
+    from rappas_tpu_torch.convert import direct_parts
+    from rappas_tpu_torch.place.engine import host_kmer_indices, route_rows
+    rng = np.random.default_rng(52 + u16)
+    k, E, L, B = 8, 300, 150, 256
+    D = (_u16_table(rng, 4 ** k + 1, E, 0.02).numpy() if u16 else
+         _table(rng, 4 ** k + 1, E, 0.02))
+    scale = float(np.float32(2.5 / 65535)) if u16 else 1.0
+    parts, cuts = direct_parts(D, D.nbytes // 5 + 1, 0, 64)
+    tp = tuple(torch.from_numpy(p).to(card) for p in parts)
+    sp = T.make_parts(tp, np.diff(cuts))
+    codes, lens = _codes(rng, B, L, k, amb=0.002)
+    kidx = host_kmer_indices(codes, lens, k, 4)
+    rows = np.where(kidx >= 0, kidx, 4 ** k).astype(np.int32)
+    routed = torch.from_numpy(route_rows(rows, cuts)).to(card)
+    got = T.routed_accumulate_(sp, routed, scale)
+    want = T.routed_accumulate(tp, tuple(routed)) * scale
+    whole = T.accumulate(torch.from_numpy(D).to(card),
+                         torch.from_numpy(rows).to(card)) * scale
+    torch.cuda.synchronize()
+    if u16:
+        assert torch.equal(got, want) and torch.equal(got, whole)
+    else:
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.allclose(got, whole, rtol=1e-5, atol=1e-5)
+    alt_rows, alt_win, win_read, inv_w = _amb_spec(rng, 4 ** k + 1, 40, B)
+    spec = [torch.from_numpy(x).to(card) for x in (
+        alt_rows, window_offsets(alt_win, 40), win_read, inv_w,
+        (rng.random(40) < 0.5).astype(np.uint8))]
+    acc = T.ambiguous_pass_split_(got.clone(), sp, scale, *spec)
+    want = T.ambiguous_pass(T.alt_delta_rows_split(tp, scale, spec[0]),
+                            torch.from_numpy(alt_win).to(card), spec[2],
+                            spec[3], spec[4], got)
+    torch.cuda.synchronize()
+    assert torch.allclose(acc, want, atol=2e-4, rtol=0)
+    assert torch.equal(acc > 0, want > 0)
+    sfx = "_u16" if u16 else ""
+    assert T.LAUNCHES["routed_accumulate" + sfx] > 0
+    assert T.LAUNCHES["ambiguous_pass_split" + sfx] > 0
+
+
+@pytest.mark.cuda
+def test_split_engines_match_one_table_on_card(card):
+    """The split postings engine's routed, two-stage, select and
+    pipelined paths on the card equal the one-table engine bitwise."""
+    rng = np.random.default_rng(53)
+    db = _postings_db(8)
+    mat, lens = _reads(rng, 256, 60, 20)
+    one = PlacementEngine(db, device=card, table="postings")
+    want = one.score(mat, lens)
+
+    class Split(PlacementEngine):
+        LIGHT_SPLIT_BYTES = one.pairs.nbytes // 4 + 64
+        MIN_SPLIT_B = 64
+
+    class Select(Split):
+        TWO_STAGE_MAX_UNIQUE = 0
+    for cls, mode in ((Split, "routed"), (Split, "two-stage"),
+                      (Select, "select"), (Split, "pipeline")):
+        eng = cls(db, device=card, table="postings")
+        if mode != "routed":
+            eng.enable_routed_windows(False)
+        if mode == "pipeline":
+            eng.enable_pipeline()
+            pend = [eng.score_async(mat, lens) for _ in range(3)]
+            got = [p.result() for p in pend][-1]
+        else:
+            got = eng.score(mat, lens)
+        assert np.array_equal(got.top_edges, want.top_edges), mode
+        assert np.array_equal(got.top_scores.view(np.uint32),
+                              want.top_scores.view(np.uint32)), mode
+        assert np.array_equal(got.n_matched, want.n_matched), mode

@@ -97,6 +97,21 @@ _BLOCKED_RUN = textwrap.dedent("""
                          "-q", str(tmp / "q.fasta"), "-w", str(tmp),
                          "--device", "cpu", "--dp", "2", "--mp", "2"]) == 0
         assert (tmp / "placements_q.fasta.jplace").stat().st_size > 0
+        # height-split tables (no CLI flag: the engine's constants), the
+        # light table routed and the direct one split, placed by the CLI
+        from rappas_tpu_torch.place.engine import PlacementEngine
+        PlacementEngine.LIGHT_SPLIT_BYTES = 4096
+        PlacementEngine.DIRECT_SPLIT_MIN = 0
+        eng = PlacementEngine(db, device="cpu", table="postings")
+        assert len(eng.light_parts) > 1 and eng._routed_windows
+        eng = PlacementEngine(db, device="cpu", table="direct")
+        assert len(eng.direct_parts) > 1 and eng.D is None
+        for table in ("postings", "direct"):
+            (tmp / "placements_q.fasta.jplace").unlink()
+            assert cli.main(["-p", "p", "-d", str(tmp / "db.rptpu"),
+                             "-q", str(tmp / "q.fasta"), "-w", str(tmp),
+                             "--device", "cpu", "--table", table]) == 0
+            assert (tmp / "placements_q.fasta.jplace").stat().st_size > 0
         # the native key probe of the postings layout's big key spaces
         from rappas_tpu_torch.native import probe_rows
         keys = np.arange(0, 4 ** 5, 3, dtype=np.int64)
@@ -113,8 +128,8 @@ _BLOCKED_RUN = textwrap.dedent("""
 
 
 def test_port_imports_and_runs_with_jax_blocked():
-    """Every module imports, and a CLI placement runs, while any import
-    of jax / jaxlib / rappas_tpu raises."""
+    """Every module imports, and CLI placements run (height-split tables
+    included), while any import of jax / jaxlib / rappas_tpu raises."""
     r = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=REPO,
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout + r.stderr
