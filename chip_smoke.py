@@ -30,8 +30,10 @@ layout, precision and height split a single device resolves to:
      f32 engine within 5e-3, and a CLI phase (``--precision u16``, 20k
      reads);
   5. compact f32 (``table="compact"``: ``D[39,322, 300]``, 47 MB, the
-     int32 keys on the card) -- an engine phase through C1
-     accumulate_compact whose placements must equal the direct engine's;
+     int32 keys on the card) -- C1 accumulate_compact at B=16384 against
+     its plain version (2 slabs: the rows resolved once by a resolve
+     pass, then summed slab by slab), and an engine phase through C1
+     whose placements must equal the direct engine's;
 * config 2, the direct table height-split (``bench.py:60-84``'s recipe
   at k=10, 5% of the k-mers present: ``D[4^10 + 1, 300]``, 1.26 GB f32
   in 13 parts of 96 MB, 629 MB u16 in 7; ``DIRECT_SPLIT_MIN`` lowered on
@@ -85,6 +87,13 @@ layout, precision and height split a single device resolves to:
   GB, the compact one ``[2,010,001, 300]`` takes 1.2 GB): C1 on the f32
   (2.4 GB) and u16 tables against its plain version, an engine phase and
   a CLI phase (``--precision u16``, 20k reads).
+
+Each row-sum kernel line (K1, K2, C1, C2, C3) also reports the row bytes it
+moved (valid windows times the slab row bytes, summed over the slabs),
+their rate in TB/s and the slab plan its wrapper launched (C1: whether
+the resolve pass ran).  Each P3/R1 line reports its slots, postings per
+read and how many reads took the warp, block and scratch paths; P3 also
+times the block path alone, every read on it, in the same run.
 
 Standard output ends with the card's name and power limit, one JSON line
 of kernel results and one JSON line ``{"ok": true, "device": ...}``.  Any
@@ -330,6 +339,31 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def row_traffic(D, name: str, n_windows: int, ms: float) -> dict:
+    """What the row-sum kernel ``name`` (K1, K2, C1, C2, C3) moved in its
+    last launch, timed at ``ms``: ``row_bytes``, the valid windows times
+    the slab row bytes summed over the slabs (each window reads its row's
+    E columns once, slab by slab), its rate ``row_tb_s`` in TB/s, and the
+    slab plan that its wrapper launched."""
+    from rappas_tpu_torch.place import kernels as K
+
+    plan = K.SLABS[name]
+    nbytes = n_windows * D.shape[1] * D.element_size()
+    return {"row_bytes": nbytes, "row_tb_s": nbytes / (ms * 1e-3) / 1e12,
+            "slabs": plan.n_slabs, "slab_cols": plan.cols,
+            "load_bytes": plan.vec * D.element_size(),
+            "reads_per_block": plan.reads_per_block,
+            "evict_last": plan.keep}
+
+
+def p3_paths(plan, counts, n_slots: int) -> dict:
+    """A P3/R1 call's read paths (warp, block, scratch) from its plan, its
+    slots and real light postings per read."""
+    return {"slots": n_slots, "postings_per_read_mean": float(counts.mean()),
+            "postings_per_read_max": int(counts.max()),
+            "paths": plan.paths(len(counts))}
+
+
 def held(got, want, exact: bool) -> bool:
     """A kernel's f32 sums against its plain version's: bitwise on a uint16
     table (sums of quantised values below 2^24 are exact in f32 in any
@@ -416,10 +450,11 @@ def kernel_phase(db, seed: int, precision: str = "f32",
     b, why = bound(packed.numel() + lens_d.numel() * 4 +
                    touched.numel() * E * item + B_KERNEL * E * 4,
                    (n_win + B_KERNEL) * E)
+    ms = cuda_ms(lambda: K.accumulate_packed(D, packed, lens_d, READ_LEN, k,
+                                             scale, acc=got))
     out["accumulate_packed" + sfx] = dict(
-        max_abs_err=err1, bound_ms=b, bound_by=why,
-        ms=cuda_ms(lambda: K.accumulate_packed(D, packed, lens_d, READ_LEN,
-                                               k, scale, acc=got)),
+        max_abs_err=err1, bound_ms=b, bound_by=why, ms=ms,
+        **row_traffic(D, "accumulate_packed" + sfx, n_win, ms),
         plain_ms=cuda_ms(lambda: K.accumulate(D, K.kmer_rows_packed(
             packed, lens_d, k, 4, D.shape[0], READ_LEN)) * scale, reps=5),
         library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
@@ -440,10 +475,11 @@ def kernel_phase(db, seed: int, precision: str = "f32",
     n_win = int((rows2 != miss).sum())
     b, why = bound(codes_d.numel() + touched.numel() * E * item +
                    B_KERNEL * E * 4, (n_win + B_KERNEL) * E)
+    ms = cuda_ms(lambda: K.accumulate_codes(D, codes_d, k, 4, scale,
+                                            acc=got))
     out["accumulate_codes" + sfx] = dict(
-        max_abs_err=err2, bound_ms=b, bound_by=why,
-        ms=cuda_ms(lambda: K.accumulate_codes(D, codes_d, k, 4, scale,
-                                              acc=got)),
+        max_abs_err=err2, bound_ms=b, bound_by=why, ms=ms,
+        **row_traffic(D, "accumulate_codes" + sfx, n_win, ms),
         plain_ms=cuda_ms(lambda: K.accumulate(D, K.kmer_rows(
             codes_d, k, 4, D.shape[0])) * scale, reps=5),
         library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
@@ -530,10 +566,12 @@ def finalize_phase(acc_pure, lens_d, thr_t, k: int) -> dict:
 
 
 def compact_kernel_phase(eng, seed: int, ref=None, length: int = READ_LEN,
-                         letters: bytes = b"ACGT") -> dict:
+                         letters: bytes = b"ACGT", tag: str = "") -> dict:
     """C1 (keys on the card) or C2 (rows from the host search) on the
     compact table of the card engine ``eng`` at B=16384, half of the
-    reads sampled from ``ref``, against its plain version."""
+    reads sampled from ``ref``, against its plain version; its line is
+    named after the kernel, then ``tag``.  C1 reports whether its resolve
+    pass ran (a launch of more than one slab)."""
     import numpy as np
     import torch
 
@@ -590,7 +628,8 @@ def compact_kernel_phase(eng, seed: int, ref=None, length: int = READ_LEN,
         def library():
             return torch.nn.functional.embedding_bag(rows_long, D32,
                                                      mode="sum")
-    name += "_u16" if u16 else ""
+    launched = name + ("_u16" if u16 else "")
+    name = launched + tag
     got, want = run(), plain()
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -600,10 +639,14 @@ def compact_kernel_phase(eng, seed: int, ref=None, length: int = READ_LEN,
     hit = rows[rows != n]
     b, why = bound(in_bytes + torch.unique(hit).numel() * E * item +
                    B_KERNEL * E * 4, probes + (hit.numel() + B_KERNEL) * E)
+    ms = cuda_ms(run)
+    traffic = row_traffic(D, launched, hit.numel(), ms)
+    if keys is not None:
+        traffic["resolve_pass"] = traffic["slabs"] > 1
     return {name: dict(
         max_abs_err=err, bound_ms=b, bound_by=why, hit_windows=hit.numel(),
         distinct_rows=torch.unique(hit).numel(), table_bytes=D.nbytes,
-        ms=cuda_ms(run), plain_ms=cuda_ms(plain, reps=5),
+        ms=ms, **traffic, plain_ms=cuda_ms(plain, reps=5),
         library_ms=cuda_ms(library, reps=5))}
 
 
@@ -707,9 +750,11 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
                        wide=eng.wide)
     ref = unpack_wire(want.cpu().numpy(), Kk, eng.wide)
     counts = eng._light_counts[host["lrows"]].sum(axis=1)
+    block_plan = K.postings_plan(counts, warp_pairs=0).to(dev)
     errs = []
-    for name, pl in (("plan", plan),
-                     ("global scratch", K.postings_plan(counts, 0).to(dev))):
+    for name, pl in (("plan", plan), ("block path", block_plan),
+                     ("global scratch",
+                      K.postings_plan(counts, 0, 0).to(dev))):
         got = K.finalize_postings_wire(*args, eng.thr, eng.k, K_KEEP, pl)
         torch.cuda.synchronize()
         res = unpack_wire(got.cpu().numpy(), Kk, eng.wide)
@@ -729,10 +774,12 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
     out["finalize_postings_wire"] = dict(
         max_abs_err=max(errs), bound_ms=b, bound_by=why,
         window_columns=int(host["lrows"].shape[1]),
-        postings_per_read_mean=float(counts.mean()),
-        postings_per_read_max=int(counts.max()), smem_pairs=plan.smem_pairs,
+        **p3_paths(plan, counts, n_slots), smem_pairs=plan.smem_pairs,
         ms=cuda_ms(lambda: K.finalize_postings_wire(
             *args, eng.thr, eng.k, K_KEEP, plan)),
+        # every read on the block path (the earlier design), this run
+        block_path_ms=cuda_ms(lambda: K.finalize_postings_wire(
+            *args, eng.thr, eng.k, K_KEEP, block_plan)),
         plain_ms=cuda_ms(lambda: K.pack_wire(*K.finalize_postings(
             *args, thr_t, eng.k, K_KEEP), wide=eng.wide), reps=5),
         library_ms=None)
@@ -846,7 +893,8 @@ def sharded_postings_kernel_phase(sp, eng, seed: int, ref) -> dict:
                        n_slots * E)
         out["finalize_postings_wire_offset"] = dict(
             max_abs_err=err3, bound_ms=b, bound_by=why, edge_offset=off,
-            shard_width=E, reads=Bl, ms=cuda_ms(p3),
+            shard_width=E, reads=Bl, **p3_paths(plan, counts, n_slots),
+            ms=cuda_ms(p3),
             plain_ms=cuda_ms(p3_plain, reps=5), library_ms=None)
 
     # M1 over the two shards' wires ------------------------------------ #
@@ -987,6 +1035,7 @@ def split_postings_kernel_phase(eng, one, seed: int, ref,
                               [fin].max()) if fin.any() else 0.0,
             wire_equals_one_table_p3=True, bound_ms=b, bound_by=why,
             parts=len(tables), window_columns=int(n_rows // B_POSTINGS),
+            **p3_paths(plan, counts, n_slots),
             ms=cuda_ms(run), plain_ms=cuda_ms(plain, reps=5),
             library_ms=None)
 
@@ -1166,11 +1215,12 @@ def kmer_sharded_phase(db, mesh, seed: int, ref, n_batches: int = 10,
     check(hit.numel() > 0, "C3: no window hit shard 1")
     b, why = bound(rows.numel() * 4 + torch.unique(hit).numel() * E * 4 +
                    Bl * E * 4, (hit.numel() + Bl) * E)
+    ms = cuda_ms(lambda: K.accumulate_rows_range(D, rows, per, per))
     kern = {"accumulate_rows_range": dict(
         max_abs_err=err, bound_ms=b, bound_by=why, reads=Bl,
         hit_windows=hit.numel(), distinct_rows=torch.unique(hit).numel(),
-        shard_bytes=D.nbytes,
-        ms=cuda_ms(lambda: K.accumulate_rows_range(D, rows, per, per)),
+        shard_bytes=D.nbytes, ms=ms,
+        **row_traffic(D, "accumulate_rows_range", hit.numel(), ms),
         plain_ms=cuda_ms(lambda: K.accumulate_range(D, rows, per, per),
                          reps=5),
         library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
@@ -1618,6 +1668,8 @@ SOURCES = {
                            "config1_u16", "cli"),
     "accumulate_compact": ("accumulate.cu", _E + "278,300,195",
                            "config1_compact", "engine"),
+    "accumulate_compact_config1": ("accumulate.cu", _E + "278,300,195",
+                                   "config1_compact", "engine"),
     "accumulate_compact_u16": ("accumulate.cu", _E + "278,300,195",
                                "config6", "cli"),
     "accumulate_rows": ("accumulate.cu", _E + "195", "config4_compact",
@@ -1650,7 +1702,8 @@ SOURCES = {
                                  "config2_split_u16", "engine"),
 }
 #: kernel-line rows of an instance counted under its kernel's name
-LAUNCH_KEY = {"ambiguous_postings_offset": "ambiguous_postings",
+LAUNCH_KEY = {"accumulate_compact_config1": "accumulate_compact",
+              "ambiguous_postings_offset": "ambiguous_postings",
               "finalize_postings_wire_offset": "finalize_postings_wire"}
 PROTEIN = b"ARNDCQEGHILKMFPSTWYV"
 #: reads of the u16 CLI phases (configs 1 and 6) and of the config-1
@@ -1772,6 +1825,14 @@ def main() -> int:
                        precision="u16")
         show("config1 u16 cli", cl)
         results["config1_u16"] = {"engine": eng, "cli": cl}
+        ceng = PlacementEngine(db, device="cuda", table="compact")
+        ck = compact_kernel_phase(ceng, args.seed, tag="_config1")
+        del ceng
+        check(ck["accumulate_compact_config1"]["resolve_pass"],
+              "config 1 compact: C1 launched one slab, no resolve pass")
+        for name, r in ck.items():
+            show(f"kernel {name}", r)
+        kern.update(ck)
         eng = engine_phase(db, args.seed, COMPACT,
                            engine_kw={"table": "compact"},
                            against=({}, 2e-4))
@@ -2025,7 +2086,10 @@ def main() -> int:
             "engine_launches": results[cfg]["engine"]["launches"][key],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            **{key: r[key] for key in ("row_tb_s", "slabs", "evict_last",
+                                       "resolve_pass", "paths")
+               if key in r}})
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json_out).write_text(json.dumps(results, indent=1))

@@ -119,24 +119,27 @@ def lib() -> ctypes.CDLL:
                             ctypes.c_float)
             sigs = {
                 "rp_accumulate_packed": [p, i, i, i, p, i64, p, i, i, i, f,
-                                         p, p, p],
+                                         p, p, i, i, i, i, i, p],
                 "rp_accumulate_codes": [p, i, i, i, p, i, i, i, i, f, p, p,
-                                        p],
+                                        i, i, i, i, i, p],
                 "rp_accumulate_compact": [p, i, i, p, i, p, i, i, i, i, f,
-                                          p, p],
-                "rp_accumulate_rows": [p, i, i, i, p, i, i, f, p, p],
-                "rp_accumulate_rows_range": [p, i, p, i, i, i, i, p, p],
+                                          p, p, i, i, i, i, i, p],
+                "rp_accumulate_rows": [p, i, i, i, p, i, i, f, p, i, i, i,
+                                       i, i, p],
+                "rp_accumulate_rows_range": [p, i, p, i, i, i, i, p, i, i, i,
+                                             i, i, p],
                 "rp_finalize_wire": [p, i, i, p, f, i, i, i, i, p, p],
                 "rp_ambiguous_pass": [p, i, i, f, p, p, p, p, p, i, p, p],
                 "rp_dense_side": [p, i, p, p, i, p, p],
                 "rp_ambiguous_postings": [p, i, p, i, p, p, p, p, p, p, i,
                                           i, p, p],
                 "rp_finalize_postings": [p, i, i, p, i, i, p, i, p, p, f, i,
-                                         i, i, p, p, p, i, i, i, p, p],
+                                         i, i, i, p, p, p, p, i, i, i, i, p,
+                                         p],
                 "rp_merge_candidates": [p, i, i, i, i, i, i, i, p, p],
                 "rp_finalize_postings_split": [i, p, i, i, i, p, i, i, p, i,
-                                               p, p, f, i, i, i, p, p, p, i,
-                                               i, i, p, p],
+                                               p, p, f, i, i, i, i, p, p, p,
+                                               p, i, i, i, i, p, p],
                 "rp_gather_compact": [p, i, i, p, p, i, p, p],
                 "rp_routed_accumulate": [p, i, i, i, p, i, i, f, p, p],
                 "rp_ambiguous_pass_split": [p, i, i, i, f, p, p, p, p, p, i,

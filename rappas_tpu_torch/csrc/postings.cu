@@ -50,18 +50,49 @@
 // one ulp of the running total (:732-737); the direct sums here are at
 // least as exact, so the two agree within that bound.
 //
-// What bounds it on an H100: bytes (the gathered light rows, each read
-// once, and the dense rows of the reads that have a slot).  The sort and
-// the K arg-max rounds are a few dozen block barriers per read.
+// What bounds it on an H100: barriers and scans, not bytes.  The bytes
+// (the gathered light rows, each read once, and the dense rows of the
+// reads that have a slot) take about 0.03 ms for 8,192 config-5 reads
+// (about 308 real postings each, at most 663).  A design of one 256-thread
+// block per read pays per read a shared atomic per posting, a bitonic sort
+// with a block barrier per stage (45 stages at 512 keys), K rounds of a
+// block-wide arg-max (2 barriers each) and K + 1 scans of the 7,999-column
+// dense row: each slot row read 8 times, about 1 GB per batch.
 //
-// Design: one block of 256 threads per read.  The sort region lives in
-// dynamic shared memory, sized per launch for the largest read the host's
-// plan keeps there; a read whose postings exceed one block's shared memory
-// gets a region of a global scratch buffer instead (scratch_off[b] ..
-// scratch_off[b + 1]) and runs the same code there.  Gather positions come
-// from a shared atomic counter: the sort by full key makes the result
-// independent of that order.  A read with more postings than its region
-// writes |L| = -1, which the host decode rejects.
+// Design: a warp per read for the reads the host's plan keeps on chip
+// (kernels.postings_plan: at most WARP_PAIRS = kWarpMaxPairs postings),
+// blocks of one or two warps, each with its own shared-memory region (so
+// no warp waits long for a slower read of its block):
+//   * the gather walks the read's row slots, a lane per light row (16-byte
+//     loads of its P edge ids and P deltas where aligned), and compacts
+//     the real postings with a warp prefix sum of the lanes' counts: no
+//     shared atomic;
+//   * the same canonical sort of the 64-bit (edge, delta bits) keys, the
+//     block design's bitonic network with no block barrier: strides below
+//     32 in registers through warp shuffles (sizes 2 .. 32 in one pass
+//     over the keys, then one pass per larger size), strides of 32 and
+//     more in shared memory, __syncwarp between stages -- a third of the
+//     shared-memory passes of the block design's sort;
+//   * each edge's segment is summed directly from its start, in ascending
+//     order (the bits of the block design);
+//   * top-K in one pass each: every lane keeps its best kLaneTop light
+//     totals (and then its best dense values) in registers, and K rounds
+//     of a shuffle-only arg-max over the lane heads, ordered (score desc,
+//     edge asc) as before() orders them, take the picks; the dense slot
+//     row is read once, 16 bytes a load, its count of entries > 0 taken in
+//     the same pass.  K beyond kLaneTop takes K scanning rounds instead
+//     (the picks are the same);
+//   * the merge, |L| and the wire are the block design's (write_wire).
+// A read with more postings than its region writes |L| = -1 there.  The
+// reads past WARP_PAIRS keep the block design below, in a second launch
+// over the plan's list of them (block_reads), after the warp launch: the
+// sort region lives in dynamic shared memory, sized per launch for the
+// largest such read, or, for a read whose postings exceed one block's
+// shared memory, in its region of a global scratch buffer (scratch_off[b]
+// .. scratch_off[b + 1]); gather positions come from a shared atomic
+// counter, which the sort by full key makes irrelevant.  The warp launch
+// writes |L| = -1 for those reads and the block launch overwrites it, so
+// a read that the plan misplaced stays rejected by the host decode.
 //
 // R1: P3 with another row source for step 1 (as K4 and P2 share one
 // template in ambiguous.cu), on a light table height-split into parts
@@ -101,6 +132,14 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kPadEdge = 0x7fffffffu;  // db.LIGHT_PAD_EDGE
 constexpr uint64_t kEmpty = ~0ull;          // sort padding, past any key
 
+// the warp path: the largest region a read may take (kernels.WARP_PAIRS),
+// reads (warps) per block at most, an SM's shared memory, and the
+// candidates a lane keeps in registers
+constexpr int kWarpMaxPairs = 1024;
+constexpr int kMaxWarpReads = 2;
+constexpr size_t kSmemPerSM = 228 * 1024;
+constexpr int kLaneTop = 8;
+
 __global__ void __launch_bounds__(kThreads)
 dense_side_kernel(const float* __restrict__ H, int E,
                   const int32_t* __restrict__ hrows,
@@ -123,8 +162,8 @@ __device__ __forceinline__ bool before(float v, int i, float bv, int bi) {
   return v > bv || (v == bv && i < bi);
 }
 
-// block-wide best (v, i); every thread returns the same pair
-__device__ void block_best(float& v, int& i, float* red_v, int* red_i) {
+// warp-wide best (v, i); every lane returns the same pair
+__device__ __forceinline__ void warp_best(float& v, int& i) {
   for (int off = 16; off; off >>= 1) {
     const float ov = __shfl_xor_sync(kFull, v, off);
     const int oi = __shfl_xor_sync(kFull, i, off);
@@ -133,6 +172,11 @@ __device__ void block_best(float& v, int& i, float* red_v, int* red_i) {
       i = oi;
     }
   }
+}
+
+// block-wide best (v, i); every thread returns the same pair
+__device__ void block_best(float& v, int& i, float* red_v, int* red_i) {
+  warp_best(v, i);
   __syncthreads();  // the previous call's readers are done
   if ((threadIdx.x & 31) == 0) {
     red_v[threadIdx.x >> 5] = v;
@@ -201,6 +245,43 @@ struct RoutedRows {
   }
 };
 
+// 7, 9, 10: merge the n_l light picks cand_v/e[0 ..) and the n_d dense
+// picks cand_v/e[K ..), score and write read b's wire (one thread: 2K
+// entries); 8: |L| = n_matched
+__device__ void write_wire(int32_t* w, const float* cand_v, const int* cand_e,
+                           int n_l, int n_d, int K, float qthr, int wide,
+                           int wire_w, int n_matched) {
+  uint16_t* ew = reinterpret_cast<uint16_t*>(w + K);
+  int il = 0;
+  int id = 0;
+  for (int j = 0; j < K; ++j) {
+    for (; id < n_d; ++id) {  // skip dense picks that are light picks
+      bool dup = false;
+      for (int x = 0; x < n_l; ++x) dup |= cand_e[x] == cand_e[K + id];
+      if (!dup) break;
+    }
+    float v = -INFINITY;
+    int e = -1;
+    if (il < n_l && (id >= n_d || cand_v[il] >= cand_v[K + id])) {
+      v = cand_v[il];
+      e = cand_e[il++];
+    } else if (id < n_d) {
+      v = cand_v[K + id];
+      e = cand_e[K + id++];
+    }
+    const bool ok = e >= 0;
+    w[j] = __float_as_int(ok ? __fadd_rn(qthr, v) : -INFINITY);
+    if (wide)
+      w[K + j] = ok ? e : -1;
+    else
+      ew[j] = ok ? static_cast<uint16_t>(e) : 0xffff;
+  }
+  if (!wide && (K & 1)) ew[K] = 0xffff;
+  w[wire_w - 1] = n_matched;
+}
+
+// the block path: one block per read of the list `reads` (null: read
+// blockIdx.x)
 template <class Rows>
 __global__ void __launch_bounds__(kThreads)
 finalize_postings_kernel(Rows rows, int P,
@@ -210,13 +291,14 @@ finalize_postings_kernel(Rows rows, int P,
                          int k, int K, int cap,
                          const int64_t* __restrict__ scratch_off,
                          uint64_t* __restrict__ scratch_keys,
-                         float* __restrict__ scratch_tot, int wire_w,
+                         float* __restrict__ scratch_tot,
+                         const int32_t* __restrict__ reads, int wire_w,
                          int wide, int offset, int32_t* __restrict__ wire) {
   extern __shared__ uint64_t smem[];
   __shared__ float red_v[kWarps];
   __shared__ int red_i[kWarps];
   __shared__ int s_n;
-  const int b = blockIdx.x;
+  const int b = reads != nullptr ? reads[blockIdx.x] : blockIdx.x;
   const int tid = threadIdx.x;
   int32_t* w = wire + static_cast<int64_t>(b) * wire_w;
 
@@ -364,38 +446,448 @@ finalize_postings_kernel(Rows rows, int P,
   }
   __syncthreads();
 
-  // 7, 9, 10. merge, score and write the wire (one thread: 2K entries)
-  if (tid == 0) {
-    const float qthr =
-        __fmul_rn(static_cast<float>(lengths[b] - (k - 1)), thr);
-    uint16_t* ew = reinterpret_cast<uint16_t*>(w + K);
-    int il = 0;
-    int id = 0;
-    for (int j = 0; j < K; ++j) {
-      for (; id < n_d; ++id) {  // skip dense picks that are light picks
-        bool dup = false;
-        for (int x = 0; x < n_l; ++x) dup |= cand_e[x] == cand_e[K + id];
-        if (!dup) break;
-      }
-      float v = -INFINITY;
-      int e = -1;
-      if (il < n_l && (id >= n_d || cand_v[il] >= cand_v[K + id])) {
-        v = cand_v[il];
-        e = cand_e[il++];
-      } else if (id < n_d) {
-        v = cand_v[K + id];
-        e = cand_e[K + id++];
-      }
-      const bool ok = e >= 0;
-      w[j] = __float_as_int(ok ? __fadd_rn(qthr, v) : -INFINITY);
-      if (wide)
-        w[K + j] = ok ? e : -1;
-      else
-        ew[j] = ok ? static_cast<uint16_t>(e) : 0xffff;
+  // 7-10. merge, score and write the wire (one thread: 2K entries)
+  if (tid == 0)
+    write_wire(w, cand_v, cand_e, n_l, n_d, K,
+               __fmul_rn(static_cast<float>(lengths[b] - (k - 1)), thr),
+               wide, wire_w, n_dense + n_light_only);
+}
+
+// ---- the warp path ------------------------------------------------------ //
+
+// A lane's best kLaneTop candidates, best first in (score desc, edge asc);
+// empty entries hold (-inf, INT_MAX).
+struct LaneTop {
+  float v[kLaneTop];
+  int e[kLaneTop];
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int j = 0; j < kLaneTop; ++j) {
+      v[j] = -INFINITY;
+      e[j] = 0x7fffffff;
     }
-    if (!wide && (K & 1)) ew[K] = 0xffff;
-    w[wire_w - 1] = n_dense + n_light_only;  // 8.
   }
+  __device__ __forceinline__ void insert(float x, int i) {
+    if (!before(x, i, v[kLaneTop - 1], e[kLaneTop - 1])) return;
+    bool done = false;
+#pragma unroll
+    for (int j = kLaneTop - 1; j > 0; --j) {
+      if (!done) {
+        if (before(x, i, v[j - 1], e[j - 1])) {
+          v[j] = v[j - 1];
+          e[j] = e[j - 1];
+        } else {
+          v[j] = x;
+          e[j] = i;
+          done = true;
+        }
+      }
+    }
+    if (!done) {
+      v[0] = x;
+      e[0] = i;
+    }
+  }
+  __device__ __forceinline__ void pop() {
+#pragma unroll
+    for (int j = 0; j + 1 < kLaneTop; ++j) {
+      v[j] = v[j + 1];
+      e[j] = e[j + 1];
+    }
+    v[kLaneTop - 1] = -INFINITY;
+    e[kLaneTop - 1] = 0x7fffffff;
+  }
+};
+
+// K rounds of a shuffle-only arg-max over the lane heads (K <= kLaneTop:
+// the warp's best K are among the lanes' lists); lane 0 writes pick j as
+// (cv[j], ce[j] + add).  Returns the number of picks.
+__device__ int warp_take(LaneTop& top, int K, float* cv, int* ce, int add,
+                         int lane) {
+  int n = 0;
+  for (int j = 0; j < K; ++j) {
+    float bv = top.v[0];
+    int be = top.e[0];
+    warp_best(bv, be);
+    if (!(bv > -INFINITY)) break;  // uniform: every lane has bv
+    if (top.e[0] == be) top.pop();  // the one lane that held it
+    if (lane == 0) {
+      cv[n] = bv;
+      ce[n] = be + add;
+    }
+    ++n;
+  }
+  return n;
+}
+
+// K scanning rounds (K > kLaneTop): round j takes the best strictly after
+// pick j-1 among vals[i] (i < n) whose id is id_of(i); `keep(v)` says which
+// values are candidates.  Lane 0 writes the picks as warp_take does.
+template <class Val, class Id, class Keep>
+__device__ int warp_scan_take(int n, Val val, Id id_of, Keep keep, int K,
+                              float* cv, int* ce, int add, int lane) {
+  int m = 0;
+  float pv = INFINITY;
+  int pe = -1;
+  for (int j = 0; j < K; ++j) {
+    float bv = -INFINITY;
+    int be = 0x7fffffff;
+    for (int i = lane; i < n; i += 32) {
+      const float v = val(i);
+      if (!keep(v)) continue;
+      const int e = id_of(i);
+      if (before(pv, pe, v, e) && before(v, e, bv, be)) {
+        bv = v;
+        be = e;
+      }
+    }
+    warp_best(bv, be);
+    if (!(bv > -INFINITY)) break;
+    if (lane == 0) {
+      cv[m] = bv;
+      ce[m] = be + add;
+    }
+    ++m;
+    pv = bv;
+    pe = be;
+  }
+  return m;
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// real postings among four edge ids
+__device__ __forceinline__ int real4(int4 e) {
+  return (static_cast<uint32_t>(e.x) != kPadEdge) +
+         (static_cast<uint32_t>(e.y) != kPadEdge) +
+         (static_cast<uint32_t>(e.z) != kPadEdge) +
+         (static_cast<uint32_t>(e.w) != kPadEdge);
+}
+
+// real postings of one light row of 2P words
+__device__ int count_real(const int32_t* row, int P) {
+  int c = 0;
+  if ((P & 3) == 0 && aligned16(row)) {
+    for (int j = 0; j < P; j += 4)
+      c += real4(__ldg(reinterpret_cast<const int4*>(row + j)));
+  } else {
+    for (int j = 0; j < P; ++j)
+      c += static_cast<uint32_t>(__ldg(row + j)) != kPadEdge;
+  }
+  return c;
+}
+
+__device__ __forceinline__ void put_key(uint64_t*& out, int e, int d) {
+  if (static_cast<uint32_t>(e) != kPadEdge)
+    *out++ = (static_cast<uint64_t>(static_cast<uint32_t>(e)) << 32) |
+             static_cast<uint32_t>(d);
+}
+
+// the real postings of one light row as sort keys at out, in row order
+__device__ void write_real(const int32_t* row, int P, uint64_t* out) {
+  if ((P & 3) == 0 && aligned16(row)) {
+    for (int j = 0; j < P; j += 4) {
+      const int4 e = __ldg(reinterpret_cast<const int4*>(row + j));
+      const int4 d = __ldg(reinterpret_cast<const int4*>(row + P + j));
+      put_key(out, e.x, d.x);
+      put_key(out, e.y, d.y);
+      put_key(out, e.z, d.z);
+      put_key(out, e.w, d.w);
+    }
+  } else {
+    for (int j = 0; j < P; ++j)
+      put_key(out, __ldg(row + j), __ldg(row + P + j));
+  }
+}
+
+// one compare-exchange of the bitonic network on key i (held by `lane`)
+// and key i ^ stride (held by lane ^ stride): the lower index keeps the
+// smaller key where its size-block ascends
+__device__ __forceinline__ uint64_t exchange(uint64_t v, int i, int size,
+                                             int stride, int lane) {
+  const uint64_t o = __shfl_xor_sync(kFull, v, stride);
+  const bool keep_min = ((lane & stride) == 0) == ((i & size) == 0);
+  return (v < o) == keep_min ? v : o;
+}
+
+// ascending bitonic sort of keys[0 .. n), n <= cap, in a warp: the block
+// design's network, so the same sorted array.  Strides below 32 run in
+// registers, a key per lane at a time through warp shuffles (all of sizes
+// 2 .. 32 in one pass, then one pass per larger size); strides of 32 and
+// more compare-exchange in shared memory, neighbouring lanes on
+// neighbouring keys.  n <= 32 never leaves the registers.
+__device__ void warp_sort(uint64_t* keys, int n, int lane) {
+  if (n <= 32) {
+    uint64_t v = lane < n ? keys[lane] : kEmpty;
+#pragma unroll
+    for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+      for (int stride = size >> 1; stride > 0; stride >>= 1)
+        v = exchange(v, lane, size, stride, lane);
+    __syncwarp();
+    if (lane < n) keys[lane] = v;
+    return;
+  }
+  int n_sort = 64;
+  while (n_sort < n) n_sort <<= 1;
+  for (int i = n + lane; i < n_sort; i += 32) keys[i] = kEmpty;
+  __syncwarp();
+#pragma unroll 2
+  for (int i = lane; i < n_sort; i += 32) {  // sizes 2 .. 32
+    uint64_t v = keys[i];
+#pragma unroll
+    for (int size = 2; size <= 32; size <<= 1)
+#pragma unroll
+      for (int stride = size >> 1; stride > 0; stride >>= 1)
+        v = exchange(v, i, size, stride, lane);
+    keys[i] = v;
+  }
+  __syncwarp();
+  for (int size = 64; size <= n_sort; size <<= 1) {
+    for (int stride = size >> 1; stride >= 32; stride >>= 1) {
+#pragma unroll 2
+      for (int t = lane; t < n_sort / 2; t += 32) {
+        const int lo = 2 * t - (t & (stride - 1));
+        const int hi = lo + stride;
+        const uint64_t a = keys[lo];
+        const uint64_t c = keys[hi];
+        if ((a > c) == ((lo & size) == 0)) {
+          keys[lo] = c;
+          keys[hi] = a;
+        }
+      }
+      __syncwarp();
+    }
+#pragma unroll 2
+    for (int i = lane; i < n_sort; i += 32) {  // strides 16 .. 1
+      uint64_t v = keys[i];
+#pragma unroll
+      for (int stride = 16; stride > 0; stride >>= 1)
+        v = exchange(v, i, size, stride, lane);
+      keys[i] = v;
+    }
+    __syncwarp();
+  }
+}
+
+// read b on the warp path, in the warp's region `mine`: keys[cap],
+// tot[cap] (only for K past kLaneTop) and the 2K candidates
+template <class Rows>
+__device__ void warp_score_read(const Rows& rows, int b, char* mine, int P,
+                                const float* __restrict__ acc_c, int E,
+                                const int32_t* __restrict__ slot_of,
+                                const int32_t* __restrict__ lengths,
+                                float thr, int k, int K, int cap,
+                                int wire_w, int wide, int offset,
+                                int32_t* __restrict__ wire, int lane) {
+  int32_t* w = wire + static_cast<int64_t>(b) * wire_w;
+  const bool in_regs = K <= kLaneTop;
+  uint64_t* keys = reinterpret_cast<uint64_t*>(mine);
+  float* tot = reinterpret_cast<float*>(keys + cap);
+  float* cand_v = in_regs ? tot : tot + cap;  // [2K]: light, dense picks
+  int* cand_e = reinterpret_cast<int*>(cand_v + 2 * K);
+
+  // 1. gather: a lane per row slot, placed by a prefix sum of the counts;
+  // the next 32 slots' rows are looked up while these load
+  const int W = rows.width();
+  int n = 0;
+  const int32_t* row = lane < W ? rows.row(b, lane) : nullptr;
+  for (int s0 = 0; s0 < W; s0 += 32) {
+    const int32_t* next =
+        s0 + 32 + lane < W ? rows.row(b, s0 + 32 + lane) : nullptr;
+    const bool eight = P == 8 && aligned16(row);
+    int4 q[4];  // a P = 8 row: edge ids 0-3, 4-7, deltas 0-3, 4-7
+    int c = 0;
+    if (row != nullptr && eight) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        q[j] = __ldg(reinterpret_cast<const int4*>(row) + j);
+      c = real4(q[0]) + real4(q[1]);
+    } else if (row != nullptr) {
+      c = count_real(row, P);
+    }
+    int incl = c;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += y;
+    }
+    if (row != nullptr && n + incl <= cap) {
+      uint64_t* out = keys + n + incl - c;
+      if (eight) {
+        put_key(out, q[0].x, q[2].x);
+        put_key(out, q[0].y, q[2].y);
+        put_key(out, q[0].z, q[2].z);
+        put_key(out, q[0].w, q[2].w);
+        put_key(out, q[1].x, q[3].x);
+        put_key(out, q[1].y, q[3].y);
+        put_key(out, q[1].z, q[3].z);
+        put_key(out, q[1].w, q[3].w);
+      } else {
+        write_real(row, P, out);
+      }
+    }
+    n += __shfl_sync(kFull, incl, 31);
+    row = next;
+  }
+  if (n > cap) {  // not this path's read (or the plan was wrong for it)
+    if (lane == 0) w[wire_w - 1] = -1;
+    return;
+  }
+  __syncwarp();
+
+  // 2. the canonical sort
+  if (n > 1) warp_sort(keys, n, lane);
+  __syncwarp();
+
+  // 3-5. segment sums at segment starts plus the dense value there; the
+  // light totals go to the lanes' lists (or tot[] for the scanning rounds)
+  const int slot = slot_of[b];
+  const float* arow =
+      slot >= 0 ? acc_c + static_cast<int64_t>(slot) * E : nullptr;
+  LaneTop top;
+  top.clear();
+  int n_light_only = 0;
+  for (int i0 = 0; i0 < n; i0 += 4 * 32) {  // 4 keys a lane, loads first
+    uint32_t e[4];
+    bool start[4];
+    float da[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + 32 * u + lane;
+      e[u] = i < n ? static_cast<uint32_t>(keys[i] >> 32) : kPadEdge;
+      start[u] = i < n && (i == 0 ||
+                           static_cast<uint32_t>(keys[i - 1] >> 32) != e[u]);
+      const uint32_t col = e[u] - static_cast<uint32_t>(offset);
+      da[u] = start[u] && arow != nullptr && col < static_cast<uint32_t>(E)
+                  ? __ldg(arow + col)
+                  : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + 32 * u + lane;
+      bool only = false;
+      if (start[u]) {
+        float s = 0.f;
+        for (int j = i; j < n && static_cast<uint32_t>(keys[j] >> 32) == e[u];
+             ++j)
+          s += __uint_as_float(static_cast<uint32_t>(keys[j]));
+        const float t = __fadd_rn(s, da[u]);
+        only = !(da[u] > 0.f);
+        if (in_regs) top.insert(t, static_cast<int>(e[u]));
+        else tot[i] = t;
+      } else if (!in_regs && i < n) {
+        tot[i] = -INFINITY;
+      }
+      n_light_only += __popc(__ballot_sync(kFull, only));
+    }
+  }
+  __syncwarp();
+  int n_l;
+  if (in_regs) {
+    n_l = warp_take(top, K, cand_v, cand_e, 0, lane);
+  } else {
+    n_l = warp_scan_take(
+        n, [&](int i) { return tot[i]; },
+        [&](int i) { return static_cast<int>(keys[i] >> 32); },
+        [](float v) { return v > -INFINITY; }, K, cand_v, cand_e, 0, lane);
+  }
+
+  // 6. top-K of the dense row where it is > 0, and its count: one pass
+  int n_d = 0;
+  int n_dense = 0;
+  if (arow != nullptr) {
+    if (in_regs) {
+      top.clear();
+      int cnt = 0;
+      const int head = min(
+          E, static_cast<int>(
+                 ((16 - (reinterpret_cast<uintptr_t>(arow) & 15)) & 15) >> 2));
+      for (int e = lane; e < head; e += 32) {
+        const float v = __ldg(arow + e);
+        if (v > 0.f) {
+          ++cnt;
+          top.insert(v, e);
+        }
+      }
+      const int n4 = (E - head) >> 2;
+      const float4* a4 = reinterpret_cast<const float4*>(arow + head);
+      for (int f0 = lane; f0 < n4; f0 += 8 * 32) {  // 8 loads in flight
+        float4 v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          v[u] = f0 + 32 * u < n4 ? __ldg(a4 + f0 + 32 * u)
+                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+        // the values that beat the lane's last candidate so far, as bits
+        // (load, component); they are inserted one at a time afterwards,
+        // from one call site (their loads hit L1)
+        unsigned beat = 0;
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const float c4[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+          const int e = head + 4 * (f0 + 32 * u);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            cnt += c4[j] > 0.f;
+            if (c4[j] > 0.f && before(c4[j], e + j, top.v[kLaneTop - 1],
+                                      top.e[kLaneTop - 1]))
+              beat |= 1u << (4 * u + j);
+          }
+        }
+        while (beat != 0) {
+          const int bit = __ffs(beat) - 1;
+          beat &= beat - 1;
+          const int e = head + 4 * (f0 + 32 * (bit >> 2)) + (bit & 3);
+          top.insert(__ldg(arow + e), e);
+        }
+      }
+      for (int e = head + 4 * n4 + lane; e < E; e += 32) {
+        const float v = __ldg(arow + e);
+        if (v > 0.f) {
+          ++cnt;
+          top.insert(v, e);
+        }
+      }
+      n_dense = __reduce_add_sync(kFull, cnt);
+      n_d = warp_take(top, K, cand_v + K, cand_e + K, offset, lane);
+    } else {
+      int cnt = 0;
+      for (int e = lane; e < E; e += 32) cnt += __ldg(arow + e) > 0.f;
+      n_dense = __reduce_add_sync(kFull, cnt);
+      n_d = warp_scan_take(
+          E, [&](int e) { return __ldg(arow + e); }, [](int e) { return e; },
+          [](float v) { return v > 0.f; }, K, cand_v + K, cand_e + K, offset,
+          lane);
+    }
+  }
+  __syncwarp();
+
+  // 7-10. as the block path
+  if (lane == 0)
+    write_wire(w, cand_v, cand_e, n_l, n_d, K,
+               __fmul_rn(static_cast<float>(lengths[b] - (k - 1)), thr),
+               wide, wire_w, n_dense + n_light_only);
+}
+
+// the warp path: a warp per read, read b = blockIdx.x * (warps per block)
+// + warp, in its region of `region` bytes
+template <class Rows>
+__global__ void __launch_bounds__(32 * kMaxWarpReads)
+finalize_postings_warp_kernel(Rows rows, int P,
+                              const float* __restrict__ acc_c, int E,
+                              const int32_t* __restrict__ slot_of,
+                              const int32_t* __restrict__ lengths, float thr,
+                              int k, int K, int cap, int region, int B,
+                              int wire_w, int wide, int offset,
+                              int32_t* __restrict__ wire) {
+  extern __shared__ uint64_t smem[];
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= B) return;  // whole warps: the path has no block barrier
+  warp_score_read(rows, b, reinterpret_cast<char*>(smem) + warp * region, P,
+                  acc_c, E, slot_of, lengths, thr, k, K, cap, wire_w, wide,
+                  offset, wire, threadIdx.x & 31);
 }
 
 __global__ void gather_compact_kernel(Parts parts, int w,
@@ -413,26 +905,60 @@ __global__ void gather_compact_kernel(Parts parts, int w,
   }
 }
 
-// one P3 launch of B blocks with the row source `rows`
+// one P3 call with the row source `rows`: the warp launch over all B
+// reads (warp_cap >= 0: its regions' sort slots), then the block launch
+// over the n_block reads of block_reads (cap sort slots of shared memory,
+// or their scratch regions)
 template <class Rows>
 int launch_p3(Rows rows, int P, int B, const float* acc_c, int E,
               const int32_t* slot_of, const int32_t* lengths, float thr,
-              int k, int K, int cap, const int64_t* scratch_off,
-              uint64_t* scratch_keys, float* scratch_tot, int wire_w,
-              int wide, int offset, int32_t* wire, cudaStream_t stream) {
-  // keys (8 B) and totals (4 B) per sort slot, 2K candidate (score, edge)
-  const size_t smem =
-      static_cast<size_t>(cap) * 12 + static_cast<size_t>(K) * 16;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        finalize_postings_kernel<Rows>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+              int k, int K, int warp_cap, int cap,
+              const int64_t* scratch_off, uint64_t* scratch_keys,
+              float* scratch_tot, const int32_t* block_reads, int n_block,
+              int wire_w, int wide, int offset, int32_t* wire,
+              cudaStream_t stream) {
+  if (warp_cap >= 0 && B > 0) {
+    if (warp_cap > kWarpMaxPairs)
+      return static_cast<int>(cudaErrorInvalidValue);
+    // keys (8 B) and, past kLaneTop, totals (4 B) per sort slot, 2K
+    // candidates, 16-aligned
+    const size_t region = (static_cast<size_t>(warp_cap) *
+                               (K <= kLaneTop ? 8 : 12) +
+                           static_cast<size_t>(K) * 16 + 15) / 16 * 16;
+    // blocks of one warp, or two where shared memory would let an SM hold
+    // more warps than its 32 blocks: no warp waits for a slower read of
+    // its block
+    const size_t fit = kSmemPerSM / (region > 0 ? region : 16);
+    const size_t wpb = fit > 32 ? 2 : 1;
+    const size_t smem = region * wpb;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          finalize_postings_warp_kernel<Rows>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    const int nb = static_cast<int>((B + wpb - 1) / wpb);
+    finalize_postings_warp_kernel<Rows>
+        <<<nb, static_cast<int>(32 * wpb), smem, stream>>>(
+            rows, P, acc_c, E, slot_of, lengths, thr, k, K, warp_cap,
+            static_cast<int>(region), B, wire_w, wide, offset, wire);
+    const int launched = static_cast<int>(cudaGetLastError());
+    if (launched) return launched;
   }
-  if (B > 0)
-    finalize_postings_kernel<Rows><<<B, kThreads, smem, stream>>>(
+  if (n_block > 0) {
+    // keys (8 B) and totals (4 B) per sort slot, 2K candidate (score, edge)
+    const size_t smem =
+        static_cast<size_t>(cap) * 12 + static_cast<size_t>(K) * 16;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          finalize_postings_kernel<Rows>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    finalize_postings_kernel<Rows><<<n_block, kThreads, smem, stream>>>(
         rows, P, acc_c, E, slot_of, lengths, thr, k, K, cap, scratch_off,
-        scratch_keys, scratch_tot, wire_w, wide, offset, wire);
+        scratch_keys, scratch_tot, block_reads, wire_w, wide, offset, wire);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -453,24 +979,28 @@ int rp_dense_side(const float* H, int E, const int32_t* hrows,
 
 // P3.  pairs: int32[R, 2P] (row miss all pads, skipped; -1: none); lrows:
 // int32[B, W]; acc_c: f32[n_slots, E]; slot_of: int32[B] (-1: no slot);
-// lengths: int32[B]; cap: sort slots in shared memory (a power of two);
-// scratch_off: int64[B + 1] offsets into scratch_keys/scratch_tot (an
-// empty range keeps read b in shared memory) or null; wire: int32[B,
-// wire_w], K, wire_w and wide as the caller's kernels.wire_format gives
-// them (as K3's; K at most E, wide from the global edge count); offset:
-// the global edge id of acc_c's column 0.
+// lengths: int32[B]; the plan (kernels.postings_plan): warp_cap, the sort
+// slots of a warp-path region (a power of two up to kWarpMaxPairs; -1: no
+// warp launch), cap, the shared sort slots of a block-path read (a power
+// of two), scratch_off, int64[B + 1] offsets into scratch_keys/scratch_tot
+// (an empty range keeps read b in shared memory) or null, and block_reads,
+// int32[n_block] the reads of the block path; wire: int32[B, wire_w], K,
+// wire_w and wide as the caller's kernels.wire_format gives them (as K3's;
+// K at most E, wide from the global edge count); offset: the global edge
+// id of acc_c's column 0.
 int rp_finalize_postings(const int32_t* pairs, int P, int miss,
                          const int32_t* lrows, int B, int W,
                          const float* acc_c, int E, const int32_t* slot_of,
                          const int32_t* lengths, float thr, int k, int K,
-                         int cap, const int64_t* scratch_off,
+                         int warp_cap, int cap, const int64_t* scratch_off,
                          uint64_t* scratch_keys, float* scratch_tot,
+                         const int32_t* block_reads, int n_block,
                          int wire_w, int wide, int offset, int32_t* wire,
                          cudaStream_t stream) {
   return launch_p3(OneTable{pairs, P, miss, lrows, W}, P, B, acc_c, E,
-                   slot_of, lengths, thr, k, K, cap, scratch_off,
-                   scratch_keys, scratch_tot, wire_w, wide, offset, wire,
-                   stream);
+                   slot_of, lengths, thr, k, K, warp_cap, cap, scratch_off,
+                   scratch_keys, scratch_tot, block_reads, n_block, wire_w,
+                   wide, offset, wire, stream);
 }
 
 // R1.  meta: int64[3, n] (parts.cuh) of the light parts, each int32[H_i,
@@ -481,20 +1011,22 @@ int rp_finalize_postings_split(int routed, const int64_t* meta, int n, int P,
                                int miss, const int32_t* rows, int B, int W,
                                const float* acc_c, int E,
                                const int32_t* slot_of, const int32_t* lengths,
-                               float thr, int k, int K, int cap,
+                               float thr, int k, int K, int warp_cap, int cap,
                                const int64_t* scratch_off,
                                uint64_t* scratch_keys, float* scratch_tot,
+                               const int32_t* block_reads, int n_block,
                                int wire_w, int wide, int offset,
                                int32_t* wire, cudaStream_t stream) {
   const Parts parts{meta, n};
   if (routed)
     return launch_p3(RoutedRows{parts, P, rows, B, W}, P, B, acc_c, E,
-                     slot_of, lengths, thr, k, K, cap, scratch_off,
-                     scratch_keys, scratch_tot, wire_w, wide, offset, wire,
-                     stream);
+                     slot_of, lengths, thr, k, K, warp_cap, cap, scratch_off,
+                     scratch_keys, scratch_tot, block_reads, n_block, wire_w,
+                     wide, offset, wire, stream);
   return launch_p3(PartRows{parts, P, miss, rows, W}, P, B, acc_c, E, slot_of,
-                   lengths, thr, k, K, cap, scratch_off, scratch_keys,
-                   scratch_tot, wire_w, wide, offset, wire, stream);
+                   lengths, thr, k, K, warp_cap, cap, scratch_off,
+                   scratch_keys, scratch_tot, block_reads, n_block, wire_w,
+                   wide, offset, wire, stream);
 }
 
 // G1.  meta: int64[3, n] of the light parts, rows of w = 2P int32 words;

@@ -189,8 +189,7 @@ class PostingsShardedPlacement:
                 H, pairs = sh["heavy_dense"][dev], sh["pairs"][dev]
                 with mesh.on(dev):
                     t = stage(host, dev)
-                    if "scratch_off" in t:
-                        plan = plan._replace(scratch_off=t["scratch_off"])
+                    plan = plan.staged(t)
                     acc_c = kernels.dense_side(H, t["hrows"], t["hoff"])
                     if "win_off" in t:
                         kernels.ambiguous_postings_(

@@ -462,8 +462,7 @@ def postings_batch(rof: np.ndarray, nl: int, light_counts: np.ndarray,
         lrows[bb, pos[bb, qq]] = rof[bb, qq]
     host["lrows"] = lrows
     plan = kernels.postings_plan(light_counts[lrows].sum(axis=1))
-    if plan.scratch_off is not None:
-        host["scratch_off"] = plan.scratch_off.numpy()
+    host.update((n, t.numpy()) for n, t in plan.tensors().items())
     return host, plan
 
 
@@ -1009,8 +1008,7 @@ class PlacementEngine:
         stream: P1, then P2 (A1 on a split light table) for its ambiguity
         windows.  Returns the staged inputs, ``acc_c`` and P3's plan."""
         dev = stage(host, self.device)
-        if "scratch_off" in dev:         # P3's plan, staged with the batch
-            plan = plan._replace(scratch_off=dev["scratch_off"])
+        plan = plan.staged(dev)          # P3's plan, staged with the batch
         acc_c = kernels.dense_side(self.heavy_dense, dev["hrows"],
                                    dev["hoff"])
         if "win_off" in dev:
@@ -1238,8 +1236,10 @@ class PlacementEngine:
           in window order (``nl`` pads), W the least step of JAX's ladder
           (8 .. 256, below Q - 8) that holds the batch's most hits, else
           Q;
-        * ``scratch_off`` int64[B + 1] when a read's postings do not fit
-          one block's shared memory (``kernels.postings_plan``)."""
+        * P3's plan arrays (``kernels.postings_plan``): ``block_reads``
+          int32 when a read's postings pass the warp path's region,
+          ``scratch_off`` int64[B + 1] when they pass one block's shared
+          memory."""
         rof = self._rows_from_codes(codes, lengths)
         amb = (self._expand_ambiguities_host(codes, matrix, lengths)
                if self.treat_ambiguities else None)

@@ -601,6 +601,86 @@ def _out(D, acc, dest, B):
     return acc
 
 
+# ---- the row-sum template's slabs (csrc/accumulate.cu) ----------------- #
+
+#: bytes of the table's columns that one slab of the row sum keeps in the
+#: card's L2 (50 MB on an H100, with room for the inputs and ``acc``)
+L2_SLAB_BYTES = 24 << 20
+#: a slab row narrower than this does not pay for its pass: the table then
+#: takes one slab (its touched rows cannot fit L2 at a useful width)
+MIN_SLAB_ROW_BYTES = 128
+#: threads per block of the row sum; a thread owns one chunk of one read
+SUM_THREADS = 256
+#: row ids staged in shared memory per block, at most
+SUM_STAGE_ROWS = 4096
+
+
+class SlabPlan(NamedTuple):
+    """How the row-sum kernels (K1, K2, C1, C2, C3) cut one launch:
+    ``vec`` columns per load (16 B when the row pitch and the pointers
+    allow), ``cols`` columns per slab (a multiple of ``vec``, or E),
+    ``n_slabs`` slabs (the slowest grid index), ``reads_per_block`` reads
+    per block of :data:`SUM_THREADS` threads (one chunk of ``vec``
+    columns each), ``tile`` row ids per read staged at a time, ``keep``
+    whether the table's loads take the L2 ``evict_last`` priority (only
+    when a slab of the rows the launch can touch fits
+    :data:`L2_SLAB_BYTES`: a larger table would fill the L2 with lines
+    that outrank the next kernels' data and gain no hits for it)."""
+    vec: int
+    cols: int
+    n_slabs: int
+    reads_per_block: int
+    tile: int
+    keep: bool
+
+    def args(self) -> tuple:
+        """The kernel entries' (vec, cols, rpb, tile, keep) arguments."""
+        return (self.vec, self.cols, self.reads_per_block, self.tile,
+                int(self.keep))
+
+
+def slab_plan(E: int, itemsize: int, n_rows: int, n_windows: int,
+              ptrs: tuple = ()) -> SlabPlan:
+    """The slab plan of a row sum over a table of ``n_rows`` rows of E
+    values of ``itemsize`` bytes for ``n_windows`` windows: slabs sized so
+    that the columns of the rows the batch can touch (at most
+    ``min(n_rows, n_windows)``) fit :data:`L2_SLAB_BYTES`, one slab when
+    that would make a slab row narrower than :data:`MIN_SLAB_ROW_BYTES`;
+    no slab wider than one block's threads can cover.  ``vec`` is the
+    widest load (at most 16 bytes) that divides E and whose byte width
+    divides every address in ``ptrs`` (the table's and the f32 output's:
+    the output stores ``vec`` floats)."""
+    vec = 16 // itemsize
+    while vec > 1 and (E % vec or any(p % min(16, vec * s)
+                                      for p, s in ptrs)):
+        vec //= 2
+    touched = min(n_rows, n_windows) * E * itemsize
+    n = max(1, -(-touched // L2_SLAB_BYTES))
+    fit = -(-(-(-E // n)) // vec) * vec   # the widest slab the budget holds
+    cols = E if n == 1 or fit * itemsize < MIN_SLAB_ROW_BYTES else fit
+    cols = max(1, min(cols, SUM_THREADS * vec))
+    n_slabs = -(-E // cols)
+    if n_slabs > 1:                   # even slabs, whole vectors
+        cols = -(-(-(-E // n_slabs)) // vec) * vec
+        n_slabs = -(-E // cols)
+    rpb = SUM_THREADS // -(-cols // vec)
+    tile = min(256, SUM_STAGE_ROWS // rpb - 2)
+    return SlabPlan(vec, cols, n_slabs, rpb, tile, cols <= fit)
+
+
+#: the slab plan of each row-sum kernel's last launch, by the name its
+#: launches count under
+SLABS: dict[str, SlabPlan] = {}
+
+
+def _slabs(name: str, D: torch.Tensor, acc: torch.Tensor,
+           n_windows: int) -> SlabPlan:
+    plan = SLABS[name] = slab_plan(
+        D.shape[1], D.element_size(), D.shape[0], n_windows,
+        ((D.data_ptr(), D.element_size()), (acc.data_ptr(), 4)))
+    return plan
+
+
 def accumulate_packed(D: torch.Tensor, packed: torch.Tensor,
                       lengths: torch.Tensor, length: int, k: int,
                       scale: float = 1.0, acc: torch.Tensor | None = None,
@@ -623,11 +703,14 @@ def accumulate_packed(D: torch.Tensor, packed: torch.Tensor,
     _check(acc, "acc", torch.float32, (acc.shape[0], E))
     if dest is not None:
         _check(dest, "dest", torch.int32, (B,))
+    plan = _slabs("accumulate_packed" + sfx, D, acc,
+                  B * max(length - k + 1, 0))
     from rappas_tpu_torch._kernels import lib
     _launch("accumulate_packed" + sfx, lib().rp_accumulate_packed,
             D.data_ptr(), int(bool(sfx)), E, D.shape[0] - 1,
             packed.data_ptr(), packed.stride(0), lengths.data_ptr(), B,
-            length, k, float(scale), _ptr(dest), acc.data_ptr(), _stream(D))
+            length, k, float(scale), _ptr(dest), acc.data_ptr(),
+            *plan.args(), _stream(D))
     return acc
 
 
@@ -651,11 +734,12 @@ def accumulate_codes(D: torch.Tensor, codes: torch.Tensor, k: int,
     _check(acc, "acc", torch.float32, (acc.shape[0], E))
     if dest is not None:
         _check(dest, "dest", torch.int32, (B,))
+    plan = _slabs("accumulate_codes" + sfx, D, acc, B * max(L - k + 1, 0))
     from rappas_tpu_torch._kernels import lib
     _launch("accumulate_codes" + sfx, lib().rp_accumulate_codes,
             D.data_ptr(), int(bool(sfx)), E, D.shape[0] - 1,
             codes.data_ptr(), B, L, k, n_states, float(scale), _ptr(dest),
-            acc.data_ptr(), _stream(D))
+            acc.data_ptr(), *plan.args(), _stream(D))
     return acc
 
 
@@ -680,11 +764,17 @@ def accumulate_compact(D: torch.Tensor, keys: torch.Tensor,
         raise ValueError(f"{n_states}^{k} k-mer indices do not fit int32: "
                          "search the keys on the host (accumulate_rows)")
     acc = torch.empty((B, E), dtype=torch.float32, device=D.device)
+    Q = max(L - k + 1, 0)
+    plan = _slabs("accumulate_compact" + sfx, D, acc, B * Q)
+    # more than one slab: resolve the rows once (int32 [B, Q]), so the
+    # key search does not run per slab
+    rows = (torch.empty((B, Q), dtype=torch.int32, device=D.device)
+            if plan.n_slabs > 1 else None)
     from rappas_tpu_torch._kernels import lib
     _launch("accumulate_compact" + sfx, lib().rp_accumulate_compact,
             D.data_ptr(), int(bool(sfx)), E, keys.data_ptr(), n,
             codes.data_ptr(), B, L, k, n_states, float(scale),
-            acc.data_ptr(), _stream(D))
+            acc.data_ptr(), _ptr(rows), *plan.args(), _stream(D))
     return acc
 
 
@@ -700,10 +790,12 @@ def accumulate_rows(D: torch.Tensor, rows: torch.Tensor,
     sfx = _table_type(D)
     _check(rows, "rows", torch.int32, (B, Q))
     acc = torch.empty((B, E), dtype=torch.float32, device=D.device)
+    plan = _slabs("accumulate_rows" + sfx, D, acc, B * Q)
     from rappas_tpu_torch._kernels import lib
     _launch("accumulate_rows" + sfx, lib().rp_accumulate_rows,
             D.data_ptr(), int(bool(sfx)), E, D.shape[0] - 1,
-            rows.data_ptr(), B, Q, float(scale), acc.data_ptr(), _stream(D))
+            rows.data_ptr(), B, Q, float(scale), acc.data_ptr(),
+            *plan.args(), _stream(D))
     return acc
 
 
@@ -721,10 +813,11 @@ def accumulate_rows_range(D: torch.Tensor, rows: torch.Tensor, lo: int,
     _check(D, "D", torch.float32, (per + 1, E))
     _check(rows, "rows", torch.int32, (B, Q))
     acc = torch.empty((B, E), dtype=torch.float32, device=D.device)
+    plan = _slabs("accumulate_rows_range", D, acc, B * Q)
     from rappas_tpu_torch._kernels import lib
     _launch("accumulate_rows_range", lib().rp_accumulate_rows_range,
             D.data_ptr(), E, rows.data_ptr(), B, Q, int(lo), int(per),
-            acc.data_ptr(), _stream(D))
+            acc.data_ptr(), *plan.args(), _stream(D))
     return acc
 
 
@@ -907,22 +1000,52 @@ def ambiguous_pass_split_(acc: torch.Tensor, parts: Parts, scale: float,
 #: most: 12 bytes each (the 64-bit key and the f32 total), under the 227
 #: KB a block can take with room for the candidate lists
 SMEM_PAIRS = 16384
+#: sort slots per read that P3's warp path takes at most (a power of two:
+#: csrc/postings.cu's kWarpMaxPairs); reads with more postings take the
+#: block path
+WARP_PAIRS = 1024
 
 
 class PostingsPlan(NamedTuple):
-    """Where P3 sorts each read's light postings: ``smem_pairs`` sort
-    slots of shared memory per block, and for the reads that do not fit,
-    ``scratch_off`` int64[B + 1] offsets of their regions in a global
-    scratch of ``n_scratch`` slots (an empty range: shared memory; None:
-    every read in shared memory).  ``scratch_off`` lies where P3 runs."""
+    """Where P3 scores each read: the warp path (a warp per read, its sort
+    region ``warp_pairs`` slots of shared memory; -1: no read takes it),
+    or the block path for the reads ``block_reads`` (int32, or None: none)
+    -- in ``smem_pairs`` slots of one block's shared memory, or, for the
+    reads that do not fit, in their regions of a global scratch of
+    ``n_scratch`` slots at ``scratch_off`` int64[B + 1] (an empty range:
+    shared memory; None: no read in the scratch).  The tensors lie where
+    P3 runs."""
+    warp_pairs: int
     smem_pairs: int
     scratch_off: torch.Tensor | None
     n_scratch: int
+    block_reads: torch.Tensor | None
+
+    #: the plan's tensors, by the names under which the engine stages them
+    ARRAYS = ("scratch_off", "block_reads")
+
+    def tensors(self) -> dict:
+        """The plan's tensors that are present, by name."""
+        return {n: getattr(self, n) for n in self.ARRAYS
+                if getattr(self, n) is not None}
 
     def to(self, device) -> "PostingsPlan":
-        if self.scratch_off is None:
-            return self
-        return self._replace(scratch_off=self.scratch_off.to(device))
+        moved = {n: t.to(device) for n, t in self.tensors().items()}
+        return self._replace(**moved) if moved else self
+
+    def staged(self, dev: dict) -> "PostingsPlan":
+        """The plan with its tensors taken from ``dev``, a batch's staged
+        arrays (:func:`rappas_tpu_torch.place.engine.stage`)."""
+        return self._replace(**{n: dev[n] for n in self.ARRAYS if n in dev})
+
+    def paths(self, B: int) -> dict:
+        """Reads per path of a batch of ``B``: ``warp``, ``block`` (shared
+        memory) and ``scratch``."""
+        n_block = 0 if self.block_reads is None else len(self.block_reads)
+        n_scratch = 0 if self.scratch_off is None else int(
+            (self.scratch_off[1:] > self.scratch_off[:-1]).sum())
+        return {"warp": B - n_block, "block": n_block - n_scratch,
+                "scratch": n_scratch}
 
 
 def _pow2(n):
@@ -932,20 +1055,32 @@ def _pow2(n):
                     .astype(np.int64), 0)
 
 
-def postings_plan(pairs_per_read, smem_pairs: int = SMEM_PAIRS
-                  ) -> PostingsPlan:
+def postings_plan(pairs_per_read, smem_pairs: int = SMEM_PAIRS,
+                  warp_pairs: int = WARP_PAIRS) -> PostingsPlan:
     """P3's plan from each read's count of real light postings: a read
-    sorts a power-of-two region at least that large, in shared memory
-    when it fits ``smem_pairs`` slots, else in the global scratch (its
-    offsets on the CPU: :meth:`PostingsPlan.to` moves them)."""
+    sorts a power-of-two region at least that large, on the warp path
+    when it fits ``warp_pairs`` slots (0: no warp path), else on the block
+    path, in shared memory when it fits ``smem_pairs`` slots, else in the
+    global scratch (the tensors on the CPU: :meth:`PostingsPlan.to` moves
+    them)."""
+    if warp_pairs > WARP_PAIRS:
+        raise ValueError(f"warp_pairs {warp_pairs} > {WARP_PAIRS}, the "
+                         "warp path's largest region")
     need = _pow2(pairs_per_read)
-    small = need <= smem_pairs
+    warp = (need <= warp_pairs) & (warp_pairs > 0)
+    w_cap = int(need[warp].max()) if warp.any() else -1
+    block = ~warp
+    small = block & (need <= smem_pairs)
     cap = int(need[small].max()) if small.any() else 0
-    if small.all():
-        return PostingsPlan(cap, None, 0)
+    reads = (torch.from_numpy(np.flatnonzero(block).astype(np.int32))
+             if block.any() else None)
+    big = block & ~small
+    if not big.any():
+        return PostingsPlan(w_cap, cap, None, 0, reads)
     off = np.zeros(need.shape[0] + 1, np.int64)
-    np.cumsum(np.where(small, 0, need), out=off[1:])
-    return PostingsPlan(cap, torch.from_numpy(off), int(off[-1]))
+    np.cumsum(np.where(big, need, 0), out=off[1:])
+    return PostingsPlan(w_cap, cap, torch.from_numpy(off), int(off[-1]),
+                        reads)
 
 
 def dense_side(heavy_dense: torch.Tensor, hrows: torch.Tensor,
@@ -1052,20 +1187,23 @@ def _p3(name: str, fn, head: tuple, B: int, acc_c, slot_of, lengths, thr,
     n_slots, E = acc_c.shape
     K, wide, n_words = wire_format(E if n_edges is None else n_edges,
                                    keep_at_most, E)
-    so = plan.scratch_off
+    so, reads = plan.scratch_off, plan.block_reads
     _check(acc_c, "acc_c", torch.float32, (n_slots, E))
     _check(slot_of, "slot_of", torch.int32, (B,))
     _check(lengths, "lengths", torch.int32, (B,))
     if so is not None:
         _check(so, "plan.scratch_off", torch.int64, (B + 1,))
+    if reads is not None:
+        _check(reads, "plan.block_reads", torch.int32, (reads.shape[0],))
     keys = torch.empty(plan.n_scratch, dtype=torch.int64, device=acc_c.device)
     tot = torch.empty(plan.n_scratch, dtype=torch.float32,
                       device=acc_c.device)
     wire = torch.empty((B, n_words), dtype=torch.int32, device=acc_c.device)
     _launch(name, fn, *head, acc_c.data_ptr(), E, slot_of.data_ptr(),
-            lengths.data_ptr(), float(thr), k, K, plan.smem_pairs, _ptr(so),
-            keys.data_ptr(), tot.data_ptr(), n_words, int(wide),
-            int(edge_offset), wire.data_ptr(), _stream(acc_c))
+            lengths.data_ptr(), float(thr), k, K, plan.warp_pairs,
+            plan.smem_pairs, _ptr(so), keys.data_ptr(), tot.data_ptr(),
+            _ptr(reads), 0 if reads is None else reads.shape[0], n_words,
+            int(wide), int(edge_offset), wire.data_ptr(), _stream(acc_c))
     return wire
 
 
@@ -1078,10 +1216,6 @@ def _p3_plain(acc_c, slot_of, lengths, thr, k, keep_at_most, edge_offset,
     return pack_wire(*finalize_postings(pairs, lrows, acc_c, slot_of,
                                         lengths, thr_t, k, keep_at_most,
                                         edge_offset, **source), wide=wide)
-
-
-def _scratch(plan: PostingsPlan) -> list:
-    return [] if plan.scratch_off is None else [plan.scratch_off]
 
 
 def finalize_postings_wire(pairs: torch.Tensor, lrows: torch.Tensor,
@@ -1102,12 +1236,13 @@ def finalize_postings_wire(pairs: torch.Tensor, lrows: torch.Tensor,
     light miss row sits among its rows, if at all.
 
     ``plan`` (:func:`postings_plan` of the reads' real light posting
-    counts, its offsets on the tensors' device) says where each read
+    counts, its tensors on the tensors' device) says where each read
     sorts on the card; the plain version needs none.  A read with more
     postings than its plan gives it makes the kernel write ``|L| = -1``,
     which :func:`unpack_wire` rejects."""
     B, W = lrows.shape
-    if not _on_card(pairs, lrows, acc_c, slot_of, lengths, *_scratch(plan)):
+    if not _on_card(pairs, lrows, acc_c, slot_of, lengths,
+                    *plan.tensors().values()):
         return _p3_plain(acc_c, slot_of, lengths, thr, k, keep_at_most,
                          edge_offset, n_edges, pairs, lrows)
     _check(pairs, "pairs", torch.int32, tuple(pairs.shape))
@@ -1135,7 +1270,7 @@ def finalize_postings_wire_routed(parts: Parts, routed: torch.Tensor,
     one-table P3's bitwise."""
     n, B, W = routed.shape
     if not _on_card(parts.meta, routed, acc_c, slot_of, lengths,
-                    *_scratch(plan)):
+                    *plan.tensors().values()):
         return _p3_plain(acc_c, slot_of, lengths, thr, k, keep_at_most, 0,
                          None, None, None, light_parts=parts.tables,
                          routed_lrows=tuple(routed))
@@ -1164,7 +1299,7 @@ def finalize_postings_wire_parts(parts: Parts, lrows: torch.Tensor,
     card."""
     B, W = lrows.shape
     if not _on_card(parts.meta, lrows, acc_c, slot_of, lengths,
-                    *_scratch(plan)):
+                    *plan.tensors().values()):
         return _p3_plain(acc_c, slot_of, lengths, thr, k, keep_at_most, 0,
                          None, None, lrows, light_parts=parts.tables)
     t0 = _check_parts(parts)

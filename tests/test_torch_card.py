@@ -611,3 +611,200 @@ def test_split_engines_match_one_table_on_card(card):
         assert np.array_equal(got.top_scores.view(np.uint32),
                               want.top_scores.view(np.uint32)), mode
         assert np.array_equal(got.n_matched, want.n_matched), mode
+
+
+# ---- the row-sum template's edges (csrc/accumulate.cu) ---------------- #
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 33, 300, 7999])
+@pytest.mark.parametrize("u16", [False, True])
+@pytest.mark.parametrize("slab_bytes", [None, 1 << 16])
+def test_row_sum_edges_on_card(card, E, u16, slab_bytes, monkeypatch):
+    """K1, K2, C1, C2 and C3 at E in {1, 33, 300, 7,999} (slab edges
+    mid-vector, one slab, many), with the L2 slab budget as shipped and
+    shrunk to 64 KB (many slabs, C1's resolve pass): reads shorter than
+    k, all-miss reads, dest rows out of order, C1 with keys absent.
+    Bitwise on uint16 tables, within 1e-5 relative on f32 ones."""
+    if slab_bytes is not None:
+        monkeypatch.setattr(T, "L2_SLAB_BYTES", slab_bytes)
+    rng = np.random.default_rng(61 + E + u16)
+    k = 8 if E <= 300 else 4
+    L, B = 150, 200
+    n_rows = 4 ** k + 1
+    host = (_u16_table(rng, n_rows, E, 0.05).numpy() if u16 else
+            _table(rng, n_rows, E, 0.05))
+    D = torch.from_numpy(host).to(card)
+    scale = float(np.float32(2.5 / 65535)) if u16 else 1.0
+
+    def same(got, want):
+        torch.cuda.synchronize()
+        if u16:
+            assert torch.equal(got, want)
+        else:
+            assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(got > 0, want > 0)
+
+    codes, lens = _codes(rng, B, L, k, amb=0.002)
+    lens[:5] = rng.integers(0, k, 5)          # shorter than k: no window
+    codes[:5][np.arange(L)[None, :] >= lens[:5, None]] = -2
+    codes[5:9] = -1                           # all-miss reads
+    c = torch.from_numpy(codes).to(card)
+    dest = torch.from_numpy(rng.permutation(B + 7)[:B].astype(np.int32)
+                            ).to(card)        # rows out of order
+    acc = torch.zeros((B + 7, E), device=card)
+    got = T.accumulate_codes(D, c, k, 4, scale, acc=acc, dest=dest)
+    want = T.accumulate(D, T.kmer_rows(c, k, 4, n_rows)) * scale
+    same(got[dest.long()], want)
+    assert bool((want[5:9] == 0).all())
+    pure, plens = _codes(rng, B, L, k)
+    plens[:5] = rng.integers(0, k, 5)
+    p = torch.from_numpy(pack_reads(pure)).to(card)
+    pl = torch.from_numpy(plens).to(card)
+    got = T.accumulate_packed(D, p, pl, L, k, scale, acc=acc, dest=dest)
+    want = T.accumulate(D, T.kmer_rows_packed(p, pl, k, 4, n_rows, L)) * scale
+    same(got[dest.long()], want)
+    assert bool((want[:5] == 0).all())
+
+    # C1 and C2 on a compact table: half the keys absent from the reads
+    n_keys = 3000 if E <= 300 else 200
+    keys = np.sort(rng.choice(4 ** k, n_keys, replace=False))
+    Dc = host[:n_keys + 1].copy()
+    Dc[-1] = 0
+    Dc = torch.from_numpy(Dc).to(card)
+    keys_d = torch.from_numpy(keys.astype(np.int32)).to(card)
+    for b in range(0, B, 2):                  # plant DB k-mers
+        for j, key in enumerate(rng.choice(keys[:n_keys // 2], 4)):
+            codes[b, 10 + 20 * j:10 + 20 * j + k] = [
+                (int(key) >> (2 * (k - 1 - i))) & 3 for i in range(k)]
+    c = torch.from_numpy(codes).to(card)
+    rows = T.compact_rows(keys_d, T.kmer_indices64(c, k, 4))
+    want = T.accumulate(Dc, rows) * scale
+    assert bool((want > 0).any())
+    same(T.accumulate_compact(Dc, keys_d, c, k, 4, scale), want)
+    if slab_bytes is not None and E == 7999:  # slabs: the resolve pass ran
+        assert T.SLABS["accumulate_compact" + ("_u16" if u16 else "")
+                       ].n_slabs > 1
+    same(T.accumulate_rows(Dc, rows, scale), want)
+    if not u16:                               # C3 on two k-mer ranges
+        per = -(-n_keys // 2)
+        for lo in (0, per):
+            Ds = torch.from_numpy(_table(rng, per + 1, E, 0.05)).to(card)
+            same(T.accumulate_rows_range(Ds, rows, lo, per),
+                 T.accumulate_range(Ds, rows, lo, per))
+
+
+# ---- P3's warp, block and scratch paths (csrc/postings.cu) ------------- #
+
+_PAD = np.iinfo(np.int32).max
+
+
+def _p3_inputs(rng, counts, n_edges, E=None, P=8, offset=0, slot_share=0.5):
+    """A light table whose rows each read gathers to exactly ``counts[b]``
+    real postings (edge ids in ``[0, n_edges)``, quarter deltas: every sum
+    exact in f32, and exact ties), pads at random places in a row, the
+    all-pad miss row last; a dense slot row of E columns (edges offset ..
+    offset + E - 1), quarter values, for a ``slot_share`` of the reads."""
+    E = n_edges if E is None else E
+    rows, lists = [], []
+    for c in counts:
+        ids, left = [], int(c)
+        while left > 0:
+            m = min(P, left)
+            e = np.full(P, _PAD, np.int64)
+            d = np.zeros(P, np.float32)
+            e[:m] = rng.integers(0, n_edges, m)
+            d[:m] = rng.integers(1, 12, m) * 0.25
+            perm = rng.permutation(P)
+            ids.append(len(rows))
+            rows.append((e[perm], d[perm]))
+            left -= m
+        lists.append(ids)
+    rows.append((np.full(P, _PAD, np.int64), np.zeros(P, np.float32)))
+    miss = len(rows) - 1
+    pairs = np.concatenate([np.stack([r[0] for r in rows]).astype(np.int32),
+                            np.stack([r[1] for r in rows]).view(np.int32)],
+                           axis=1)
+    B = len(counts)
+    W = max(1, max(len(x) for x in lists))
+    lrows = np.full((B, W), miss, np.int32)
+    for b, ids in enumerate(lists):
+        lrows[b, :len(ids)] = ids
+    has = rng.random(B) < slot_share
+    slot_of = np.where(has, np.cumsum(has) - 1, -1).astype(np.int32)
+    acc_c = np.where(rng.random((int(has.sum()), E)) < 0.05,
+                     rng.integers(1, 40, (int(has.sum()), E)) * 0.25,
+                     0).astype(np.float32)
+    return pairs, lrows, miss, acc_c, slot_of
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["counts", "ties", "k_is_e", "k16",
+                                  "wide", "offset", "mixed"])
+def test_p3_paths_on_card(card, case):
+    """P3 and R1 (routed and part-select over 3 parts) against the plain
+    version, wire words bitwise (quarter deltas: every sum exact): reads
+    of 0, 1, 31, 32, 33 and 663 postings on the warp path; exact score
+    ties (edge asc); K larger than a read's candidates; K = E and K = 16
+    with a small E (the scanning rounds past a lane's registers); the
+    wide wire; an edge offset; and one call that mixes warp-path,
+    block-path and scratch reads."""
+    from rappas_tpu_torch.place.engine import route_rows
+    rng = np.random.default_rng(71 + len(case))
+    counts = [0, 1, 31, 32, 33, 663, 2, 5, 300, 64]
+    n_edges, keep, offset, E = 7999, 7, 0, None
+    plan_kw = {}
+    if case == "ties":
+        n_edges = 50
+    elif case == "k_is_e":
+        n_edges, keep = 20, 20
+    elif case == "k16":
+        n_edges, keep = 40, 16
+    elif case == "wide":
+        n_edges = 65601
+    elif case == "offset":
+        n_edges, E, offset = 400, 200, 150
+    elif case == "mixed":
+        counts = counts + [1024, 1025, 1500, 20000]
+        plan_kw = {"smem_pairs": 2048}
+    pairs, lrows, miss, acc_c, slot_of = _p3_inputs(
+        rng, counts, n_edges, E, offset=offset)
+    B = len(counts)
+    lens = np.full(B, 3000, np.int32)
+    lens[:B // 2] = 150
+    thr, k = -1.25, 8
+    cpu = [torch.from_numpy(a) for a in (pairs, lrows, acc_c, slot_of, lens)]
+    plan = T.postings_plan(np.asarray(counts), **plan_kw)
+    paths = plan.paths(B)
+    if case == "mixed":
+        assert paths == {"warp": B - 3, "block": 2, "scratch": 1}
+    else:
+        assert paths["warp"] == B
+    want = T.finalize_postings_wire(*cpu, thr, k, keep, plan, offset,
+                                    n_edges, miss)
+    dev = [t.to(card) for t in cpu]
+    got = T.finalize_postings_wire(*dev, thr, k, keep, plan.to(card), offset,
+                                   n_edges, miss)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    K, wide, _ = T.wire_format(n_edges, keep, acc_c.shape[1])
+    res = unpack_wire(want.numpy(), K, wide)
+    assert (res.n_matched >= 0).all()
+    if case == "ties":                  # exact ties among the picks
+        s = res.top_scores
+        assert (np.isfinite(s[:, 1:]) & (s[:, 1:] == s[:, :-1])).any()
+    assert (res.top_edges[1] >= 0).sum() <= K    # K past the candidates
+    if offset:
+        return
+    # R1 over 3 parts of the same table: the wire bitwise P3's
+    cuts = np.array([0, pairs.shape[0] // 3, 2 * pairs.shape[0] // 3,
+                     pairs.shape[0]])
+    tables = tuple(torch.from_numpy(pairs[a:c].copy()).to(card)
+                   for a, c in zip(cuts[:-1], cuts[1:]))
+    parts = T.make_parts(tables, np.diff(cuts))
+    routed = torch.from_numpy(route_rows(lrows, cuts, drop=miss)).to(card)
+    args = (dev[2], dev[3], dev[4], thr, k, keep, plan.to(card))
+    for wire in (T.finalize_postings_wire_routed(parts, routed, *args),
+                 T.finalize_postings_wire_parts(parts, dev[1], *args,
+                                                miss=miss)):
+        torch.cuda.synchronize()
+        assert torch.equal(wire.cpu(), want)

@@ -475,7 +475,7 @@ def test_finalize_postings_wire_cpu_round_trip(E):
     thr = float(np.float32(-3.25))
     top, args = _port_postings(pairs, lrows, rows, slots, uniq, lens, thr,
                                k, keep)
-    plan = T.postings_plan(np.full(B, 6 * 8), smem_pairs=16)
+    plan = T.postings_plan(np.full(B, 6 * 8), smem_pairs=16, warp_pairs=0)
     assert plan.scratch_off.device.type == "cpu"
     wire = T.finalize_postings_wire(*args, thr, k, keep, plan)
     _, wide, n_words = T.wire_format(E, keep)
@@ -496,16 +496,109 @@ def test_finalize_postings_wire_cpu_round_trip(E):
 
 def test_postings_plan():
     plan = T.postings_plan(np.array([0, 3, 100, 40000, 16384, 16385]))
-    assert plan.smem_pairs == 16384
+    assert plan.warp_pairs == 128 and plan.smem_pairs == 16384
     assert plan.scratch_off.tolist() == [0, 0, 0, 0, 65536, 65536, 98304]
     assert plan.n_scratch == 98304
+    assert plan.block_reads.tolist() == [3, 4, 5]
+    assert plan.block_reads.dtype == torch.int32
+    assert plan.paths(6) == {"warp": 3, "block": 1, "scratch": 2}
     small = T.postings_plan(np.array([5, 9, 1]))
-    assert small == (16, None, 0)
-    every = T.postings_plan(np.array([5, 9]), smem_pairs=0)
+    assert small == (16, 0, None, 0, None)
+    every = T.postings_plan(np.array([5, 9]), smem_pairs=0, warp_pairs=0)
     assert every.smem_pairs == 0 and every.scratch_off.tolist() == [0, 8, 24]
     assert every.scratch_off.dtype == torch.int64
     assert every.to("cpu").scratch_off.tolist() == [0, 8, 24]
+    assert every.block_reads.tolist() == [0, 1] and every.warp_pairs == -1
     assert small.to("cpu") is small
     assert T.wire_format(60, 7) == (7, False, 12)
     assert T.wire_format(65535, 7) == (7, True, 15)
     assert T.wire_format(3, 7) == (3, False, 6)
+
+
+@pytest.mark.parametrize("counts, warp_pairs, want", [
+    # config 5's reads (mean ~308, at most 663): every read on the warp path
+    ([308, 663, 0, 1, 31, 32, 33], T.WARP_PAIRS, (1024, None, None)),
+    # the threshold: 1024 postings stay on the warp path, 1025 leave it
+    ([1024, 1025, 7], T.WARP_PAIRS, (1024, [1], None)),
+    # a smaller warp region; the block path in shared memory and scratch
+    ([100, 200, 20000, 3], 128, (128, [1, 2], [0, 0, 0, 32768, 32768])),
+    # no warp path: every read on the block path, none in the scratch
+    ([0, 5, 300], 0, (-1, [0, 1, 2], None)),
+])
+def test_postings_plan_warp_block_scratch(counts, warp_pairs, want):
+    """The warp/block/scratch split of P3's plan: a read takes the warp
+    path when its power-of-two region fits ``warp_pairs`` slots; the rest
+    are listed in ``block_reads`` (the block path), the ones past one
+    block's shared memory with their scratch regions."""
+    plan = T.postings_plan(np.array(counts), warp_pairs=warp_pairs)
+    w_cap, reads, off = want
+    assert plan.warp_pairs == w_cap
+    assert (plan.block_reads is None if reads is None
+            else plan.block_reads.tolist() == reads)
+    assert (plan.scratch_off is None if off is None
+            else plan.scratch_off.tolist() == off)
+    paths = plan.paths(len(counts))
+    assert sum(paths.values()) == len(counts)
+    assert paths["warp"] == len(counts) - len(reads or [])
+    # the engine stages the plan's arrays by name and takes them back
+    arrays = {n: t.numpy() for n, t in plan.tensors().items()}
+    staged = plan.staged({n: torch.from_numpy(a) for n, a in arrays.items()})
+    assert staged.warp_pairs == plan.warp_pairs
+    for n, t in plan.tensors().items():
+        assert torch.equal(getattr(staged, n), t)
+    with pytest.raises(ValueError, match="warp path"):
+        T.postings_plan(np.array(counts), warp_pairs=2 * T.WARP_PAIRS)
+
+
+@pytest.mark.parametrize("E, itemsize, n_rows, n_windows, want", [
+    # config 1 f32 (79 MB): 4 slabs of 76 columns, 16-byte loads
+    (300, 4, 4 ** 8 + 1, 16384 * 143, (4, 76, 4, 13, True)),
+    # config 1 u16 (39 MB): 2 slabs, 8-byte loads (rows 600 B apart)
+    (300, 2, 4 ** 8 + 1, 16384 * 143, (4, 152, 2, 6, True)),
+    # a table that fits L2: one slab
+    (300, 4, 10000, 16384 * 143, (4, 300, 1, 3, True)),
+    # config 6's 1.2 GB u16 compact table: slabs would be narrower than a
+    # 128 B line, so one slab, and no evict_last priority
+    (300, 2, 2010001, 16384 * 143, (4, 300, 1, 3, False)),
+    # config 2's 1.26 GB f32 direct table, unsplit: the same
+    (300, 4, 4 ** 10 + 1, 16384 * 143, (4, 300, 1, 3, False)),
+    # config 4 (E=150): 8-byte f32 loads
+    (150, 4, 500001, 16384 * 93, (2, 150, 1, 3, False)),
+    # edges: one column, an odd width, E past what one block's threads
+    # cover (slabs of whole blocks), no windows
+    (1, 4, 100, 100, (1, 1, 1, 256, True)),
+    (33, 2, 1000, 5000, (1, 33, 1, 7, True)),
+    (7999, 4, 1000, 5000, (1, 250, 32, 1, True)),
+    (300, 4, 4 ** 8 + 1, 0, (4, 300, 1, 3, True)),
+])
+def test_slab_plan(E, itemsize, n_rows, n_windows, want):
+    """The row sum's slab chooser on counts and shapes: every slab a
+    whole number of loads and at most one block of threads wide, the
+    slabs covering E, the staged row ids within the shared-memory budget,
+    a slab of the rows a batch can touch within the L2 target, and the
+    evict_last priority exactly when that slab fits it."""
+    plan = T.slab_plan(E, itemsize, n_rows, n_windows)
+    assert (plan.vec, plan.cols, plan.n_slabs, plan.reads_per_block,
+            plan.keep) == want
+    assert E % plan.vec == 0 and plan.vec * itemsize <= 16
+    assert plan.cols % plan.vec == 0 or plan.cols == E
+    assert (plan.n_slabs - 1) * plan.cols < E <= plan.n_slabs * plan.cols
+    chunks = -(-plan.cols // plan.vec)
+    assert chunks * plan.reads_per_block <= T.SUM_THREADS
+    assert plan.reads_per_block * (plan.tile + 2) <= T.SUM_STAGE_ROWS
+    assert plan.args() == (plan.vec, plan.cols, plan.reads_per_block,
+                           plan.tile, int(plan.keep))
+    slab = min(n_rows, n_windows) * plan.cols * itemsize
+    assert plan.keep == (slab <= T.L2_SLAB_BYTES * 1.05)
+    if plan.n_slabs > 1 and plan.cols * itemsize >= T.MIN_SLAB_ROW_BYTES:
+        assert slab <= T.L2_SLAB_BYTES * 1.05
+
+
+def test_slab_plan_alignment():
+    """A pointer that is not 16-byte aligned narrows the loads: the table
+    pointer to its item's multiple, the f32 output to 4 bytes."""
+    assert T.slab_plan(300, 4, 100, 100, ((256, 4), (256, 4))).vec == 4
+    assert T.slab_plan(300, 4, 100, 100, ((8, 4), (256, 4))).vec == 2
+    assert T.slab_plan(300, 4, 100, 100, ((256, 4), (4, 4))).vec == 1
+    assert T.slab_plan(304, 2, 100, 100, ((256, 2), (256, 4))).vec == 8
+    assert T.slab_plan(304, 2, 100, 100, ((256, 2), (8, 4))).vec == 2
