@@ -15,7 +15,9 @@ layout, precision and height split a single device resolves to:
   ``D[4^8 + 1, 300]`` f32 of 79 MB, 150 bp reads):
   1. kernel phase -- K1 accumulate_packed, K2 accumulate_codes, K3
      finalize_wire and K4 ambiguous_pass at B=16384 against their plain
-     PyTorch versions on the card, with CUDA-event times beside the plain
+     PyTorch versions on the card, with each kernel's device time (a
+     CUDA graph of its calls replayed between CUDA events) and its time
+     per back-to-back call (host enqueue included) beside the plain
      version's, one library call's where PyTorch has one, and the least
      time the card could take (its bound);
   2. engine phase -- 10 batches of 16384 reads (1% carry one N) through
@@ -88,12 +90,16 @@ layout, precision and height split a single device resolves to:
   (2.4 GB) and u16 tables against its plain version, an engine phase and
   a CLI phase (``--precision u16``, 20k reads).
 
-Each row-sum kernel line (K1, K2, C1, C2, C3) also reports the row bytes it
-moved (valid windows times the slab row bytes, summed over the slabs),
-their rate in TB/s and the slab plan its wrapper launched (C1: whether
-the resolve pass ran).  Each P3/R1 line reports its slots, postings per
-read and how many reads took the warp, block and scratch paths; P3 also
-times the block path alone, every read on it, in the same run.
+Each row-sum kernel line (K1, K2, C1, C2, C3, and D1, which launches the
+row-sum template once per part) also reports the row bytes it moved
+(valid windows times the slab row bytes, summed over the slabs), their
+rate in TB/s and the slab plan its wrapper launched (C1: whether the
+resolve pass ran; D1: one plan per part).  Each P3/R1 line reports its
+slots, postings per read and how many reads took the warp, block and
+scratch paths; P3 also times the block path alone, every read on it, in
+the same run.  The P2/A1 postings lines report the light-only windows and
+the largest light pairs one window stages; the K4 and A1 split lines
+their load width and threads per window.
 
 Standard output ends with the card's name and power limit, one JSON line
 of kernel results and one JSON line ``{"ok": true, "device": ...}``.  Any
@@ -333,6 +339,46 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one call of a kernel wrapper: ``reps`` calls
+    captured in one CUDA graph (the wrapper's host work runs once, at
+    capture), the graph replayed ``replays`` times between CUDA events.
+    Back-to-back calls (:func:`cuda_ms`) time the host's enqueue instead
+    wherever a kernel takes less time than its wrapper's Python."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):         # warm up on a side stream
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * replays)
+
+
+def timed(fn) -> dict:
+    """A kernel wrapper's times: ``ms``, the device time per call
+    (:func:`device_ms`), and ``call_ms``, back-to-back calls between CUDA
+    events (:func:`cuda_ms`), the host's enqueue included."""
+    return {"ms": device_ms(fn), "call_ms": cuda_ms(fn)}
+
+
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -362,6 +408,34 @@ def p3_paths(plan, counts, n_slots: int) -> dict:
     return {"slots": n_slots, "postings_per_read_mean": float(counts.mean()),
             "postings_per_read_max": int(counts.max()),
             "paths": plan.paths(len(counts))}
+
+
+def window_stats(win_off, alt_hrows, nh: int, P: int) -> dict:
+    """The windows of a P2/A1 launch: how many are light-only (every
+    alternative's heavy row the zero row ``nh``: the kernel scores only
+    the columns their light postings hit) and the largest ``n_alt * P``
+    light pairs one window stages."""
+    import torch
+
+    heavy = torch.cat([alt_hrows.new_zeros(1),
+                       (alt_hrows != nh).to(torch.int64).cumsum(0)])
+    lo, hi = win_off[:-1].long(), win_off[1:].long()
+    n_alt = hi - lo
+    return {"light_only_windows": int(((heavy[hi] - heavy[lo]) == 0).sum()),
+            "max_pairs_per_window": int(n_alt.max()) * P
+            if n_alt.numel() else 0}
+
+
+def ambiguous_launch(E: int, item: int, ptrs) -> dict:
+    """K4's and A1 split's load plan: bytes per load and threads per window
+    (``kernels.ambiguous_plan``; nothing where the kernels module has no
+    such plan)."""
+    from rappas_tpu_torch.place import kernels as K
+
+    if not hasattr(K, "ambiguous_plan"):
+        return {}
+    vec, group = K.ambiguous_plan(E, item, tuple(ptrs))
+    return {"load_bytes": vec * item, "threads_per_window": group}
 
 
 def held(got, want, exact: bool) -> bool:
@@ -450,11 +524,11 @@ def kernel_phase(db, seed: int, precision: str = "f32",
     b, why = bound(packed.numel() + lens_d.numel() * 4 +
                    touched.numel() * E * item + B_KERNEL * E * 4,
                    (n_win + B_KERNEL) * E)
-    ms = cuda_ms(lambda: K.accumulate_packed(D, packed, lens_d, READ_LEN, k,
-                                             scale, acc=got))
+    t = timed(lambda: K.accumulate_packed(D, packed, lens_d, READ_LEN, k,
+                                          scale, acc=got))
     out["accumulate_packed" + sfx] = dict(
-        max_abs_err=err1, bound_ms=b, bound_by=why, ms=ms,
-        **row_traffic(D, "accumulate_packed" + sfx, n_win, ms),
+        max_abs_err=err1, bound_ms=b, bound_by=why, **t,
+        **row_traffic(D, "accumulate_packed" + sfx, n_win, t["ms"]),
         plain_ms=cuda_ms(lambda: K.accumulate(D, K.kmer_rows_packed(
             packed, lens_d, k, 4, D.shape[0], READ_LEN)) * scale, reps=5),
         library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
@@ -475,11 +549,11 @@ def kernel_phase(db, seed: int, precision: str = "f32",
     n_win = int((rows2 != miss).sum())
     b, why = bound(codes_d.numel() + touched.numel() * E * item +
                    B_KERNEL * E * 4, (n_win + B_KERNEL) * E)
-    ms = cuda_ms(lambda: K.accumulate_codes(D, codes_d, k, 4, scale,
-                                            acc=got))
+    t = timed(lambda: K.accumulate_codes(D, codes_d, k, 4, scale,
+                                         acc=got))
     out["accumulate_codes" + sfx] = dict(
-        max_abs_err=err2, bound_ms=b, bound_by=why, ms=ms,
-        **row_traffic(D, "accumulate_codes" + sfx, n_win, ms),
+        max_abs_err=err2, bound_ms=b, bound_by=why, **t,
+        **row_traffic(D, "accumulate_codes" + sfx, n_win, t["ms"]),
         plain_ms=cuda_ms(lambda: K.accumulate(D, K.kmer_rows(
             codes_d, k, 4, D.shape[0])) * scale, reps=5),
         library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
@@ -521,12 +595,12 @@ def kernel_phase(db, seed: int, precision: str = "f32",
     scratch = acc_amb.clone()
     out["ambiguous_pass" + sfx] = dict(
         max_abs_err=max(errs), bound_ms=b, bound_by=why,
-        ms=cuda_ms(lambda: K.ambiguous_pass_(scratch, D, scale,
-                                             *mean_spec)),
+        **timed(lambda: K.ambiguous_pass_(scratch, D, scale, *mean_spec)),
         plain_ms=cuda_ms(lambda: K.ambiguous_pass(
             K.alt_delta_rows(D, scale, alt_rows), mean_alt_win, win_read_d,
             inv_w_d, is_mean_d, acc_amb)),
-        library_ms=None, windows=n_w, alternatives=n_alt)
+        library_ms=None, windows=n_w, alternatives=n_alt,
+        **ambiguous_launch(E, item, (D.data_ptr(),)))
     return out
 
 
@@ -558,8 +632,7 @@ def finalize_phase(acc_pure, lens_d, thr_t, k: int) -> dict:
                    got.numel() * 4, 3 * acc_pure.numel())
     return {"finalize_wire": dict(
         max_abs_err=err3, bound_ms=b, bound_by=why,
-        ms=cuda_ms(lambda: K.finalize_wire(acc_pure, lens_d, thr, k,
-                                           K_KEEP)),
+        **timed(lambda: K.finalize_wire(acc_pure, lens_d, thr, k, K_KEEP)),
         plain_ms=cuda_ms(lambda: K.pack_wire(*K.finalize(
             acc_pure, lens_d, thr_t, k, K_KEEP))),
         library_ms=cuda_ms(lambda: torch.topk(masked, K_KEEP, dim=1)))}
@@ -639,14 +712,14 @@ def compact_kernel_phase(eng, seed: int, ref=None, length: int = READ_LEN,
     hit = rows[rows != n]
     b, why = bound(in_bytes + torch.unique(hit).numel() * E * item +
                    B_KERNEL * E * 4, probes + (hit.numel() + B_KERNEL) * E)
-    ms = cuda_ms(run)
-    traffic = row_traffic(D, launched, hit.numel(), ms)
+    t = timed(run)
+    traffic = row_traffic(D, launched, hit.numel(), t["ms"])
     if keys is not None:
         traffic["resolve_pass"] = traffic["slabs"] > 1
     return {name: dict(
         max_abs_err=err, bound_ms=b, bound_by=why, hit_windows=hit.numel(),
         distinct_rows=torch.unique(hit).numel(), table_bytes=D.nbytes,
-        ms=ms, **traffic, plain_ms=cuda_ms(plain, reps=5),
+        **t, **traffic, plain_ms=cuda_ms(plain, reps=5),
         library_ms=cuda_ms(library, reps=5))}
 
 
@@ -692,7 +765,7 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
     out["dense_side"] = dict(
         max_abs_err=err, bound_ms=b, bound_by=why, slots=n_slots,
         heavy_hits=n_h,
-        ms=cuda_ms(lambda: K.dense_side(H, d["hrows"], d["hoff"])),
+        **timed(lambda: K.dense_side(H, d["hrows"], d["hoff"])),
         plain_ms=cuda_ms(lambda: K.scatter_slots(
             K.gather_rows(H, d["hrows"]), slots, n_slots)),
         library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
@@ -736,7 +809,8 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
     out["ambiguous_postings"] = dict(
         max_abs_err=max(errs), bound_ms=b, bound_by=why, windows=n_w,
         alternatives=n_alt,
-        ms=cuda_ms(lambda: K.ambiguous_postings_(scratch, H, pairs, *spec)),
+        **window_stats(spec[2], spec[1], H.shape[0] - 1, P),
+        **timed(lambda: K.ambiguous_postings_(scratch, H, pairs, *spec)),
         plain_ms=cuda_ms(lambda: K.ambiguous_pass(
             K.alt_delta_rows_postings(pairs, H, spec[0], spec[1]), alt_win,
             spec[3], spec[4], spec[5], acc_c)),
@@ -775,10 +849,10 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
         max_abs_err=max(errs), bound_ms=b, bound_by=why,
         window_columns=int(host["lrows"].shape[1]),
         **p3_paths(plan, counts, n_slots), smem_pairs=plan.smem_pairs,
-        ms=cuda_ms(lambda: K.finalize_postings_wire(
+        **timed(lambda: K.finalize_postings_wire(
             *args, eng.thr, eng.k, K_KEEP, plan)),
         # every read on the block path (the earlier design), this run
-        block_path_ms=cuda_ms(lambda: K.finalize_postings_wire(
+        block_path_ms=device_ms(lambda: K.finalize_postings_wire(
             *args, eng.thr, eng.k, K_KEEP, block_plan)),
         plain_ms=cuda_ms(lambda: K.pack_wire(*K.finalize_postings(
             *args, thr_t, eng.k, K_KEEP), wide=eng.wide), reps=5),
@@ -880,7 +954,8 @@ def sharded_postings_kernel_phase(sp, eng, seed: int, ref) -> dict:
         out["ambiguous_postings_offset"] = dict(
             max_abs_err=err2, bound_ms=b, bound_by=why, edge_offset=off,
             windows=n_w, alternatives=n_alt, reads=Bl,
-            ms=cuda_ms(lambda: p2(scratch)), plain_ms=cuda_ms(p2_plain),
+            **window_stats(spec[2], spec[1], H.shape[0] - 1, P),
+            **timed(lambda: p2(scratch)), plain_ms=cuda_ms(p2_plain),
             library_ms=None)
         counts = sh["light_counts"][host["lrows"]].sum(axis=1)
         n_b = counts[counts > 1].astype(np.float64)
@@ -894,7 +969,7 @@ def sharded_postings_kernel_phase(sp, eng, seed: int, ref) -> dict:
         out["finalize_postings_wire_offset"] = dict(
             max_abs_err=err3, bound_ms=b, bound_by=why, edge_offset=off,
             shard_width=E, reads=Bl, **p3_paths(plan, counts, n_slots),
-            ms=cuda_ms(p3),
+            **timed(p3),
             plain_ms=cuda_ms(p3_plain, reps=5), library_ms=None)
 
     # M1 over the two shards' wires ------------------------------------ #
@@ -926,7 +1001,7 @@ def sharded_postings_kernel_phase(sp, eng, seed: int, ref) -> dict:
                    Bl * sp.wire_k * mp * K_in)
     out["merge_candidates_wire"] = dict(
         max_abs_err=0.0, bound_ms=b, bound_by=why, shards=mp, reads=Bl,
-        candidates=mp * K_in, ms=cuda_ms(m1), plain_ms=cuda_ms(m1_plain),
+        candidates=mp * K_in, **timed(m1), plain_ms=cuda_ms(m1_plain),
         library_ms=cuda_ms(library))
     return out
 
@@ -989,7 +1064,8 @@ def split_postings_kernel_phase(eng, one, seed: int, ref,
     out["ambiguous_postings_parts"] = dict(
         max_abs_err=err, bound_ms=b, bound_by=why, windows=n_w,
         alternatives=n_alt, parts=len(tables),
-        ms=cuda_ms(lambda: a1(scratch)), plain_ms=cuda_ms(a1_plain),
+        **window_stats(spec[2], spec[1], H.shape[0] - 1, P),
+        **timed(lambda: a1(scratch)), plain_ms=cuda_ms(a1_plain),
         library_ms=None)
     acc_c = got
 
@@ -1036,7 +1112,7 @@ def split_postings_kernel_phase(eng, one, seed: int, ref,
             wire_equals_one_table_p3=True, bound_ms=b, bound_by=why,
             parts=len(tables), window_columns=int(n_rows // B_POSTINGS),
             **p3_paths(plan, counts, n_slots),
-            ms=cuda_ms(run), plain_ms=cuda_ms(plain, reps=5),
+            **timed(run), plain_ms=cuda_ms(plain, reps=5),
             library_ms=None)
 
     # G1 on the two-stage path's unique rows (the budget of this batch) -- #
@@ -1064,7 +1140,7 @@ def split_postings_kernel_phase(eng, one, seed: int, ref,
     out["gather_compact"] = dict(
         max_abs_err=0.0, bound_ms=b, bound_by=why, compact_rows=U,
         parts=len(tables),
-        ms=cuda_ms(lambda: K.gather_compact_(parts, uniq, uniq_off)),
+        **timed(lambda: K.gather_compact_(parts, uniq, uniq_off)),
         plain_ms=cuda_ms(lambda: K.gather_compact(tables, tuple(runs))),
         library_ms=cuda_ms(lambda: torch.cat([
             t.index_select(0, r) for t, r in zip(tables, runs)])))
@@ -1117,13 +1193,21 @@ def split_direct_kernel_phase(eng, whole, seed: int, ref,
     b, why = bound(routed.numel() * 4 + torch.unique(hit).numel() * E * item +
                    B_KERNEL * E * 4, (hit.numel() + B_KERNEL) * E)
     codes_d = torch.from_numpy(codes).to(dev)
+    plan = K.SLABS.get("routed_accumulate" + sfx)
+    t = timed(d1)
+    row_bytes = hit.numel() * E * item
     out["routed_accumulate" + sfx] = dict(
         max_abs_err=err, bound_ms=b, bound_by=why, parts=len(tables),
         window_columns=int(routed.shape[2]), hit_windows=hit.numel(),
+        # the slab plan the wrapper launched (none recorded: one slab)
+        **({} if plan is None else {
+            "slabs": plan.n_slabs, "slab_cols": plan.cols,
+            "load_bytes": plan.vec * item, "evict_last": plan.keep}),
+        row_bytes=row_bytes, row_tb_s=row_bytes / (t["ms"] * 1e-3) / 1e12,
         # K2 on the unsplit table, the same reads: what the split saves
-        unsplit_k2_ms=cuda_ms(lambda: K.accumulate_codes(
+        unsplit_k2_ms=device_ms(lambda: K.accumulate_codes(
             whole.D, codes_d, eng.k, 4, whole.scale)),
-        ms=cuda_ms(d1), plain_ms=cuda_ms(d1_plain, reps=5),
+        **t, plain_ms=cuda_ms(d1_plain, reps=5),
         library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
             rows_long, D32, mode="sum")))
     acc = got
@@ -1159,8 +1243,9 @@ def split_direct_kernel_phase(eng, whole, seed: int, ref,
     out["ambiguous_pass_split" + sfx] = dict(
         max_abs_err=max(errs), bound_ms=b, bound_by=why, windows=n_w,
         alternatives=n_alt, parts=len(tables),
-        ms=cuda_ms(lambda: K.ambiguous_pass_split_(scratch, parts, scale,
-                                                   *mean_spec)),
+        **ambiguous_launch(E, item, (t.data_ptr() for t in tables)),
+        **timed(lambda: K.ambiguous_pass_split_(scratch, parts, scale,
+                                                *mean_spec)),
         plain_ms=cuda_ms(lambda: K.ambiguous_pass(K.alt_delta_rows_split(
             tables, scale, alt_rows), mean_alt_win, *mean_spec[2:], acc)),
         library_ms=None)
@@ -1215,12 +1300,12 @@ def kmer_sharded_phase(db, mesh, seed: int, ref, n_batches: int = 10,
     check(hit.numel() > 0, "C3: no window hit shard 1")
     b, why = bound(rows.numel() * 4 + torch.unique(hit).numel() * E * 4 +
                    Bl * E * 4, (hit.numel() + Bl) * E)
-    ms = cuda_ms(lambda: K.accumulate_rows_range(D, rows, per, per))
+    t = timed(lambda: K.accumulate_rows_range(D, rows, per, per))
     kern = {"accumulate_rows_range": dict(
         max_abs_err=err, bound_ms=b, bound_by=why, reads=Bl,
         hit_windows=hit.numel(), distinct_rows=torch.unique(hit).numel(),
-        shard_bytes=D.nbytes, ms=ms,
-        **row_traffic(D, "accumulate_rows_range", hit.numel(), ms),
+        shard_bytes=D.nbytes, **t,
+        **row_traffic(D, "accumulate_rows_range", hit.numel(), t["ms"]),
         plain_ms=cuda_ms(lambda: K.accumulate_range(D, rows, per, per),
                          reps=5),
         library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
@@ -2087,8 +2172,12 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            **{key: r[key] for key in ("row_tb_s", "slabs", "evict_last",
-                                       "resolve_pass", "paths")
+            **{key: r[key] for key in ("call_ms", "row_tb_s", "slabs",
+                                       "evict_last",
+                                       "resolve_pass", "paths",
+                                       "light_only_windows",
+                                       "max_pairs_per_window",
+                                       "load_bytes", "threads_per_window")
                if key in r}})
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)

@@ -28,7 +28,7 @@ BUILD = Path(__file__).parent / "_build"
 SOURCES = ("accumulate.cu", "finalize.cu", "ambiguous.cu", "postings.cu",
            "merge.cu")
 #: headers the sources include (part of the build's hash)
-HEADERS = ("parts.cuh",)
+HEADERS = ("parts.cuh", "loads.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -129,10 +129,11 @@ def lib() -> ctypes.CDLL:
                 "rp_accumulate_rows_range": [p, i, p, i, i, i, i, p, i, i, i,
                                              i, i, p],
                 "rp_finalize_wire": [p, i, i, p, f, i, i, i, i, p, p],
-                "rp_ambiguous_pass": [p, i, i, f, p, p, p, p, p, i, p, p],
+                "rp_ambiguous_pass": [p, i, i, f, p, p, p, p, p, i, p, i, i,
+                                      p],
                 "rp_dense_side": [p, i, p, p, i, p, p],
-                "rp_ambiguous_postings": [p, i, p, i, p, p, p, p, p, p, i,
-                                          i, p, p],
+                "rp_ambiguous_postings": [p, i, i, p, i, p, p, p, p, p, p,
+                                          i, i, p, p],
                 "rp_finalize_postings": [p, i, i, p, i, i, p, i, p, p, f, i,
                                          i, i, i, p, p, p, p, i, i, i, i, p,
                                          p],
@@ -141,11 +142,11 @@ def lib() -> ctypes.CDLL:
                                                p, p, f, i, i, i, i, p, p, p,
                                                p, i, i, i, i, p, p],
                 "rp_gather_compact": [p, i, i, p, p, i, p, p],
-                "rp_routed_accumulate": [p, i, i, i, p, i, i, f, p, p],
+                "rp_routed_accumulate": [p, i, i, i, p, i, i, f, p, i, i, p],
                 "rp_ambiguous_pass_split": [p, i, i, i, f, p, p, p, p, p, i,
-                                            p, p],
-                "rp_ambiguous_postings_parts": [p, i, p, i, i, p, p, p, p, p,
-                                                p, i, p, p],
+                                            p, i, i, p],
+                "rp_ambiguous_postings_parts": [p, i, i, p, i, i, p, p, p, p,
+                                                p, p, i, p, p],
             }
             for name, argtypes in sigs.items():
                 fn = getattr(handle, name)

@@ -1,7 +1,8 @@
 // K1 accumulate_packed, K2 accumulate_codes, C1 accumulate_compact, C2
 // accumulate_rows and C3 accumulate_rows_range: the row ids of a read's
 // k-mer windows and the row sum over a dense delta table, fused in one pass
-// per read.
+// per read; and D1 routed_accumulate, the row sum over a height-split
+// direct table.
 //
 // Replaces (rappas_tpu/place/engine.py):
 //   K1: kmer_rows_packed (:253) + accumulate (:195), 2-bit packed reads on
@@ -21,8 +22,8 @@
 //
 //   acc[dest[b], e] = scale * sum_q D[row(b, q), e]
 //
-// K1, K2, C1 and C2 are instantiated for an f32 and a uint16 table (C3 for
-// f32: sharded placement is f32-only).  A uint16 value
+// K1, K2, C1, C2 and D1 are instantiated for an f32 and a uint16 table
+// (C3 for f32: sharded placement is f32-only).  A uint16 value
 // widens to f32 exactly on load, the sum stays f32, and scale multiplies
 // it once at the end, as the JAX engine does (:1363, :1378): a sum of
 // quantised values below 2^24 is exact in f32 in any order.
@@ -86,25 +87,33 @@
 // table height-split into parts (parts.cuh; each part its body rows plus a
 // trailing zero row, f32 or uint16): the host routed each read's windows
 // to their parts, routed[p, b, :W] part p's part-local rows, pads >= the
-// part's height (its zero row).  One block of kThreads threads per read,
-// kCols columns per thread per pass, kTile row ids staged in shared memory
-// at a time, with the part loop outside the window loop: per column a sum
-// over each part's windows,
-// the partial sums added in part order (JAX's `acc = a_0 + a_1 + ...` of
-// one accumulate per part), then scale once.  What bounds it: bytes, as
-// K2; the routing pads cost a shared-memory row id each, no row read.
+// part's height H_p.  What bounds it: bytes, the distinct rows read once
+// (config 2: about 1 GB of its 1.26 GB f32 table, against 2.8 GB of row
+// traffic per 16,384-read batch, each row touched ~2.2 times).  Two
+// designs measured no faster than one block per read walking every part:
+// the row-sum template launched once per part (it keeps a part in L2 but
+// moves acc through HBM once per part and pays 13 launches' tails), and
+// column slabs of a part (each re-stages the routed rows, and row pieces
+// of 160-300 B cost more HBM efficiency than the L2 reuse repays).  So D1
+// is one launch of routed_sum_kernel: the blocks the card holds at once
+// each own a group of reads (as many as kPairs (read, VEC-column) pairs
+// per thread allow) and walk the parts in order, whole rows at a time
+// (kernels.routed_plan; slabs only past one block's loads); per part a
+// block stages its reads' routed rows, compacts the real ones in window
+// order by a ballot (pads drop out before any load) and loads 8 rows in
+// flight per pair; each part's sum is added to the pair's running total
+// in registers (JAX's a_0 + a_1 + ...), scaled and stored once.  No
+// atomics, no partial sums in HBM, 16-byte loads at E = 300; u16 sums
+// stay exact.
 
+#include <algorithm>
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "loads.cuh"
 #include "parts.cuh"
 
 namespace {
-
-// D1: one block per read
-constexpr int kThreads = 128;
-constexpr int kCols = 4;
-constexpr int kTile = 256;
 
 // the row-sum template: threads per block, and windows whose loads are
 // issued before their adds
@@ -117,81 +126,12 @@ __device__ __forceinline__ int ld_stream(const T* p) {
   return __ldcs(p);
 }
 
-// the L2 policy of the table's loads: keep its lines past others
-// (evict_last), or the normal priority
-__device__ __forceinline__ uint64_t table_policy(int keep) {
-  uint64_t pol;
-  if (keep)
-    asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;"
-                 : "=l"(pol));
-  else
-    asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;"
-                 : "=l"(pol));
-  return pol;
-}
-
-// BYTES of a table row (16, 8, 4 or 2) in one read-only load with an L2
-// policy, as 32-bit words (a 2-byte load fills the low half of w[0])
-template <int BYTES>
-struct Words;
-
-template <>
-struct Words<16> {
-  uint32_t w[4];
-  __device__ __forceinline__ void load(const void* p, uint64_t pol) {
-    asm("ld.global.nc.L2::cache_hint.v4.u32 {%0, %1, %2, %3}, [%4], %5;"
-        : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
-        : "l"(p), "l"(pol));
-  }
-};
-
-template <>
-struct Words<8> {
-  uint32_t w[2];
-  __device__ __forceinline__ void load(const void* p, uint64_t pol) {
-    asm("ld.global.nc.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
-        : "=r"(w[0]), "=r"(w[1])
-        : "l"(p), "l"(pol));
-  }
-};
-
-template <>
-struct Words<4> {
-  uint32_t w[1];
-  __device__ __forceinline__ void load(const void* p, uint64_t pol) {
-    asm("ld.global.nc.L2::cache_hint.u32 %0, [%1], %2;"
-        : "=r"(w[0])
-        : "l"(p), "l"(pol));
-  }
-};
-
-template <>
-struct Words<2> {
-  uint32_t w[1];
-  __device__ __forceinline__ void load(const void* p, uint64_t pol) {
-    unsigned short h;
-    asm("ld.global.nc.L2::cache_hint.u16 %0, [%1], %2;"
-        : "=h"(h)
-        : "l"(p), "l"(pol));
-    w[0] = h;
-  }
-};
-
-// the bytes of VEC values of T: one load
-template <class T, int VEC>
-constexpr int kBytes = VEC * static_cast<int>(sizeof(T));
-
 // a[i] += value i of the loaded words (f32, or uint16 widened exactly)
 template <class T, int VEC>
 __device__ __forceinline__ void add_words(float (&a)[VEC],
                                           const Words<kBytes<T, VEC>>& x) {
 #pragma unroll
-  for (int i = 0; i < VEC; ++i) {
-    if constexpr (sizeof(T) == 4)
-      a[i] += __uint_as_float(x.w[i]);
-    else
-      a[i] += static_cast<float>((x.w[i / 2] >> (16 * (i & 1))) & 0xffffu);
-  }
+  for (int i = 0; i < VEC; ++i) a[i] += word_value<T, VEC>(x, i);
 }
 
 // VEC f32 sums times scale to out[0 .. VEC), streaming stores
@@ -396,53 +336,6 @@ __global__ void resolve_rows_kernel(Rows row_of, int B, int Q,
   rows[i] = row_of(b, static_cast<int>(i - static_cast<int64_t>(b) * Q));
 }
 
-template <class T>
-__global__ void __launch_bounds__(kThreads)
-routed_accumulate_kernel(Parts parts, const int32_t* __restrict__ routed,
-                         int B, int W, int E, float scale,
-                         float* __restrict__ acc) {
-  __shared__ int rows[kTile];
-  const int b = blockIdx.x;
-  float* out = acc + static_cast<int64_t>(b) * E;
-  for (int c0 = 0; c0 < E; c0 += kThreads * kCols) {
-    float a[kCols];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) a[j] = 0.f;
-    for (int p = 0; p < parts.n; ++p) {
-      const T* D = static_cast<const T*>(parts.base(p));
-      const int64_t H = parts.height(p);
-      const int32_t* rp = routed + (static_cast<int64_t>(p) * B + b) * W;
-      float s[kCols];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[j] = 0.f;
-      for (int t0 = 0; t0 < W; t0 += kTile) {
-        const int n = min(kTile, W - t0);
-        __syncthreads();  // the previous tile's rows are consumed
-        for (int i = threadIdx.x; i < n; i += kThreads)
-          rows[i] = __ldg(rp + t0 + i);
-        __syncthreads();
-#pragma unroll 4
-        for (int i = 0; i < n; ++i) {
-          const int r = rows[i];
-          if (r >= H) continue;  // a pad: the zero row, uniform
-          const T* d = D + static_cast<int64_t>(r) * E + c0 + threadIdx.x;
-#pragma unroll
-          for (int j = 0; j < kCols; ++j)
-            if (c0 + j * kThreads + static_cast<int>(threadIdx.x) < E)
-              s[j] += static_cast<float>(__ldg(d + j * kThreads));
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) a[j] += s[j];
-    }
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int col = c0 + j * kThreads + threadIdx.x;
-      if (col < E) out[col] = a[j] * scale;
-    }
-  }
-}
-
 // one launch of the row sum on a table of T with VEC columns per load
 template <class Rows, class T, int VEC>
 int launch_vec(Rows rows, const T* D, int E, Slabs sl, float scale,
@@ -493,6 +386,159 @@ int launch(Rows rows, const void* D, int u16, int E, Slabs sl, float scale,
                         dest, acc, B, stream);
   return launch_typed(rows, static_cast<const float*>(D), E, sl, scale, dest,
                       acc, B, stream);
+}
+
+// ---- D1: the routed sums over a height-split direct table ------------- //
+
+// (read, chunk) pairs of one slab that a D1 thread owns at most
+constexpr int kPairs = 4;
+
+// grid: at most the blocks the card holds at once, kSumThreads threads,
+// rpb * (W + 1) ints of dynamic shared memory.  Block g owns reads g * rpb
+// .. (g + 1) * rpb - 1 of each group of gridDim.x * rpb reads; a thread
+// owns up to kPairs (read, chunk) pairs of a slab (whole rows unless E
+// passes one block's loads), pair j = threadIdx.x + k * kSumThreads.
+// Slab by slab, then part by part in order, the block stages its reads'
+// routed rows of the part, a warp per read compacts the real ones (pads >=
+// the part's height drop out) in window order, and each pair sums its
+// read's rows of the part, then adds that sum to its running total (JAX's
+// a_0 + a_1 + ...); the totals are scaled and stored once per slab.
+template <class T, int VEC>
+__global__ void __launch_bounds__(kSumThreads, 2)
+routed_sum_kernel(Parts parts, const int32_t* __restrict__ routed, int B,
+                  int W, int E, int cols, int rpb, float scale,
+                  float* __restrict__ acc) {
+  extern __shared__ int rows[];  // [rpb][W] hit rows, then [rpb] counts
+  int* hits = rows + rpb * W;
+  __shared__ int64_t s_meta[3 * kMaxParts];
+  parts = stage_parts(parts, s_meta);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const uint64_t pol = table_policy(0);  // a split table is past L2
+  const int n_slabs = (E + cols - 1) / cols;
+  for (int g0 = 0; g0 < B; g0 += gridDim.x * rpb) {
+    const int b0 = g0 + blockIdx.x * rpb;
+    const int n_reads = max(0, min(rpb, B - b0));
+    for (int s = 0; s < n_slabs; ++s) {
+      const int c0 = s * cols;
+      const int chunks = (min(cols, E - c0) + VEC - 1) / VEC;
+      float a[kPairs][VEC];
+#pragma unroll
+      for (int k = 0; k < kPairs; ++k)
+#pragma unroll
+        for (int v = 0; v < VEC; ++v) a[k][v] = 0.f;
+      for (int p = 0; p < parts.n; ++p) {
+        const int H = static_cast<int>(parts.height(p));
+        const int32_t* rp = routed + (static_cast<int64_t>(p) * B + b0) * W;
+        __syncthreads();  // the previous part's rows are consumed
+        for (int i = threadIdx.x; i < n_reads * W; i += kSumThreads) {
+          const int r = __ldcs(rp + i);
+          rows[i] = (r >= 0 && r < H) ? r : -1;
+        }
+        __syncthreads();
+        for (int r = threadIdx.x >> 5; r < n_reads; r += kSumThreads / 32) {
+          int* own = rows + r * W;
+          int cnt = 0;
+          for (int q0 = 0; q0 < W; q0 += 32) {
+            const int row = q0 + lane < W ? own[q0 + lane] : -1;
+            const unsigned hit = __ballot_sync(0xffffffffu, row >= 0);
+            if (row >= 0) own[cnt + __popc(hit & ((1u << lane) - 1u))] = row;
+            cnt += __popc(hit);
+          }
+          if (lane == 0) hits[r] = cnt;
+        }
+        __syncthreads();
+        const T* D = static_cast<const T*>(parts.base(p)) + c0;
+#pragma unroll
+        for (int k = 0; k < kPairs; ++k) {
+          const int j = threadIdx.x + k * kSumThreads;
+          const int rl = j / chunks;
+          if (rl >= n_reads) continue;
+          const int* rr = rows + rl * W;
+          const int nh = hits[rl];
+          const T* dcol = D + (j - rl * chunks) * VEC;
+          float sum[VEC];
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) sum[v] = 0.f;
+          for (int i = 0; i < nh; i += kInFlight) {
+            Words<kBytes<T, VEC>> x[kInFlight];
+#pragma unroll
+            for (int q = 0; q < kInFlight; ++q)
+              if (i + q < nh)
+                x[q].load(dcol + static_cast<int64_t>(rr[i + q]) * E, pol);
+#pragma unroll
+            for (int q = 0; q < kInFlight; ++q)
+              if (i + q < nh) add_words<T, VEC>(sum, x[q]);
+          }
+#pragma unroll
+          for (int v = 0; v < VEC; ++v) a[k][v] = __fadd_rn(a[k][v], sum[v]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kPairs; ++k) {
+        const int j = threadIdx.x + k * kSumThreads;
+        const int rl = j / chunks;
+        if (rl < n_reads)
+          store_sums<VEC>(acc + static_cast<int64_t>(b0 + rl) * E + c0 +
+                              (j - rl * chunks) * VEC,
+                          a[k], scale);
+      }
+    }
+  }
+}
+
+template <class T, int VEC>
+int launch_routed(Parts parts, const int32_t* routed, int B, int W, int E,
+                  int cols, float scale, float* acc, cudaStream_t stream) {
+  const int chunks = (cols + VEC - 1) / VEC;
+  // at most as many reads per block as the pairs and 48 KB of row ids
+  // allow; as few as spread the batch over the blocks the card holds
+  const int max_rpb = std::min(kPairs * kSumThreads / chunks,
+                               12 * 1024 / (W + 1));
+  if (parts.n < 1 || parts.n > kMaxParts || cols < 1 || E % VEC != 0 ||
+      (cols % VEC != 0 && cols < E) || max_rpb < 1 || W < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || E <= 0) return static_cast<int>(cudaGetLastError());
+  int dev = 0, sms = 0, per_sm = 0;
+  int err = static_cast<int>(cudaGetDevice(&dev));
+  if (!err)
+    err = static_cast<int>(
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  if (!err)
+    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, routed_sum_kernel<T, VEC>, kSumThreads,
+        static_cast<size_t>(max_rpb) * (W + 1) * 4));
+  if (err) return err;
+  const int resident = std::max(1, per_sm * sms);
+  const int rpb = std::min(max_rpb, (B + resident - 1) / resident);
+  const int grid = std::min((B + rpb - 1) / rpb, resident);
+  routed_sum_kernel<T, VEC>
+      <<<grid, kSumThreads, static_cast<size_t>(rpb) * (W + 1) * 4,
+         stream>>>(parts, routed, B, W, E, cols, rpb, scale, acc);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int launch_routed_typed(Parts parts, const int32_t* routed, int B, int W,
+                        int E, int vec, int cols, float scale, float* acc,
+                        cudaStream_t stream) {
+  switch (vec) {
+    case 1:
+      return launch_routed<T, 1>(parts, routed, B, W, E, cols, scale, acc,
+                                 stream);
+    case 2:
+      return launch_routed<T, 2>(parts, routed, B, W, E, cols, scale, acc,
+                                 stream);
+    case 4:
+      return launch_routed<T, 4>(parts, routed, B, W, E, cols, scale, acc,
+                                 stream);
+    case 8:
+      if constexpr (sizeof(T) == 2)
+        return launch_routed<T, 8>(parts, routed, B, W, E, cols, scale, acc,
+                                   stream);
+      break;
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -574,21 +620,19 @@ int rp_accumulate_rows_range(const float* D, int E, const int32_t* rows,
                       stream);
 }
 
-// D1.  meta: int64[3, n] (parts.cuh) of the direct table's parts, f32
-// (u16 = 0) or uint16 (u16 = 1) [H_i + 1, E], heights H_i; routed:
-// int32[n, B, W] part-local rows (pads >= H_i); acc: f32[B, E], written.
+// D1.  meta: int64[3, n] (parts.cuh, n <= kMaxParts) of the direct
+// table's parts, f32 (u16 = 0) or uint16 (u16 = 1) [H_i + 1, E], heights
+// H_i; routed: int32[n, B, W] part-local rows (pads >= H_i); acc: f32[B,
+// E], written; vec, cols: values per load and columns per slab
+// (kernels.routed_plan; every part's base and acc aligned to vec values).
 int rp_routed_accumulate(const int64_t* meta, int n, int u16, int E,
                          const int32_t* routed, int B, int W, float scale,
-                         float* acc, cudaStream_t stream) {
-  if (B > 0) {
-    if (u16)
-      routed_accumulate_kernel<uint16_t><<<B, kThreads, 0, stream>>>(
-          Parts{meta, n}, routed, B, W, E, scale, acc);
-    else
-      routed_accumulate_kernel<float><<<B, kThreads, 0, stream>>>(
-          Parts{meta, n}, routed, B, W, E, scale, acc);
-  }
-  return static_cast<int>(cudaGetLastError());
+                         float* acc, int vec, int cols, cudaStream_t stream) {
+  if (u16)
+    return launch_routed_typed<uint16_t>(Parts{meta, n}, routed, B, W, E, vec,
+                                         cols, scale, acc, stream);
+  return launch_routed_typed<float>(Parts{meta, n}, routed, B, W, E, vec,
+                                    cols, scale, acc, stream);
 }
 
 const char* rp_error_string(int err) {

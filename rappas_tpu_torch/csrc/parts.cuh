@@ -8,11 +8,15 @@
 //
 // part_of(r) is the part that JAX's select chains pick for a global row r
 // (rappas_tpu/place/engine.py:671-681, :939-947): the last part whose first
-// row is <= r.  A part count is small (at most 64), so a linear scan.
+// row is <= r.  A part count is small (at most kMaxParts), so a linear
+// scan; a kernel that looks up many rows stages meta in shared memory
+// first (stage_parts).
 
 #pragma once
 
 #include <cstdint>
+
+constexpr int kMaxParts = 64;
 
 struct Parts {
   const int64_t* meta;
@@ -37,4 +41,12 @@ struct Parts {
 // v clipped into [0, hi]
 __device__ __forceinline__ int64_t clip(int64_t v, int64_t hi) {
   return v < 0 ? 0 : (v > hi ? hi : v);
+}
+
+// the parts with meta copied by the block into s_meta (3 * kMaxParts
+// entries of shared memory); the block synchronises before using them
+__device__ __forceinline__ Parts stage_parts(Parts parts, int64_t* s_meta) {
+  for (int i = threadIdx.x; i < 3 * parts.n; i += blockDim.x)
+    s_meta[i] = parts.meta[i];
+  return Parts{s_meta, parts.n};
 }

@@ -616,7 +616,8 @@ SUM_STAGE_ROWS = 4096
 
 
 class SlabPlan(NamedTuple):
-    """How the row-sum kernels (K1, K2, C1, C2, C3) cut one launch:
+    """How the row-sum kernels (K1, K2, C1, C2, C3; D1 its slabs) cut one
+    launch:
     ``vec`` columns per load (16 B when the row pitch and the pointers
     allow), ``cols`` columns per slab (a multiple of ``vec``, or E),
     ``n_slabs`` slabs (the slowest grid index), ``reads_per_block`` reads
@@ -862,6 +863,25 @@ def _alt_win(win_off: torch.Tensor) -> torch.Tensor:
         (win_off[1:] - win_off[:-1]).to(torch.int64))
 
 
+#: threads per block of the ambiguity kernels (``csrc/ambiguous.cu``)
+AMB_THREADS = 256
+
+
+def ambiguous_plan(E: int, itemsize: int, ptrs: tuple = ()) -> tuple:
+    """How K4 and A1 (split) cut a launch (``csrc/ambiguous.cu``): ``(vec,
+    group)`` -- ``vec`` values of ``itemsize`` bytes per load, the widest
+    load of at most 16 bytes that divides E and whose byte width divides
+    every table address in ``ptrs``; ``group`` threads per window, one
+    per load of a row, at most a block (the exp2 of every alternative at a
+    column is the work: a window spread over fewer threads runs it in
+    sequence, and idle threads in a window's warps waste their issue
+    slots)."""
+    vec = 16 // itemsize
+    while vec > 1 and (E % vec or any(p % (vec * itemsize) for p in ptrs)):
+        vec //= 2
+    return vec, max(1, min(AMB_THREADS, E // vec))
+
+
 def _check_windows(acc, E, alt_rows, win_off, win_dest, win_inv_w,
                    win_is_mean) -> None:
     """The argument checks of K4, P2 and their split instances."""
@@ -886,7 +906,8 @@ def ambiguous_pass_(acc: torch.Tensor, D: torch.Tensor, scale: float,
     Window ``w`` owns alternatives ``win_off[w] .. win_off[w + 1]``
     (``alt_win`` as CSR offsets).  On the card the adds are atomic, so
     their order -- and the last bits of a read's sum over several
-    windows -- varies from run to run."""
+    windows -- varies from run to run; the loads follow
+    :func:`ambiguous_plan`."""
     n_win = win_read.shape[0]
     if not _on_card(acc, D, alt_rows, win_off, win_read, win_inv_w,
                     win_is_mean):
@@ -897,11 +918,13 @@ def ambiguous_pass_(acc: torch.Tensor, D: torch.Tensor, scale: float,
     sfx = _table_type(D)
     _check_windows(acc, E, {"alt_rows": alt_rows}, win_off, win_read,
                    win_inv_w, win_is_mean)
+    vec, group = ambiguous_plan(E, D.element_size(), (D.data_ptr(),))
     from rappas_tpu_torch._kernels import lib
     _launch("ambiguous_pass" + sfx, lib().rp_ambiguous_pass, D.data_ptr(),
             int(bool(sfx)), E, float(scale), alt_rows.data_ptr(),
             win_off.data_ptr(), win_read.data_ptr(), win_inv_w.data_ptr(),
-            win_is_mean.data_ptr(), n_win, acc.data_ptr(), _stream(acc))
+            win_is_mean.data_ptr(), n_win, acc.data_ptr(), vec, group,
+            _stream(acc))
     return acc
 
 
@@ -946,10 +969,13 @@ def routed_accumulate_(parts: Parts, routed: torch.Tensor,
                        scale: float = 1.0) -> torch.Tensor:
     """D1 (``csrc/accumulate.cu``): ``routed_accumulate(parts.tables,
     routed)`` times ``scale`` -> a new f32 [B, E], for the parts of a
-    split direct table (f32 or uint16, heights = body rows) and their
-    routed part-LOCAL rows int32[n_parts, B, W] (pads ``>=`` the part's
-    height).  Per column the card sums each part's windows, then adds the
-    partial sums in part order, as JAX does."""
+    split direct table (f32 or uint16, each its body rows plus a trailing
+    zero row) and their routed part-LOCAL rows int32[n_parts, B, W] (pads
+    ``>=`` the part's height).  On the card one launch: the blocks the
+    card holds at once each own a group of reads and walk the parts in
+    order, whole rows at a time (:func:`routed_plan`; :data:`SLABS` keeps
+    it); per column each part's windows are summed, the part sums added in
+    part order, as JAX does, and scaled once."""
     n, B, W = routed.shape
     if not _on_card(parts.meta, routed):
         return routed_accumulate(parts.tables, tuple(routed)) * scale
@@ -958,18 +984,37 @@ def routed_accumulate_(parts: Parts, routed: torch.Tensor,
     E = t0.shape[1]
     _check(routed, "routed", torch.int32, (len(parts.tables), B, W))
     acc = torch.empty((B, E), dtype=torch.float32, device=t0.device)
+    plan = SLABS["routed_accumulate" + sfx] = routed_plan(
+        E, t0.element_size(), tuple(t.data_ptr() for t in parts.tables) +
+        (acc.data_ptr(),))
     from rappas_tpu_torch._kernels import lib
     _launch("routed_accumulate" + sfx, lib().rp_routed_accumulate,
             parts.meta.data_ptr(), n, int(bool(sfx)), E, routed.data_ptr(),
-            B, W, float(scale), acc.data_ptr(), _stream(t0))
+            B, W, float(scale), acc.data_ptr(), plan.vec, plan.cols,
+            _stream(t0))
     return acc
+
+
+def routed_plan(E: int, itemsize: int, ptrs: tuple = ()) -> SlabPlan:
+    """D1's column plan: whole rows (one slab) up to one block's
+    :data:`SUM_THREADS` loads of ``vec`` values, where ``vec`` is
+    :func:`slab_plan`'s widest load for the tables' and the output's
+    addresses ``ptrs``; the table's loads at the normal L2 priority (a
+    split table is past L2 by construction).  Slabs of the part measured
+    slower on the card: each re-stages the routed rows, and narrower row
+    pieces cost HBM efficiency that the L2 reuse does not repay."""
+    vec = slab_plan(E, itemsize, 1, 1, tuple((p, itemsize) for p in ptrs[:-1])
+                    + tuple((p, 4) for p in ptrs[-1:])).vec
+    cols = min(E, SUM_THREADS * vec)
+    n_slabs = -(-E // cols)
+    return SlabPlan(vec, cols, n_slabs, 0, 0, False)
 
 
 def ambiguous_pass_split_(acc: torch.Tensor, parts: Parts, scale: float,
                           alt_rows: torch.Tensor, win_off: torch.Tensor,
                           win_read: torch.Tensor, win_inv_w: torch.Tensor,
                           win_is_mean: torch.Tensor) -> torch.Tensor:
-    """A1 (``csrc/ambiguous.cu``, K4's template with a split row source):
+    """A1 (``csrc/ambiguous.cu``, K4's kernel with a split row source):
     ``ambiguous_pass(alt_delta_rows_split(parts.tables, scale, alt_rows),
     ...)`` added into ``acc`` IN PLACE, as :func:`ambiguous_pass_`;
     ``alt_rows`` are global body rows (the miss row is the total body
@@ -985,12 +1030,15 @@ def ambiguous_pass_split_(acc: torch.Tensor, parts: Parts, scale: float,
     E = t0.shape[1]
     _check_windows(acc, E, {"alt_rows": alt_rows}, win_off, win_read,
                    win_inv_w, win_is_mean)
+    vec, group = ambiguous_plan(E, t0.element_size(),
+                                tuple(t.data_ptr() for t in parts.tables))
     from rappas_tpu_torch._kernels import lib
     _launch("ambiguous_pass_split" + sfx, lib().rp_ambiguous_pass_split,
             parts.meta.data_ptr(), len(parts.tables), int(bool(sfx)), E,
             float(scale), alt_rows.data_ptr(), win_off.data_ptr(),
             win_read.data_ptr(), win_inv_w.data_ptr(),
-            win_is_mean.data_ptr(), n_win, acc.data_ptr(), _stream(acc))
+            win_is_mean.data_ptr(), n_win, acc.data_ptr(), vec, group,
+            _stream(acc))
     return acc
 
 
@@ -1115,13 +1163,16 @@ def ambiguous_postings_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
                         win_slot: torch.Tensor, win_inv_w: torch.Tensor,
                         win_is_mean: torch.Tensor,
                         edge_offset: int = 0) -> torch.Tensor:
-    """P2 (``csrc/ambiguous.cu``, K4's template with the postings row
-    source): ``ambiguous_pass(alt_delta_rows_postings(pairs, heavy_dense,
+    """P2 (``csrc/ambiguous.cu``, the postings kernel):
+    ``ambiguous_pass(alt_delta_rows_postings(pairs, heavy_dense,
     alt_lrows, alt_hrows), alt_win, win_slot, ...)`` added into ``acc_c``
     IN PLACE; returns ``acc_c``.  Window ``w`` owns alternatives
     ``win_off[w] .. win_off[w + 1]`` and adds into slot ``win_slot[w]``;
-    on the card the adds are atomic, as in K4.  ``edge_offset``: the
-    global id of column 0 on an edge-range shard (0 on one device)."""
+    on the card a window is scored on the columns its light postings hit
+    (all columns when an alternative is heavy, the row ``heavy_dense``'s
+    last, zero row marking a light one), and the adds are atomic, as in
+    K4.  ``edge_offset``: the global id of column 0 on an edge-range
+    shard (0 on one device)."""
     n_win = win_slot.shape[0]
     if not _on_card(acc_c, heavy_dense, pairs, alt_lrows, alt_hrows,
                     win_off, win_slot, win_inv_w, win_is_mean):
@@ -1137,7 +1188,8 @@ def ambiguous_postings_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
     _check(alt_hrows, "alt_hrows", torch.int32, alt_lrows.shape)
     from rappas_tpu_torch._kernels import lib
     _launch("ambiguous_postings", lib().rp_ambiguous_postings,
-            heavy_dense.data_ptr(), E, pairs.data_ptr(), pairs.shape[1] // 2,
+            heavy_dense.data_ptr(), E, heavy_dense.shape[0] - 1,
+            pairs.data_ptr(), pairs.shape[1] // 2,
             alt_lrows.data_ptr(), alt_hrows.data_ptr(), win_off.data_ptr(),
             win_slot.data_ptr(), win_inv_w.data_ptr(),
             win_is_mean.data_ptr(), n_win, int(edge_offset), acc_c.data_ptr(),
@@ -1172,7 +1224,8 @@ def ambiguous_postings_parts_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
     _check(alt_hrows, "alt_hrows", torch.int32, alt_lrows.shape)
     from rappas_tpu_torch._kernels import lib
     _launch("ambiguous_postings_parts", lib().rp_ambiguous_postings_parts,
-            heavy_dense.data_ptr(), E, parts.meta.data_ptr(),
+            heavy_dense.data_ptr(), E, heavy_dense.shape[0] - 1,
+            parts.meta.data_ptr(),
             len(parts.tables), t0.shape[1] // 2, alt_lrows.data_ptr(),
             alt_hrows.data_ptr(), win_off.data_ptr(), win_slot.data_ptr(),
             win_inv_w.data_ptr(), win_is_mean.data_ptr(), n_win,

@@ -808,3 +808,227 @@ def test_p3_paths_on_card(card, case):
                                                 miss=miss)):
         torch.cuda.synchronize()
         assert torch.equal(wire.cpu(), want)
+
+
+# ---- the ambiguity kernels (csrc/ambiguous.cu) ------------------------ #
+
+def _light_pairs(rng, nl, P, n_edges, dup_share=0.2):
+    """A light table int32[nl + 1, 2P] whose rows hold 1..P postings on
+    edges in [0, n_edges), a ``dup_share`` of them with one edge twice
+    (both deltas add), pads (LIGHT_PAD_EDGE, 0.0) past each row's count
+    and an all-pad last row (the miss)."""
+    edges = np.full((nl + 1, P), _PAD, np.int64)
+    deltas = np.zeros((nl + 1, P), np.float32)
+    for r in range(nl):
+        n = int(rng.integers(1, P + 1))
+        e = rng.choice(n_edges, n, replace=False)
+        if n > 1 and rng.random() < dup_share:
+            e[-1] = e[0]
+        edges[r, :n] = e
+        deltas[r, :n] = rng.random(n) * 2.5 + 1e-3
+    return np.concatenate([edges.astype(np.int32), deltas.view(np.int32)],
+                          axis=1)
+
+
+def _postings_windows(rng, nl, nh, n_win):
+    """Window specs over ``nl`` light and ``nh`` heavy rows: light-only
+    windows of 4 alternatives (some misses), windows with one heavy
+    alternative, a protein-width window of 20 light alternatives (160
+    pairs at P = 8, past a warp's 32 lanes), and one of 40 alternatives
+    (320 pairs: past the kernel's staging, read from the light rows)."""
+    sizes = [4] * n_win
+    sizes[3], sizes[7] = 20, 40
+    alt_win = np.repeat(np.arange(n_win), sizes).astype(np.int32)
+    n_alt = alt_win.size
+    lrows = rng.integers(0, nl, n_alt)
+    hrows = np.full(n_alt, nh)
+    heavy = np.zeros(n_alt, bool)
+    for w in range(0, n_win, 5):                 # a heavy alternative
+        heavy[np.flatnonzero(alt_win == w)[1]] = True
+    heavy[np.flatnonzero(alt_win == 7)[5]] = True
+    lrows[heavy], hrows[heavy] = nl, rng.integers(0, nh, int(heavy.sum()))
+    miss = rng.random(n_alt) < 0.15
+    lrows[miss & ~heavy] = nl
+    inv_w = (1.0 / np.asarray(sizes)).astype(np.float32)
+    is_mean = (rng.random(n_win) < 0.6).astype(np.uint8)
+    return (lrows.astype(np.int32), hrows.astype(np.int32), alt_win, inv_w,
+            is_mean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one", "parts", "offset"])
+def test_ambiguous_postings_windows_on_card(card, case):
+    """P2, A1 over 3 light parts and P2 on an edge-range shard against
+    their plain versions (max abs error <= 2e-4, the same hit set): an
+    odd E, light-only windows, windows with a heavy alternative, a
+    20-alternative window, a window past the staging, duplicate edges in
+    a light row, mean and max mode; on the shard, postings outside its
+    edges add nothing."""
+    rng = np.random.default_rng(81 + len(case))
+    P, nl, nh, n_win, n_slots = 8, 500, 12, 60, 9
+    n_edges, E, offset = (401, 200, 150) if case == "offset" else \
+        (301, 301, 0)
+    pairs = _light_pairs(rng, nl, P, n_edges)
+    H = _table(rng, nh + 1, E, 0.3)
+    lrows, hrows, alt_win, inv_w, is_mean = _postings_windows(
+        rng, nl, nh, n_win)
+    win_slot = rng.integers(0, n_slots, n_win).astype(np.int32)
+    acc0 = _table(rng, n_slots + 1, E, 0.1)[:n_slots]
+    spec = [torch.from_numpy(x).to(card) for x in (
+        lrows, hrows, window_offsets(alt_win, n_win), win_slot, inv_w,
+        is_mean)]
+    Hd = torch.from_numpy(H).to(card)
+    acc = torch.from_numpy(acc0).to(card)
+    if case == "parts":
+        cuts = [0, 170, 333, nl + 1]
+        tables = tuple(torch.from_numpy(pairs[a:b].copy()).to(card)
+                       for a, b in zip(cuts[:-1], cuts[1:]))
+        light = tables
+        got = T.ambiguous_postings_parts_(acc.clone(), Hd, T.make_parts(
+            tables, np.diff(cuts)), *spec)
+    else:
+        light = torch.from_numpy(pairs).to(card)
+        got = T.ambiguous_postings_(acc.clone(), Hd, light, *spec, offset)
+    want = T.ambiguous_pass(
+        T.alt_delta_rows_postings(light, Hd, spec[0], spec[1], offset),
+        torch.from_numpy(alt_win).to(card), spec[3], spec[4], spec[5], acc)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= 2e-4
+    assert torch.equal(got > 0, want > 0)
+    assert bool((got > acc).any())
+    if case == "offset":           # some postings fall outside the shard
+        e = pairs[lrows[lrows < nl], :P]
+        assert ((e < offset) | ((e >= offset + E) & (e != _PAD))).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u16, E, vec", [
+    (False, 300, 4), (False, 302, 2), (False, 301, 1), (False, 20, 4),
+    (True, 304, 8), (True, 300, 4), (True, 302, 2), (True, 301, 1)])
+def test_ambiguous_direct_vec_on_card(card, u16, E, vec):
+    """K4 and A1 (K4 over 4 parts of a split direct table) at widths that
+    take 16-, 8-, 4- and 2-byte loads, with a thread per load (E = 20:
+    5 threads per window, 51 windows per block; E = 301: 256 threads,
+    some looping), against their
+    plain versions: max abs error <= 2e-4
+    (atomic order), the same hit set; the global miss row reads the last
+    part's zero row."""
+    from rappas_tpu_torch.convert import direct_parts
+    rng = np.random.default_rng(91 + E + u16)
+    n_rows, B, n_win = 3001, 64, 80
+    D = (_u16_table(rng, n_rows, E, 0.05).numpy() if u16 else
+         _table(rng, n_rows, E, 0.05))
+    scale = float(np.float32(2.5 / 65535)) if u16 else 1.0
+    assert T.ambiguous_plan(E, D.itemsize)[0] == vec
+    parts, cuts = direct_parts(D, D.nbytes // 4 + 1, 0, 64)
+    tp = tuple(torch.from_numpy(p).to(card) for p in parts)
+    sp = T.make_parts(tp, np.diff(cuts))
+    alt_rows, alt_win, win_read, inv_w = _amb_spec(rng, n_rows, n_win, B,
+                                                   max_w=6)
+    spec = [torch.from_numpy(x).to(card) for x in (
+        alt_rows, window_offsets(alt_win, n_win), win_read, inv_w,
+        (rng.random(n_win) < 0.5).astype(np.uint8))]
+    acc = torch.from_numpy(_table(rng, B, E, 0.1)).to(card)
+    alt_win_d = torch.from_numpy(alt_win).to(card)
+    Dd = torch.from_numpy(D).to(card)
+    for got, rows in (
+            (T.ambiguous_pass_(acc.clone(), Dd, scale, *spec),
+             T.alt_delta_rows(Dd, scale, spec[0])),
+            (T.ambiguous_pass_split_(acc.clone(), sp, scale, *spec),
+             T.alt_delta_rows_split(tp, scale, spec[0]))):
+        want = T.ambiguous_pass(rows, alt_win_d, *spec[2:], acc)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 2e-4
+        assert torch.equal(got > 0, want > 0)
+        assert bool((got > acc).any())
+
+
+# ---- the row-sum template's store modes (csrc/accumulate.cu) ---------- #
+
+def _window_order_sum(D, rows):
+    """f32 sums of ``D[rows[b, q]]`` added in window order q, one column
+    at a time: the order the row-sum template keeps (misses are the zero
+    row, which leaves a sum's bits unchanged)."""
+    acc = np.zeros((rows.shape[0], D.shape[1]), np.float32)
+    for q in range(rows.shape[1]):
+        acc += D[rows[:, q]].astype(np.float32)
+    return acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u16", [False, True])
+@pytest.mark.parametrize("B, Q, E", [(300, 60, 300), (300, 60, 1100),
+                                     (300, 60, 301), (40000, 6, 300)])
+def test_routed_accumulate_parts_on_card(card, u16, B, Q, E):
+    """D1 on parts of unequal height, one of them hit by no window (all
+    pads), a read whose windows all lie in one part, and a read with no
+    window; whole rows (E = 300, 16- and 8-byte loads), two slabs where E
+    passes one block's loads (E = 1100; E = 301, one value per load), and
+    more reads than the card's resident blocks take at once: bitwise
+    equal to each part's window-order sum added in part order and scaled
+    once (JAX's ``(a_0 + a_1 + ...) * scale``); u16 bitwise equal to the
+    plain version and the unsplit table's sums, f32 within 1e-5 relative
+    of them."""
+    from rappas_tpu_torch.place.engine import route_rows
+    rng = np.random.default_rng(101 + u16 + B + E)
+    n = 9000
+    D = (_u16_table(rng, n + 1, E, 0.05).numpy() if u16 else
+         _table(rng, n + 1, E, 0.05))
+    scale = float(np.float32(2.5 / 65535)) if u16 else 1.0
+    cuts = np.array([0, 1000, 1500, 7000, n])
+    rows = rng.integers(0, n + 1, (B, Q))
+    rows[(rows >= 1000) & (rows < 1500)] = n     # part 1: all pads
+    rows[0] = rng.integers(1500, 7000, Q)        # read 0: part 2 only
+    rows[1] = n                                  # read 1: no window
+    rows = rows.astype(np.int32)
+    tables = [np.concatenate([D[a:b], np.zeros((1, E), D.dtype)])
+              for a, b in zip(cuts[:-1], cuts[1:])]
+    tp = tuple(torch.from_numpy(t).to(card) for t in tables)
+    routed_np = route_rows(rows, cuts)
+    assert (routed_np[1] == 500).all()
+    routed = torch.from_numpy(routed_np).to(card)
+    got = T.routed_accumulate_(T.make_parts(tp, np.diff(cuts)), routed,
+                               scale)
+    want = T.routed_accumulate(tp, tuple(routed)) * scale
+    whole = T.accumulate(torch.from_numpy(D).to(card),
+                         torch.from_numpy(rows).to(card)) * scale
+    sums = [_window_order_sum(t, r) for t, r in zip(tables, routed_np)]
+    ref = sums[0]
+    for s in sums[1:]:
+        ref = ref + s
+    ref = ref * np.float32(scale)
+    torch.cuda.synchronize()
+    assert np.array_equal(got.cpu().numpy().view(np.uint32),
+                          ref.view(np.uint32))
+    if u16:
+        assert torch.equal(got, want) and torch.equal(got, whole)
+    else:
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.allclose(got, whole, rtol=1e-5, atol=1e-5)
+    plan = T.SLABS["routed_accumulate" + ("_u16" if u16 else "")]
+    assert plan.n_slabs == (1 if E == 300 else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u16", [False, True])
+def test_k1_bits_in_window_order_on_card(card, u16):
+    """K1 (the template's write mode) bitwise equal to the window-order
+    f32 sums times the scale, with the L2 slabs as shipped (4 slabs of
+    76 columns for f32 on the config-1 table, 2 for u16)."""
+    rng = np.random.default_rng(111 + u16)
+    k, E, L, B = 8, 300, 150, 512
+    D = (_u16_table(rng, 4 ** k + 1, E, 0.02).numpy() if u16 else
+         _table(rng, 4 ** k + 1, E, 0.02))
+    scale = float(np.float32(2.5 / 65535)) if u16 else 1.0
+    pure, plens = _codes(rng, B, L, k)
+    p = torch.from_numpy(pack_reads(pure)).to(card)
+    pl = torch.from_numpy(plens).to(card)
+    Dd = torch.from_numpy(D).to(card)
+    got = T.accumulate_packed(Dd, p, pl, L, k, scale)
+    rows = T.kmer_rows_packed(p, pl, k, 4, D.shape[0], L).cpu().numpy()
+    ref = _window_order_sum(D, rows) * np.float32(scale)
+    torch.cuda.synchronize()
+    assert np.array_equal(got.cpu().numpy().view(np.uint32),
+                          ref.view(np.uint32))
+    sfx = "_u16" if u16 else ""
+    assert T.SLABS["accumulate_packed" + sfx].n_slabs > 1

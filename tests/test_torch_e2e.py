@@ -47,37 +47,101 @@ def _variant(fixtures_dir, path, seed=0):
     return path
 
 
-def _run(main, db_path, reads, wd, extra):
-    assert main(["-p", "p", "-d", str(db_path), "-q", str(reads),
-                 "-w", str(wd), "--batch-size", "16", *extra]) == 0
-    name = reads.name
-    jp = json.loads((wd / f"placements_{name}.jplace").read_text())
-    tsv = (wd / "logs" / f"placements_{name}.tsv").read_text()
-    unplaced = (wd / "logs" / f"notplaced_{name}.tsv").read_text()
-    return jp, tsv, unplaced
+def _fastq(fasta, path):
+    """``fasta``'s reads as FASTQ (constant qualities)."""
+    recs = [r.split("\n", 1) for r in fasta.read_text().split(">")[1:]]
+    path.write_text("".join(
+        f"@{h}\n{s.replace(chr(10), '')}\n+\n"
+        f"{'I' * len(s.replace(chr(10), ''))}\n" for h, s in recs))
+    return path
+
+
+def _messy(fixtures_dir, path):
+    """tiny_reads with reads at the edges: lower case, mixed case with an
+    N, shorter than k, all N, and one exactly k long."""
+    recs = [r.split("\n", 1) for r in
+            (fixtures_dir / "tiny_reads.fasta").read_text().split(">")[1:]]
+    recs = [(h, s.replace("\n", "")) for h, s in recs]
+    out = []
+    for i, (h, s) in enumerate(recs):
+        if i % 4 == 0:
+            s = s.lower()
+        elif i % 4 == 1:
+            s = s[:10].lower() + "N" + s[11:]
+        out.append((h, s))
+    out += [("short1 below k", "ACGTA"), ("short2", recs[0][1][:7]),
+            ("allN", "N" * 60), ("exactly_k", recs[1][1][:8])]
+    path.write_text("".join(f">{h}\n{s}\n" for h, s in out))
+    return path
+
+
+def _run(main, db_path, queries, wd, extra):
+    """One CLI run over the query files; per file its (jplace, TSV
+    report, unplaced list)."""
+    assert main(["-p", "p", "-d", str(db_path), "-q",
+                 ",".join(str(q) for q in queries), "-w", str(wd),
+                 "--batch-size", "16", *extra]) == 0
+    outs = []
+    for q in queries:
+        name = q.name
+        jp = json.loads((wd / f"placements_{name}.jplace").read_text())
+        tsv = (wd / "logs" / f"placements_{name}.tsv").read_text()
+        unplaced = (wd / "logs" / f"notplaced_{name}.tsv").read_text()
+        outs.append((jp, tsv, unplaced))
+    return outs
 
 
 @pytest.mark.parametrize("reads, flags", [
     ("tiny", []), ("variant", []), ("variant", ["--ambwithmax"]),
     ("variant", ["--noamb"]), ("tiny", ["--guppy-compat"]),
     ("tiny", ["--table", "postings"]), ("variant", ["--table", "postings"]),
-    ("variant", ["--table", "postings", "--ambwithmax"])])
+    ("variant", ["--table", "postings", "--ambwithmax"]),
+    # the report flags, the read formats and the read kinds at the edges
+    ("variant", ["--keep-at-most", "1"]), ("variant", ["--keep-at-most", "3"]),
+    ("variant", ["--keep-factor", "0.5"]), ("variant", ["--nsbound", "-3"]),
+    ("fastq", []), ("messy", []), ("messy", ["--table", "postings"]),
+    ("messy", ["--table", "compact"]), ("messy", ["--precision", "u16"]),
+    ("pair", []), ("variant", ["--dp", "2"])])
 def test_port_cli_matches_jax_cli(tmp_path, fixtures_dir, db_path, reads,
                                   flags):
     e2e_case(tmp_path, fixtures_dir, db_path, reads, flags)
 
 
+def _queries(reads, fixtures_dir, tmp_path):
+    """The query files of a read set: ``tiny`` (the fixture), ``variant``
+    (:func:`_variant`), ``fastq`` (the fixture as FASTQ), ``messy``
+    (:func:`_messy`) or ``pair`` (tiny and variant, one comma-separated
+    ``-q``)."""
+    tiny = fixtures_dir / "tiny_reads.fasta"
+    variant = tmp_path / "variant_reads.fasta"
+    return {"tiny": lambda: [tiny],
+            "variant": lambda: [_variant(fixtures_dir, variant)],
+            "fastq": lambda: [_fastq(tiny, tmp_path / "tiny_reads.fastq")],
+            "messy": lambda: [_messy(fixtures_dir,
+                                     tmp_path / "messy_reads.fasta")],
+            "pair": lambda: [tiny, _variant(fixtures_dir, variant)],
+            }[reads]()
+
+
 def e2e_case(tmp_path, fixtures_dir, db_path, reads, flags):
     """One read set through both CLIs with ``flags``; the outputs must
-    match as the module docstring says."""
-    q = (fixtures_dir / "tiny_reads.fasta" if reads == "tiny" else
-         _variant(fixtures_dir, tmp_path / "variant_reads.fasta"))
+    match, file by file, as the module docstring says."""
+    queries = _queries(reads, fixtures_dir, tmp_path)
     # --dp 1: the test session gives JAX 8 virtual CPU devices, and auto
-    # dp would take the sharded engine
-    j, j_tsv, j_un = _run(jax_main, db_path, q, tmp_path / "jax",
-                          ["--dp", "1", *flags])
-    t, t_tsv, t_un = _run(port_main, db_path, q, tmp_path / "port",
-                          ["--device", "cpu", *flags])
+    # dp would take the sharded engine (a --dp in ``flags`` comes later
+    # and wins)
+    jax_out = _run(jax_main, db_path, queries, tmp_path / "jax",
+                   ["--dp", "1", *flags])
+    port_out = _run(port_main, db_path, queries, tmp_path / "port",
+                    ["--device", "cpu", *flags])
+    for (t, t_tsv, t_un), (j, j_tsv, j_un) in zip(port_out, jax_out):
+        _same_outputs(t, t_tsv, t_un, j, j_tsv, j_un)
+    if reads == "messy":            # no window: unplaced, in both
+        assert port_out[0][2].split() == ["short1", "below", "k", "short2",
+                                          "allN"]
+
+
+def _same_outputs(t, t_tsv, t_un, j, j_tsv, j_un):
     assert t["tree"] == j["tree"]
     assert t["fields"] == j["fields"] and t["version"] == j["version"]
     assert len(t["placements"]) == len(j["placements"]) > 0

@@ -602,3 +602,139 @@ def test_slab_plan_alignment():
     assert T.slab_plan(300, 4, 100, 100, ((256, 4), (4, 4))).vec == 1
     assert T.slab_plan(304, 2, 100, 100, ((256, 2), (256, 4))).vec == 8
     assert T.slab_plan(304, 2, 100, 100, ((256, 2), (8, 4))).vec == 2
+
+
+# ---------------------------------------------------------------------- #
+# the sparse per-window scoring of P2 / A1 (csrc/ambiguous.cu)
+
+def _vec_unary(fn, x):
+    """``fn`` over ``x`` padded to whole 64-value blocks: ATen evaluates a
+    float unary op on whole SIMD blocks one way and on a tail another
+    (exp2 differs in the last bit), so a value's result must not depend
+    on where it sits; ``ambiguous_contrib``'s operands below are whole
+    blocks too."""
+    n = x.numel()
+    pad = torch.zeros(-n % 64, dtype=x.dtype)
+    return fn(torch.cat([x.reshape(-1), pad]))[:n].reshape(x.shape)
+
+
+def _sparse_contrib(pairs, H, alt_lrows, alt_hrows, win_off, inv_w,
+                    is_mean, offset=0):
+    """[n_win, E] window contributions as the postings kernel scores them:
+    per window only the distinct columns its light postings hit (edge -
+    offset in [0, E)), every column when an alternative is heavy; per
+    column the alternatives' terms in order -- 10^v for an alternative
+    that reaches the column (v its heavy value there plus its postings on
+    the column in posting order), 1.0 for one that misses -- summed from
+    0, the max over the v (0 for a miss), the mean/max choice and the
+    DELTA_TINY floor on a hit."""
+    P = pairs.shape[1] // 2
+    nh, E = H.shape[0] - 1, H.shape[1]
+    edges = (pairs[:, :P].to(torch.int64) - offset).tolist()
+    deltas = pairs[:, P:].contiguous().view(torch.float32)
+    out = torch.zeros((len(win_off) - 1, E))
+    for w in range(len(win_off) - 1):
+        alts = range(int(win_off[w]), int(win_off[w + 1]))
+        cols = []
+        for i in alts:
+            cols += [e for e in edges[int(alt_lrows[i])]
+                     if 0 <= e < E and e not in cols]
+        if any(int(alt_hrows[i]) != nh for i in alts):
+            cols += [e for e in range(E) if e not in cols]
+        if not cols:
+            continue
+        at = {e: j for j, e in enumerate(cols)}
+        vs, reach = [], []
+        for i in alts:
+            h, lr = int(alt_hrows[i]), int(alt_lrows[i])
+            v = (H[h, cols].clone() if h != nh
+                 else torch.zeros(len(cols)))
+            r = torch.full((len(cols),), h != nh)
+            for p, e in enumerate(edges[lr]):
+                if 0 <= e < E:
+                    v[at[e]] += deltas[lr, p]
+                    r[at[e]] = True
+            vs.append(v)
+            reach.append(r)
+        ten = _vec_unary(torch.exp2, torch.stack(vs) * T.LOG2_10)
+        s = torch.zeros(len(cols))
+        mx = torch.full((len(cols),), float("-inf"))
+        for v, r, t in zip(vs, reach, ten):
+            s = s + torch.where(r, t, torch.ones_like(t))
+            mx = torch.maximum(mx, v)
+        mean = _vec_unary(torch.log2, torch.clamp_min(
+            s * inv_w[w], 1e-30)) * T.INV_LOG2_10
+        c = mean if bool(is_mean[w]) else mx
+        out[w, cols] = torch.where(mx > 0, torch.clamp_min(
+            c, float(DELTA_TINY)), torch.zeros_like(c))
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 24])
+def test_sparse_window_scoring(offset):
+    """The postings kernel's sparse scoring (``_sparse_contrib``) bitwise
+    equal to ``kernels.ambiguous_contrib`` of ``alt_delta_rows_postings``
+    on the CPU, and within 2e-4 of JAX's ``alt_delta_rows_postings`` +
+    ``ambiguous_contrib`` with the same hit set (XLA's exp2 and log2 round
+    differently from ATen's): heavy, light and miss alternatives, pad
+    slots, duplicate edges in a light row, and under an edge offset
+    postings outside the shard's columns."""
+    rng = np.random.default_rng(17 + offset)
+    E, P, nl, nh, n_win = 64, 8, 40, 6, 16
+    n_edges = E + 2 * offset
+    pad = int(T.LIGHT_PAD_EDGE)
+    edges = np.full((nl + 1, P), pad, np.int64)
+    deltas = np.zeros((nl + 1, P), np.float32)
+    for r in range(nl):
+        n = int(rng.integers(1, P + 1))
+        edges[r, :n] = rng.choice(n_edges, n, replace=False)
+        if n > 2 and r % 3 == 0:
+            edges[r, n - 1] = edges[r, 0]            # a duplicate edge
+        deltas[r, :n] = rng.random(n) * 2.5 + 1e-3
+        perm = rng.permutation(P)                    # pads anywhere
+        edges[r], deltas[r] = edges[r, perm], deltas[r, perm]
+    deltas[5, :] = np.where(edges[5] != pad, DELTA_TINY, 0)
+    pairs = np.concatenate([edges.astype(np.int32), deltas.view(np.int32)],
+                           axis=1)
+    H = _table(rng, nh + 1, E, fill=0.3)
+    W = np.where(np.arange(n_win) == 2, 20, 4)       # one protein X window
+    alt_win = np.repeat(np.arange(n_win), W).astype(np.int32)
+    n_alt = alt_win.size
+    alt_lrows = rng.integers(0, nl, n_alt).astype(np.int32)
+    alt_hrows = np.full(n_alt, nh, np.int32)
+    heavy = np.zeros(n_alt, bool)
+    heavy[np.flatnonzero(alt_win % 5 == 0)[::4]] = True
+    alt_hrows[heavy] = rng.integers(0, nh, int(heavy.sum()))
+    alt_lrows[heavy] = nl
+    alt_lrows[::7] = nl                              # misses
+    alt_lrows[alt_win == 4] = 5                      # threshold-grade hits
+    win_off = window_offsets(alt_win, n_win)
+    inv_w = (1.0 / W).astype(np.float32)
+    is_mean = rng.random(n_win) < 0.6
+    t = [torch.from_numpy(x) for x in (pairs, H, alt_lrows, alt_hrows)]
+    got = _sparse_contrib(*t, win_off, torch.from_numpy(inv_w), is_mean,
+                          offset)
+    rows = T.alt_delta_rows_postings(*t, offset)
+    want = T.ambiguous_contrib(rows, torch.from_numpy(alt_win),
+                               torch.from_numpy(inv_w),
+                               torch.from_numpy(is_mean))
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert bool((got[4] > 0).any()) and bool((got[2] > 0).any())
+    # JAX on the shard's own table: its edges local, other postings pads
+    e_loc = edges - offset
+    out_of_range = (e_loc < 0) | (e_loc >= E) | (edges == pad)
+    j_pairs = np.concatenate([
+        np.where(out_of_range, pad, e_loc).astype(np.int32),
+        np.where(out_of_range, 0, deltas).astype(np.float32).view(np.int32)],
+        axis=1)
+    if offset:
+        assert (out_of_range & (edges != pad)).any()
+    j_rows = J.alt_delta_rows_postings(
+        (jnp.asarray(j_pairs),), jnp.asarray(H), jnp.asarray(alt_lrows),
+        jnp.asarray(alt_hrows))
+    assert np.array_equal(np.asarray(j_rows), rows.numpy())
+    jc = np.asarray(J.ambiguous_contrib(j_rows, jnp.asarray(alt_win),
+                                        jnp.asarray(inv_w),
+                                        jnp.asarray(is_mean)))
+    assert np.allclose(got.numpy(), jc, atol=2e-4, rtol=0)
+    assert np.array_equal(got.numpy() > 0, jc > 0)
