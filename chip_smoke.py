@@ -99,7 +99,14 @@ slots, postings per read and how many reads took the warp, block and
 scratch paths; P3 also times the block path alone, every read on it, in
 the same run.  The P2/A1 postings lines report the light-only windows and
 the largest light pairs one window stages; the K4 and A1 split lines
-their load width and threads per window.
+their load width and threads per window.  K3 is timed at keep 7 (each
+lane's candidates in registers) and keep 20 (the scanning rounds), each
+line with its path, lanes per read, reads per block, rate over the bytes
+it must move, the rows' matched columns and the device time of each
+shape (8, 16, 32 lanes per read).  P1 is held bitwise against the sums
+in CSR order (also on an edge-range shard) and reports its slots, heavy
+hits, distinct rows, longest slot, the rate of its heavy-row bytes
+(``row_tb_s``) and the device time at each load width and L2 policy.
 
 Standard output ends with the card's name and power limit, one JSON line
 of kernel results and one JSON line ``{"ok": true, "device": ...}``.  Any
@@ -604,38 +611,79 @@ def kernel_phase(db, seed: int, precision: str = "f32",
     return out
 
 
+#: K3's second instance: past kLaneTop (8) candidates a lane keeps, the
+#: scanning rounds (no phase of the main path runs it: its line is a
+#: sub-entry of K3's, without launches)
+K_KEEP_SCAN = 20
+
+
 def finalize_phase(acc_pure, lens_d, thr_t, k: int) -> dict:
-    """K3 on config 1's batch of K1 sums."""
+    """K3 on config 1's batch of K1 sums, at K_KEEP (each lane's
+    candidates in registers) and, as the sub-entry ``keep20``, at
+    K_KEEP_SCAN (the scanning rounds): the wire bitwise the plain
+    version's and its rate over the bytes it must move."""
     import torch
 
     from rappas_tpu_torch.place import kernels as K
 
     thr = float(thr_t)
-    got = K.finalize_wire(acc_pure, lens_d, thr, k, K_KEEP)
-    te, ts, lwr, nm = K.finalize(acc_pure, lens_d, thr_t, k, K_KEEP)
-    want = K.pack_wire(te, ts, lwr, nm)
-    torch.cuda.synchronize()
-    g_nm, w_nm = got[:, -1], want[:, -1]
-    check(torch.equal(g_nm, w_nm), "K3 finalize_wire: |L| differs")
-    g_s = got[:, :K_KEEP].view(torch.float32)
-    fin = torch.isfinite(ts)
-    err3 = float((g_s - ts)[fin].abs().max()) if bool(fin.any()) else 0.0
-    same_bits = torch.equal(got[:, :K_KEEP], want[:, :K_KEEP])
-    # edges must agree exactly where the score bits do (no tie reordering)
-    check(same_bits and torch.equal(got, want),
-          f"K3 finalize_wire: wire words differ from the plain version "
-          f"(scores bitwise equal: {same_bits}, max abs err {err3})")
-    Qs = (lens_d - (k - 1)).to(torch.float32)[:, None] * thr_t
-    masked = torch.where(acc_pure > 0, Qs + acc_pure,
-                         torch.full_like(acc_pure, float("-inf")))
-    b, why = bound(acc_pure.numel() * 4 + lens_d.numel() * 4 +
-                   got.numel() * 4, 3 * acc_pure.numel())
-    return {"finalize_wire": dict(
-        max_abs_err=err3, bound_ms=b, bound_by=why,
-        **timed(lambda: K.finalize_wire(acc_pure, lens_d, thr, k, K_KEEP)),
-        plain_ms=cuda_ms(lambda: K.pack_wire(*K.finalize(
-            acc_pure, lens_d, thr_t, k, K_KEEP))),
-        library_ms=cuda_ms(lambda: torch.topk(masked, K_KEEP, dim=1)))}
+    out = {}
+    for keep in (K_KEEP, K_KEEP_SCAN):
+        def run():
+            return K.finalize_wire(acc_pure, lens_d, thr, k, keep)
+
+        got = run()
+        te, ts, lwr, nm = K.finalize(acc_pure, lens_d, thr_t, k, keep)
+        want = K.pack_wire(te, ts, lwr, nm)
+        torch.cuda.synchronize()
+        check(torch.equal(got[:, -1], want[:, -1]),
+              f"K3 at keep {keep}: |L| differs")
+        g_s = got[:, :keep].view(torch.float32)
+        fin = torch.isfinite(ts)
+        err3 = float((g_s - ts)[fin].abs().max()) if bool(fin.any()) \
+            else 0.0
+        same_bits = torch.equal(got[:, :keep], want[:, :keep])
+        # edges must agree exactly where the score bits do (no tie
+        # reordering)
+        check(same_bits and torch.equal(got, want),
+              f"K3 at keep {keep}: wire words differ from the plain "
+              f"version (scores bitwise equal: {same_bits}, max abs err "
+              f"{err3})")
+        Qs = (lens_d - (k - 1)).to(torch.float32)[:, None] * thr_t
+        masked = torch.where(acc_pure > 0, Qs + acc_pure,
+                             torch.full_like(acc_pure, float("-inf")))
+        nbytes = acc_pure.numel() * 4 + lens_d.numel() * 4 + got.numel() * 4
+        b, why = bound(nbytes, 3 * acc_pure.numel())
+        # csrc/finalize.cu: 8 lanes per read, 256 threads a block
+        r = dict(max_abs_err=err3, bound_ms=b, bound_by=why, **timed(run),
+                 plain_ms=cuda_ms(lambda: K.pack_wire(*K.finalize(
+                     acc_pure, lens_d, thr_t, k, keep))),
+                 library_ms=cuda_ms(lambda: torch.topk(masked, keep, dim=1)),
+                 path="registers" if keep <= 8 else "scan",
+                 reads_per_warp=4, reads_per_block=32,
+                 matched_per_row=float((acc_pure > 0).sum(1).float().mean()))
+        r["tb_s"] = nbytes / (r["ms"] * 1e-3) / 1e12
+        if keep == K_KEEP:
+            out["finalize_wire"] = r
+        else:
+            out["finalize_wire"]["keep20"] = r
+    return out
+
+
+def inorder_slot_sums(H, hrows, hoff):
+    """P1's function summed in CSR order: round j adds the j-th source row
+    of every slot that has one, from zero (f32 adds on the card, so the
+    kernel's sums must match bitwise)."""
+    import torch
+
+    n_slots = hoff.numel() - 1
+    counts = (hoff[1:] - hoff[:-1]).long()
+    acc = torch.zeros((n_slots, H.shape[1]), dtype=torch.float32,
+                      device=H.device)
+    for j in range(int(counts.max()) if n_slots else 0):
+        has = torch.nonzero(counts > j).squeeze(1)
+        acc[has] += H[hrows[hoff[has].long() + j].long()]
+    return acc
 
 
 def compact_kernel_phase(eng, seed: int, ref=None, length: int = READ_LEN,
@@ -748,28 +796,37 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
 
     # P1 ------------------------------------------------------------ #
     n_slots = d["hoff"].numel() - 1
-    slots = torch.repeat_interleave(torch.arange(n_slots, device=dev),
-                                    (d["hoff"][1:] - d["hoff"][:-1]).long())
-    acc_c = K.dense_side(H, d["hrows"], d["hoff"])
+    sizes = (d["hoff"][1:] - d["hoff"][:-1]).long()
+    slots = torch.repeat_interleave(torch.arange(n_slots, device=dev), sizes)
+
+    def p1():
+        return K.dense_side(H, d["hrows"], d["hoff"])
+
+    acc_c = p1()
     want = K.scatter_slots(K.gather_rows(H, d["hrows"]), slots, n_slots)
+    inorder = inorder_slot_sums(H, d["hrows"], d["hoff"])
     torch.cuda.synchronize()
     err = float((acc_c - want).abs().max()) if n_slots else 0.0
     check(torch.allclose(acc_c, want, rtol=1e-5, atol=1e-6),
           f"P1 dense_side disagrees with its plain version "
           f"(max abs err {err})")
+    check(torch.equal(acc_c, inorder),
+          "P1 dense_side: not the in-order sums bitwise")
     n_h = d["hrows"].numel()
-    b, why = bound(n_h * 4 + (n_slots + 1) * 4 +
-                   torch.unique(d["hrows"]).numel() * E * 4 +
+    distinct = torch.unique(d["hrows"]).numel()
+    b, why = bound(n_h * 4 + (n_slots + 1) * 4 + distinct * E * 4 +
                    n_slots * E * 4, n_h * E)
     hrows_long, hoff_long = d["hrows"].long(), d["hoff"][:-1].long()
-    out["dense_side"] = dict(
+    r = dict(
         max_abs_err=err, bound_ms=b, bound_by=why, slots=n_slots,
-        heavy_hits=n_h,
-        **timed(lambda: K.dense_side(H, d["hrows"], d["hoff"])),
+        heavy_hits=n_h, distinct_rows=distinct,
+        longest_slot=int(sizes.max()) if n_slots else 0, **timed(p1),
         plain_ms=cuda_ms(lambda: K.scatter_slots(
             K.gather_rows(H, d["hrows"]), slots, n_slots)),
         library_ms=cuda_ms(lambda: torch.nn.functional.embedding_bag(
             hrows_long, H, hoff_long, mode="sum")))
+    r["row_tb_s"] = n_h * E * 4 / (r["ms"] * 1e-3) / 1e12
+    out["dense_side"] = r
 
     # P2 ------------------------------------------------------------ #
     spec = [d[n] for n in ("alt_lrows", "alt_hrows", "win_off", "win_slot",
@@ -899,6 +956,10 @@ def sharded_postings_kernel_phase(sp, eng, seed: int, ref) -> dict:
         H, pairs = sh["heavy_dense"][dev], sh["pairs"][dev]
         E, P, off = H.shape[1], pairs.shape[1] // 2, sh["offset"]
         acc_c = K.dense_side(H, d["hrows"], d["hoff"])
+        check(torch.equal(acc_c, inorder_slot_sums(H, d["hrows"],
+                                                   d["hoff"])),
+              f"P1 dense_side on shard {j} ({E} columns): not the in-order "
+              "sums bitwise")
         spec = [d[n] for n in ("alt_lrows", "alt_hrows", "win_off",
                                "win_slot", "win_inv_w", "win_is_mean")]
         alt_win = torch.repeat_interleave(
@@ -2177,7 +2238,12 @@ def main() -> int:
                                        "resolve_pass", "paths",
                                        "light_only_windows",
                                        "max_pairs_per_window",
-                                       "load_bytes", "threads_per_window")
+                                       "load_bytes", "threads_per_window",
+                                       "path", "reads_per_warp",
+                                       "reads_per_block", "tb_s",
+                                       "slots", "heavy_hits",
+                                       "distinct_rows", "longest_slot",
+                                       "keep20")
                if key in r}})
     if args.json_out:
         Path(args.json_out).parent.mkdir(parents=True, exist_ok=True)

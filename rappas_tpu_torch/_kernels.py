@@ -28,7 +28,7 @@ BUILD = Path(__file__).parent / "_build"
 SOURCES = ("accumulate.cu", "finalize.cu", "ambiguous.cu", "postings.cu",
            "merge.cu")
 #: headers the sources include (part of the build's hash)
-HEADERS = ("parts.cuh", "loads.cuh")
+HEADERS = ("parts.cuh", "loads.cuh", "topk.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 FLAGS = ("-O3", "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

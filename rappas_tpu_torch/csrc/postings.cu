@@ -10,10 +10,37 @@
 // H is the heavy dense table f32[nh + 1, E] (last row zero).  The host
 // emits heavy hits grouped by read (row-major np.nonzero) and gives each
 // read with dense content one slot, so a slot's sources are one CSR range.
-// One block per slot sums its sources in order, in registers, and writes
-// the whole row: deterministic (no atomics), and acc_c needs no zeroing.
-// What bounds it on an H100: bytes (each source row read once, each slot
-// row written once).
+// What bounds it on an H100: bytes (each distinct source row read once,
+// each slot row written once).  Config 5's batch of 8,192 reads has 2,497
+// slots of 1.3 sources on average (at most 5) over 1,781 distinct rows of
+// 7,999 columns.  The first design, a 256-thread block per slot, a thread
+// per column stride, one scalar load per source and column and the CSR
+// range re-read per column, kept few bytes in flight.
+//
+// Design: a warp per (column tile, slot), warps ordered tile-major, so
+// that the warps in flight together read the same columns of the batch's
+// rows and a row that recurs across slots comes from L2.  Each lane adds
+// the slot's sources in CSR order from 0 into 16 sums in registers: the
+// plain in-order f32 sums bitwise, no atomics, acc_c needs no zeroing,
+// and a slot without sources writes a zero row.  The row ids are staged
+// in registers 32 at a time and broadcast by shuffles.  Per source a lane
+// issues kQuads 16-byte loads together before adding them: with slots of
+// one or two sources the bytes in flight come from columns, not sources.
+// A tile is kQuads groups of 31 output quads of the slot's row (the
+// aligned 16 bytes at columns 4q - osh .., osh = the output row's word
+// offset from a 16-byte boundary); lane l owns quad 31 (kQuads tile + g)
+// + l of group g, and lane 31 only loads.  A source row starts at word
+// offset sh (3r mod 4 for row r at E = 7,999), so a lane loads the aligned
+// quad that holds its first column and takes the rest from lane + 1's
+// quad by shuffles (d = (sh - osh) mod 4 words; none when d = 0).  A quad
+// is loaded only where it holds a word of the row: an aligned 16 bytes
+// with one valid word never crosses a page.
+// Measured on the card and dropped (PERF.md): 4-byte loads (a little
+// slower), L2 evict_last on H (about 2% faster on config 5, but it would
+// hold up to 57 MB of heavy rows over the light table that the next
+// kernels read), and two sources in flight per lane (registers).
+// Staging each source row through shared memory instead would add a
+// shared store, a shared load and a barrier to the same global loads.
 //
 // P3 replaces light_gather (single part, :654-672) + the rest of
 // finalize_postings_local (:684-904) + pack_wire (:68).  For read b with
@@ -123,53 +150,102 @@
 #include <cuda_runtime.h>
 
 #include "parts.cuh"
+#include "topk.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr unsigned kFull = 0xffffffffu;
 constexpr uint32_t kPadEdge = 0x7fffffffu;  // db.LIGHT_PAD_EDGE
 constexpr uint64_t kEmpty = ~0ull;          // sort padding, past any key
 
 // the warp path: the largest region a read may take (kernels.WARP_PAIRS),
-// reads (warps) per block at most, an SM's shared memory, and the
-// candidates a lane keeps in registers
+// reads (warps) per block at most, and an SM's shared memory
 constexpr int kWarpMaxPairs = 1024;
 constexpr int kMaxWarpReads = 2;
 constexpr size_t kSmemPerSM = 228 * 1024;
-constexpr int kLaneTop = 8;
+
+// P1: the 16-byte quads of a source row a lane loads
+constexpr int kQuads = 4;
+
+// four row words from a quad a and the next quad b, starting at word d of
+// a (d is the same in every lane), added in order into s
+__device__ __forceinline__ void add_shifted(float* s, float4 a, float4 b,
+                                            int d) {
+  float w[4];
+  switch (d) {
+    case 0: w[0] = a.x; w[1] = a.y; w[2] = a.z; w[3] = a.w; break;
+    case 1: w[0] = a.y; w[1] = a.z; w[2] = a.w; w[3] = b.x; break;
+    case 2: w[0] = a.z; w[1] = a.w; w[2] = b.x; w[3] = b.y; break;
+    default: w[0] = a.w; w[1] = b.x; w[2] = b.y; w[3] = b.z; break;
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t) s[t] += w[t];
+}
 
 __global__ void __launch_bounds__(kThreads)
 dense_side_kernel(const float* __restrict__ H, int E,
                   const int32_t* __restrict__ hrows,
-                  const int32_t* __restrict__ hoff,
+                  const int32_t* __restrict__ hoff, int n_slots, int tiles,
                   float* __restrict__ acc_c) {
-  const int s = blockIdx.x;
+  constexpr int kSums = 4 * kQuads;
+  const int64_t wid =
+      static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (wid >= static_cast<int64_t>(n_slots) * tiles) return;  // whole warps
+  const int s = static_cast<int>(wid % n_slots);
+  const int tile = static_cast<int>(wid / n_slots);
+  const int lane = threadIdx.x & 31;
   const int lo = hoff[s];
   const int hi = hoff[s + 1];
   float* out = acc_c + static_cast<int64_t>(s) * E;
-  for (int e = threadIdx.x; e < E; e += kThreads) {
-    float a = 0.f;
-    for (int i = lo; i < hi; ++i)
-      a += __ldg(H + static_cast<int64_t>(hrows[i]) * E + e);
-    out[e] = a;
+  float sum[kSums];
+#pragma unroll
+  for (int t = 0; t < kSums; ++t) sum[t] = 0.f;
+  const int osh =
+      static_cast<int>((reinterpret_cast<uintptr_t>(out) >> 2) & 3);
+  const int q0 = 31 * kQuads * tile + lane;  // the quad of group 0
+  for (int i0 = lo; i0 < hi; i0 += 32) {
+    const int mine = i0 + lane < hi ? __ldg(hrows + i0 + lane) : 0;
+    const int n = min(32, hi - i0);
+    for (int u = 0; u < n; ++u) {  // the sources in CSR order
+      const float* row =
+          H + static_cast<int64_t>(__shfl_sync(kFull, mine, u)) * E;
+      const int sh =
+          static_cast<int>((reinterpret_cast<uintptr_t>(row) >> 2) & 3);
+      const int d = (sh - osh) & 3;
+      const float4* base = reinterpret_cast<const float4*>(row - sh);
+      float4 x[kQuads];
+#pragma unroll
+      for (int g = 0; g < kQuads; ++g) {
+        const int qi = q0 + 31 * g - (sh < osh);
+        x[g] = qi >= 0 && 4 * qi < E + sh ? __ldg(base + qi)
+                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int g = 0; g < kQuads; ++g) {
+        float4 nx = x[g];
+        if (d != 0) {  // uniform
+          nx.x = __shfl_down_sync(kFull, nx.x, 1);
+          nx.y = __shfl_down_sync(kFull, nx.y, 1);
+          nx.z = __shfl_down_sync(kFull, nx.z, 1);
+          nx.w = __shfl_down_sync(kFull, nx.w, 1);
+        }
+        add_shifted(sum + 4 * g, x[g], nx, d);
+      }
+    }
   }
-}
-
-// (v desc, i asc): true when (v, i) comes before (bv, bi)
-__device__ __forceinline__ bool before(float v, int i, float bv, int bi) {
-  return v > bv || (v == bv && i < bi);
-}
-
-// warp-wide best (v, i); every lane returns the same pair
-__device__ __forceinline__ void warp_best(float& v, int& i) {
-  for (int off = 16; off; off >>= 1) {
-    const float ov = __shfl_xor_sync(kFull, v, off);
-    const int oi = __shfl_xor_sync(kFull, i, off);
-    if (before(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
+#pragma unroll
+  for (int g = 0; g < kQuads; ++g) {
+    const int q = q0 + 31 * g;
+    const int c = 4 * q - osh;  // the column of the quad's word 0
+    const float* v = sum + 4 * g;
+    if (lane < 31 && c >= 0 && c + 4 <= E) {
+      reinterpret_cast<float4*>(out - osh)[q] =
+          make_float4(v[0], v[1], v[2], v[3]);
+    } else if (lane < 31) {
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+        if (c + t >= 0 && c + t < E) out[c + t] = v[t];
     }
   }
 }
@@ -455,105 +531,6 @@ finalize_postings_kernel(Rows rows, int P,
 
 // ---- the warp path ------------------------------------------------------ //
 
-// A lane's best kLaneTop candidates, best first in (score desc, edge asc);
-// empty entries hold (-inf, INT_MAX).
-struct LaneTop {
-  float v[kLaneTop];
-  int e[kLaneTop];
-  __device__ __forceinline__ void clear() {
-#pragma unroll
-    for (int j = 0; j < kLaneTop; ++j) {
-      v[j] = -INFINITY;
-      e[j] = 0x7fffffff;
-    }
-  }
-  __device__ __forceinline__ void insert(float x, int i) {
-    if (!before(x, i, v[kLaneTop - 1], e[kLaneTop - 1])) return;
-    bool done = false;
-#pragma unroll
-    for (int j = kLaneTop - 1; j > 0; --j) {
-      if (!done) {
-        if (before(x, i, v[j - 1], e[j - 1])) {
-          v[j] = v[j - 1];
-          e[j] = e[j - 1];
-        } else {
-          v[j] = x;
-          e[j] = i;
-          done = true;
-        }
-      }
-    }
-    if (!done) {
-      v[0] = x;
-      e[0] = i;
-    }
-  }
-  __device__ __forceinline__ void pop() {
-#pragma unroll
-    for (int j = 0; j + 1 < kLaneTop; ++j) {
-      v[j] = v[j + 1];
-      e[j] = e[j + 1];
-    }
-    v[kLaneTop - 1] = -INFINITY;
-    e[kLaneTop - 1] = 0x7fffffff;
-  }
-};
-
-// K rounds of a shuffle-only arg-max over the lane heads (K <= kLaneTop:
-// the warp's best K are among the lanes' lists); lane 0 writes pick j as
-// (cv[j], ce[j] + add).  Returns the number of picks.
-__device__ int warp_take(LaneTop& top, int K, float* cv, int* ce, int add,
-                         int lane) {
-  int n = 0;
-  for (int j = 0; j < K; ++j) {
-    float bv = top.v[0];
-    int be = top.e[0];
-    warp_best(bv, be);
-    if (!(bv > -INFINITY)) break;  // uniform: every lane has bv
-    if (top.e[0] == be) top.pop();  // the one lane that held it
-    if (lane == 0) {
-      cv[n] = bv;
-      ce[n] = be + add;
-    }
-    ++n;
-  }
-  return n;
-}
-
-// K scanning rounds (K > kLaneTop): round j takes the best strictly after
-// pick j-1 among vals[i] (i < n) whose id is id_of(i); `keep(v)` says which
-// values are candidates.  Lane 0 writes the picks as warp_take does.
-template <class Val, class Id, class Keep>
-__device__ int warp_scan_take(int n, Val val, Id id_of, Keep keep, int K,
-                              float* cv, int* ce, int add, int lane) {
-  int m = 0;
-  float pv = INFINITY;
-  int pe = -1;
-  for (int j = 0; j < K; ++j) {
-    float bv = -INFINITY;
-    int be = 0x7fffffff;
-    for (int i = lane; i < n; i += 32) {
-      const float v = val(i);
-      if (!keep(v)) continue;
-      const int e = id_of(i);
-      if (before(pv, pe, v, e) && before(v, e, bv, be)) {
-        bv = v;
-        be = e;
-      }
-    }
-    warp_best(bv, be);
-    if (!(bv > -INFINITY)) break;
-    if (lane == 0) {
-      cv[m] = bv;
-      ce[m] = be + add;
-    }
-    ++m;
-    pv = bv;
-    pe = be;
-  }
-  return m;
-}
-
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -672,6 +649,14 @@ __device__ void warp_sort(uint64_t* keys, int n, int lane) {
   }
 }
 
+// the warp path's picks: pick j as (cv[j], ce[j] + add)
+__device__ __forceinline__ auto pick(float* cv, int* ce, int add) {
+  return [=](int j, float v, int e) {
+    cv[j] = v;
+    ce[j] = e + add;
+  };
+}
+
 // read b on the warp path, in the warp's region `mine`: keys[cap],
 // tot[cap] (only for K past kLaneTop) and the 2K candidates
 template <class Rows>
@@ -786,12 +771,13 @@ __device__ void warp_score_read(const Rows& rows, int b, char* mine, int P,
   __syncwarp();
   int n_l;
   if (in_regs) {
-    n_l = warp_take(top, K, cand_v, cand_e, 0, lane);
+    n_l = warp_take(top, K, pick(cand_v, cand_e, 0), lane);
   } else {
     n_l = warp_scan_take(
         n, [&](int i) { return tot[i]; },
         [&](int i) { return static_cast<int>(keys[i] >> 32); },
-        [](float v) { return v > -INFINITY; }, K, cand_v, cand_e, 0, lane);
+        [](float v) { return v > -INFINITY; }, K, pick(cand_v, cand_e, 0),
+        lane);
   }
 
   // 6. top-K of the dense row where it is > 0, and its count: one pass
@@ -850,15 +836,15 @@ __device__ void warp_score_read(const Rows& rows, int b, char* mine, int P,
         }
       }
       n_dense = __reduce_add_sync(kFull, cnt);
-      n_d = warp_take(top, K, cand_v + K, cand_e + K, offset, lane);
+      n_d = warp_take(top, K, pick(cand_v + K, cand_e + K, offset), lane);
     } else {
       int cnt = 0;
       for (int e = lane; e < E; e += 32) cnt += __ldg(arow + e) > 0.f;
       n_dense = __reduce_add_sync(kFull, cnt);
       n_d = warp_scan_take(
           E, [&](int e) { return __ldg(arow + e); }, [](int e) { return e; },
-          [](float v) { return v > 0.f; }, K, cand_v + K, cand_e + K, offset,
-          lane);
+          [](float v) { return v > 0.f; }, K,
+          pick(cand_v + K, cand_e + K, offset), lane);
     }
   }
   __syncwarp();
@@ -971,9 +957,16 @@ extern "C" {
 int rp_dense_side(const float* H, int E, const int32_t* hrows,
                   const int32_t* hoff, int n_slots, float* acc_c,
                   cudaStream_t stream) {
-  if (n_slots > 0)
-    dense_side_kernel<<<n_slots, kThreads, 0, stream>>>(H, E, hrows, hoff,
-                                                        acc_c);
+  // tiles of kQuads x 31 output quads (a row's quads start up to 3 words
+  // before its column 0)
+  const int tiles = ((E + 3 + 3) / 4 + 31 * kQuads - 1) / (31 * kQuads);
+  const int64_t warps = static_cast<int64_t>(n_slots) * tiles;
+  if (warps > 0) {
+    const unsigned blocks =
+        static_cast<unsigned>((warps + kWarps - 1) / kWarps);
+    dense_side_kernel<<<blocks, kThreads, 0, stream>>>(H, E, hrows, hoff,
+                                                       n_slots, tiles, acc_c);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -838,7 +838,8 @@ def wire_format(n_edges: int, keep_at_most: int,
 def finalize_wire(acc: torch.Tensor, lengths: torch.Tensor, thr: float,
                   k: int, keep_at_most: int) -> torch.Tensor:
     """K3 (``csrc/finalize.cu``): ``pack_wire(*finalize(...))`` -> int32
-    [B, words] in the wire of :func:`wire_format`."""
+    [B, words] in the wire of :func:`wire_format`.  On the card a group of 8
+    lanes reads each row once."""
     B, E = acc.shape
     K, wide, n_words = wire_format(E, keep_at_most)
     if not _on_card(acc, lengths):
@@ -1136,8 +1137,9 @@ def dense_side(heavy_dense: torch.Tensor, hrows: torch.Tensor,
     """P1 (``csrc/postings.cu``): ``scatter_slots(gather_rows(heavy_dense,
     hrows), slots, n_slots)`` -> the slot accumulator f32[n_slots, E],
     where slot ``s`` owns the heavy rows ``hrows[hoff[s] .. hoff[s + 1]]``
-    (``hoff`` int32[n_slots + 1], CSR offsets).  On the card each slot's
-    rows are summed in order by one block (no atomics)."""
+    (``hoff`` int32[n_slots + 1], CSR offsets).  On the card a warp per
+    column tile of a slot sums its rows in order from 0 (no atomics), so
+    the result is the in-order f32 sum and a slot with no rows is zero."""
     n_slots = hoff.shape[0] - 1
     E = heavy_dense.shape[1]
     if not _on_card(heavy_dense, hrows, hoff):

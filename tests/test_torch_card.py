@@ -16,13 +16,18 @@ within 2e-4 (the kernel sums each edge's postings directly, the plain
 version by a running cumsum), or two f32 ulps of the score where that is
 more (a 3,000 bp read scores about -6,000, where one ulp is 4.9e-4).  The
 sharded kernels: C3 as the other f32 accumulators, M1's wire words
-bitwise, and the postings kernels on edge-range shards as P3.
+bitwise, and the postings kernels on edge-range shards as P3.  P1 is held
+bitwise against its sums in CSR order (no atomics,
+``chip_smoke.inorder_slot_sums``) and K3's wire bitwise against
+``pack_wire(*finalize(...))``.
 """
 
 import numpy as np
 import pytest
 import torch
+from torch_cases import k3_rows
 
+from chip_smoke import inorder_slot_sums
 from rappas_tpu_torch.alphabet import DNA
 from rappas_tpu_torch.db import PhyloKmerDB, build_csr
 from rappas_tpu_torch.place import kernels as T
@@ -303,7 +308,8 @@ def test_postings_long_read_takes_global_scratch(card):
 
 @pytest.mark.cuda
 def test_wide_wire_on_card(card):
-    """E >= 65535 edge slots: K3 and P3 write int32 edge ids."""
+    """E >= 65535 edge slots: K3 (the registers path and the scanning
+    rounds) and P3 write int32 edge ids."""
     rng = np.random.default_rng(33)
     B, E = 40, 65601
     acc = torch.from_numpy(np.where(rng.random((B, E)) < 0.01,
@@ -316,6 +322,10 @@ def test_wide_wire_on_card(card):
     assert torch.equal(wire, T.pack_wire(*T.finalize(
         acc, lens, torch.tensor(np.float32(-4.0)), 8, 7), wide=True))
     assert (wire[:, 7] == 65590).all()
+    # K3's scanning rounds (keep 20) in the wide wire
+    wire = T.finalize_wire(acc, lens, -4.0, 8, 20)
+    assert torch.equal(wire, T.pack_wire(*T.finalize(
+        acc, lens, torch.tensor(np.float32(-4.0)), 8, 20), wide=True))
     # P3 on a light table whose edge ids reach past 65535
     P, nl, n_slots = 8, 500, 10
     edges = np.sort(rng.choice(E, (nl + 1, P)), axis=1).astype(np.int32)
@@ -1032,3 +1042,88 @@ def test_k1_bits_in_window_order_on_card(card, u16):
                           ref.view(np.uint32))
     sfx = "_u16" if u16 else ""
     assert T.SLABS["accumulate_packed" + sfx].n_slabs > 1
+
+
+# ---- K3 and P1 (csrc/finalize.cu, csrc/postings.cu) ------------------- #
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [1, 31, 300, 301, 7999])
+@pytest.mark.parametrize("keep", [1, 7, 8, 9, 20])
+def test_finalize_wire_cases_on_card(card, E, keep):
+    """K3 bitwise against ``pack_wire(*finalize(...))``: the registers
+    path (keep <= 8) and the
+    scanning rounds (keep > 8), rows with no match and with every column
+    matched, exact S ties from distinct acc under a large |Q * thr|, row
+    starts at every 16-byte alignment (E odd), and B odd (a half warp with
+    no read)."""
+    rng = np.random.default_rng(E * 31 + keep)
+    B, k, thr = 37, 8, np.float32(-4.1)
+    lens = rng.integers(k, 3000, B).astype(np.int32)
+    lens[2::3] = 3000                   # |Q * thr| ~ 12,000: ulp 2^-10
+    acc = k3_rows(rng, B, E, 12000.0)
+    a, ln = torch.from_numpy(acc).to(card), torch.from_numpy(lens).to(card)
+    want = T.pack_wire(*T.finalize(torch.from_numpy(acc),
+                                   torch.from_numpy(lens), torch.tensor(thr),
+                                   k, keep))
+    got = T.finalize_wire(a, ln, float(thr), k, keep)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert int(want[0, -1]) == 0 and int(want[1, -1]) == E
+
+
+def _p1_case(rng, nh, E, word_offset, card):
+    """A heavy table f32[nh + 1, E] on the card whose data starts
+    ``word_offset`` words past a 16-byte boundary (so rows start at every
+    alignment whatever E is), and slots of 0, 1, a few and 230 sources,
+    one row repeated in many slots."""
+    H_np = _table(rng, nh + 1, E, 0.3)
+    buf = torch.zeros(H_np.size + 4, dtype=torch.float32, device=card)
+    H = buf[word_offset:word_offset + H_np.size].view(nh + 1, E)
+    H.copy_(torch.from_numpy(H_np))
+    sizes = np.array([0, 1, 3, 230, 0, 2, 1, 17, 0, 5] * 3 + [0])
+    hrows = rng.integers(0, nh, int(sizes.sum())).astype(np.int32)
+    hrows[::4] = 7                      # a popular row
+    hoff = np.zeros(sizes.size + 1, np.int32)
+    np.cumsum(sizes, out=hoff[1:])
+    return H, torch.from_numpy(hrows).to(card), torch.from_numpy(hoff).to(card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("E", [300, 4000, 7998, 7999])
+@pytest.mark.parametrize("word_offset", [0, 1, 2, 3])
+def test_dense_side_cases_on_card(card, E, word_offset):
+    """P1 bitwise equal to the in-order f32 sums and within 1e-5 relative
+    of the plain ``scatter_slots(gather_rows(...))`` (atomic order on the
+    card): source rows at all four
+    16-byte alignments, slots with 0, 1 and 230 sources (an empty slot is
+    a zero row), a row repeated across slots."""
+    rng = np.random.default_rng(E + word_offset)
+    H, hrows, hoff = _p1_case(rng, 50, E, word_offset, card)
+    if word_offset:
+        assert H.data_ptr() % 16 == 4 * word_offset
+    want = inorder_slot_sums(H, hrows, hoff)
+    n_slots = hoff.numel() - 1
+    slots = torch.repeat_interleave(torch.arange(n_slots, device=card),
+                                    (hoff[1:] - hoff[:-1]).long())
+    plain = T.scatter_slots(T.gather_rows(H, hrows), slots, n_slots)
+    got = T.dense_side(H, hrows, hoff)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.allclose(got, plain, rtol=1e-5, atol=0)
+    assert not bool(got[0].any()) and bool(got[3].any())
+
+
+@pytest.mark.cuda
+def test_dense_side_edge_range_shard_on_card(card):
+    """P1 on an edge-range shard's own heavy table (columns 3,999 ..
+    7,998 of a 7,999-column table, as ``parallel/postings_sharded.py``
+    cuts it): bitwise the in-order sums of the same columns of the whole
+    table."""
+    rng = np.random.default_rng(5)
+    H, hrows, hoff = _p1_case(rng, 40, 7999, 0, card)
+    shard = H[:, 3999:].contiguous()
+    got = T.dense_side(shard, hrows, hoff)
+    whole = inorder_slot_sums(H, hrows, hoff)
+    torch.cuda.synchronize()
+    assert torch.equal(got, inorder_slot_sums(shard, hrows, hoff))
+    assert torch.equal(got, whole[:, 3999:])

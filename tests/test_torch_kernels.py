@@ -18,6 +18,7 @@ from rappas_tpu.place import engine as J
 from rappas_tpu_torch.db import DELTA_TINY
 from rappas_tpu_torch.place import kernels as T
 from rappas_tpu_torch.place.engine import pack_reads, window_offsets
+from torch_cases import k3_rows
 
 
 def _codes(rng, B, L, k, n_states=4, amb=0.0, short=True):
@@ -738,3 +739,156 @@ def test_sparse_window_scoring(offset):
                                         jnp.asarray(is_mean)))
     assert np.allclose(got.numpy(), jc, atol=2e-4, rtol=0)
     assert np.array_equal(got.numpy() > 0, jc > 0)
+
+
+# ---- K3's selection (csrc/finalize.cu), modelled in numpy ------------- #
+
+def _k3_model(acc, lens, thr, k, keep):
+    """The wire K3 writes with its G = 8 lanes per read, from a numpy
+    model of its selection: the row's head up to a 16-byte boundary (rows
+    at b * E * 4 bytes from an aligned base) goes one value a lane; after
+    it lanes own
+    interleaved 16-byte chunks, kBatch = ceil(80 / G) a lane per batch, and
+    each batch inserts only the matched values whose S is at or above the
+    K-th best of the lanes' batch maxima; then a scalar tail; each lane
+    keeps its best kLaneTop = 8 by (S desc, e asc) and K merge rounds over
+    the lane heads take the picks.  K past 8 takes the scanning rounds,
+    the best K of every matched value.  Returns (wire, survivors per read
+    of the batch filter, matched values per read)."""
+    B, E = acc.shape
+    G = 8
+    K, wide, n_words = T.wire_format(E, keep)
+    qthr = (lens - (k - 1)).astype(np.float32) * np.float32(thr)
+    S = (qthr[:, None] + acc).astype(np.float32)
+    kbatch = -(-80 // G)
+    wire = np.zeros((B, n_words), np.int32)
+    survivors = np.zeros(B, np.int64)
+    for b in range(B):
+        matched = acc[b] > 0
+        order = lambda es: sorted(es, key=lambda e: (-S[b, e], e))
+        if K > 8:
+            picks = order(np.flatnonzero(matched))[:K]
+        else:
+            head = min(E, (16 - (b * E * 4) % 16) % 16 // 4)
+            n4 = (E - head) // 4
+            lanes = [[] for _ in range(G)]
+            for e in range(head):
+                if matched[e]:
+                    lanes[e % G].append(e)
+            for f0 in range(0, n4, kbatch * G):
+                own = [[head + 4 * f + j
+                        for u in range(kbatch)
+                        for f in [f0 + G * u + l] if f < n4
+                        for j in range(4)] for l in range(G)]
+                m = np.array([max([S[b, e] for e in es if matched[e]],
+                                  default=-np.inf) for es in own],
+                             np.float32)
+                bound = np.sort(m)[::-1][K - 1]
+                for l, es in enumerate(own):
+                    keep_l = [e for e in es if matched[e] and
+                              S[b, e] >= bound]
+                    survivors[b] += len(keep_l)
+                    lanes[l] += keep_l
+            for e in range(head + 4 * n4, E):
+                if matched[e]:
+                    lanes[(e - head - 4 * n4) % G].append(e)
+            heads = [order(es)[:8] for es in lanes]
+            picks = order([e for es in heads for e in es])[:K]
+        te = np.full((1, K), -1, np.int32)
+        ts = np.full((1, K), -np.inf, np.float32)
+        te[0, :len(picks)] = picks
+        ts[0, :len(picks)] = S[b, picks]
+        wire[b] = T.pack_wire(torch.from_numpy(te), torch.from_numpy(ts),
+                              torch.zeros((1, K)),
+                              torch.tensor([matched.sum()], dtype=torch.int32),
+                              wide=wide).numpy()[0]
+    return wire, survivors, (acc > 0).sum(1)
+
+
+@pytest.mark.parametrize("E", [1, 31, 300, 301, 7999])
+@pytest.mark.parametrize("keep", [1, 7, 8, 9, 20])
+def test_k3_selection_model(E, keep):
+    """K3's selection (``_k3_model``) bitwise equal to
+    ``pack_wire(*finalize(...))`` on the CPU, and within
+    ``tests/test_engine.py``'s tolerances of JAX's ``finalize``: rows with
+    no match and matched everywhere, heads and tails of every length (E
+    odd: rows start at each 16-byte alignment), and exact S ties from
+    distinct acc values, where ranking by acc would change the wire."""
+    from rappas_tpu_torch.place.engine import unpack_wire
+    rng = np.random.default_rng(E * 7 + keep)
+    B, k, thr = 13, 8, np.float32(-4.1)
+    lens = rng.integers(k, 3000, B).astype(np.int32)
+    lens[2::3] = 3000                   # |Q * thr| ~ 12,000: ulp 2^-10
+    acc = k3_rows(rng, B, E, 12000.0)
+    acc_t, lens_t = torch.from_numpy(acc), torch.from_numpy(lens)
+    want = T.pack_wire(*T.finalize(acc_t, lens_t, torch.tensor(thr), k,
+                                   keep)).numpy()
+    K, wide, _ = T.wire_format(E, keep)
+    got, survivors, matched = _k3_model(acc, lens, thr, k, keep)
+    assert np.array_equal(got, want)
+    if K <= 8 and E >= 300:             # the bound drops most values
+        assert survivors[1] < matched[1] // 2
+    if E >= 31 and K >= 2:              # the trap: ranking by acc differs
+        by_acc = T.pack_wire(*T.finalize(acc_t, torch.full_like(lens_t, k - 1),
+                                         torch.tensor(thr), k, keep))
+        S = (lens - (k - 1)).astype(np.float32)[:, None] * thr + acc
+        tie = [b for b in range(2, B, 3)
+               if S[b, acc[b].argmax()] == S[b, np.argsort(-acc[b])[1]]]
+        assert tie and not np.array_equal(
+            by_acc.numpy()[tie, K:K + (K + 1) // 2],
+            want[tie, K:K + (K + 1) // 2])
+    # JAX's finalize: |L| exact, scores within 2e-4 or two f32 ulps of the
+    # score where that is more (|S| ~ 10,500 here: XLA may fuse Q * thr +
+    # acc into one rounding), and the same edge sets, except that an edge
+    # at the K-th place may give way to another at a near-tie of it
+    je, js, _, jn = (np.asarray(x) for x in J.finalize(
+        jnp.asarray(acc), jnp.asarray(lens), jnp.float32(thr), k, keep))
+    res = unpack_wire(want, K, wide)
+    assert np.array_equal(res.n_matched, jn)
+    for b in range(B):
+        v = res.top_edges[b] >= 0
+        assert np.array_equal(v, je[b] >= 0)
+        mine, theirs = np.sort(res.top_scores[b][v]), np.sort(js[b][v])
+        tol = np.maximum(2e-4, 2 * np.spacing(np.abs(theirs)))
+        assert (np.abs(mine - theirs) <= tol).all()
+        ours = dict(zip(res.top_edges[b][v], res.top_scores[b][v]))
+        jaxs = dict(zip(je[b][v], js[b][v]))
+        if set(ours) != set(jaxs):
+            assert v.all() and jn[b] > K   # only a cut at K can differ
+            for e in set(ours) ^ set(jaxs):
+                x = ours[e] if e in ours else jaxs[e]
+                assert abs(x - mine[0]) <= tol[0], (b, e)
+                assert abs(x - theirs[0]) <= tol[0], (b, e)
+
+
+@pytest.mark.parametrize("E, sizes", [
+    (5, [0, 1, 3, 0, 2]),
+    (50, [2, 0, 0, 7, 1, 0]),
+    (301, [0, 40, 1, 1, 0]),
+])
+def test_dense_side_plain_empty_slots_match_jax(E, sizes):
+    """P1's plain version (``dense_side`` on CPU tensors): a slot without
+    heavy sources is a zero row, every slot is the in-order f32 sum of its
+    rows from zero (bitwise, the sums P1 forms on the card), and the whole
+    matches JAX's ``gather_rows`` + the dense ``.at[].add`` scatter of
+    ``finalize_postings_local`` on the CPU."""
+    rng = np.random.default_rng(E + len(sizes))
+    H = _table(rng, 12, E, fill=0.5)
+    sizes = np.asarray(sizes)
+    hrows = rng.integers(0, 11, int(sizes.sum())).astype(np.int32)
+    hoff = np.zeros(sizes.size + 1, np.int32)
+    np.cumsum(sizes, out=hoff[1:])
+    got = T.dense_side(torch.from_numpy(H), torch.from_numpy(hrows),
+                       torch.from_numpy(hoff)).numpy()
+    want = np.zeros((sizes.size, E), np.float32)
+    for s in range(sizes.size):
+        for i in range(hoff[s], hoff[s + 1]):
+            want[s] += H[hrows[i]]
+    assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    assert not got[sizes == 0].any()
+    slots = np.repeat(np.arange(sizes.size), sizes)
+    g = J.gather_rows(jnp.asarray(H), jnp.asarray(hrows))
+    j = np.asarray(jnp.zeros((sizes.size + 1, E), jnp.float32).at[
+        jnp.asarray(slots)].add(g))[:sizes.size]
+    assert np.allclose(got, j, rtol=1e-6, atol=0)
+    assert not j[sizes == 0].any()
