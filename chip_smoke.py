@@ -101,12 +101,15 @@ the same run.  The P2/A1 postings lines report the light-only windows and
 the largest light pairs one window stages; the K4 and A1 split lines
 their load width and threads per window.  K3 is timed at keep 7 (each
 lane's candidates in registers) and keep 20 (the scanning rounds), each
-line with its path, lanes per read, reads per block, rate over the bytes
-it must move, the rows' matched columns and the device time of each
-shape (8, 16, 32 lanes per read).  P1 is held bitwise against the sums
-in CSR order (also on an edge-range shard) and reports its slots, heavy
-hits, distinct rows, longest slot, the rate of its heavy-row bytes
-(``row_tb_s``) and the device time at each load width and L2 policy.
+line with its path, reads per warp and per block, rate over the bytes
+it must move and the rows' matched columns.  P1 is held bitwise against
+the sums in CSR order (also on an edge-range shard) and reports its
+slots, heavy hits, distinct rows, longest slot and the rate of its
+heavy-row bytes (``row_tb_s``).
+M1 and G1 report the rate of the bytes they must move (``tb_s``), and
+the run measures once the launch floor (``launch_floor_ms``, a
+one-element ``fill_`` in the same graph harness) that M1's and K4's
+device times are read against.
 
 Standard output ends with the card's name and power limit, one JSON line
 of kernel results and one JSON line ``{"ok": true, "device": ...}``.  Any
@@ -377,6 +380,16 @@ def device_ms(fn, reps: int = 20, replays: int = 5) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / (reps * replays)
+
+
+def launch_floor_ms() -> float:
+    """The device time of the shortest launch, in :func:`device_ms`'s
+    harness: a one-element ``fill_``.  A kernel whose bound lies below it
+    (M1, K4) is read against it."""
+    import torch
+
+    x = torch.empty(1, device="cuda")
+    return device_ms(lambda: x.fill_(0))
 
 
 def timed(fn) -> dict:
@@ -1058,12 +1071,13 @@ def sharded_postings_kernel_phase(sp, eng, seed: int, ref) -> dict:
     def library():
         v, i = torch.topk(ts_all, sp.wire_k, dim=1)
         return v, te_all.gather(1, i)
-    b, why = bound(stacked.numel() * 4 + got.numel() * 4,
-                   Bl * sp.wire_k * mp * K_in)
+    nbytes = stacked.numel() * 4 + got.numel() * 4
+    b, why = bound(nbytes, Bl * sp.wire_k * mp * K_in)
+    t = timed(m1)
     out["merge_candidates_wire"] = dict(
         max_abs_err=0.0, bound_ms=b, bound_by=why, shards=mp, reads=Bl,
-        candidates=mp * K_in, **timed(m1), plain_ms=cuda_ms(m1_plain),
-        library_ms=cuda_ms(library))
+        candidates=mp * K_in, **t, tb_s=nbytes / (t["ms"] * 1e-3) / 1e12,
+        plain_ms=cuda_ms(m1_plain), library_ms=cuda_ms(library))
     return out
 
 
@@ -1197,11 +1211,13 @@ def split_postings_kernel_phase(eng, one, seed: int, ref,
     check(torch.equal(wire, one_wire), "P3 on G1's compact table: wire "
           "differs from the one-table P3's")
     U = uniq.numel()
-    b, why = bound(U * 4 + uniq_off.numel() * 4 + 2 * U * 2 * P * 4, 0)
+    nbytes = U * 4 + uniq_off.numel() * 4 + 2 * U * 2 * P * 4
+    b, why = bound(nbytes, 0)
+    t = timed(lambda: K.gather_compact_(parts, uniq, uniq_off))
     out["gather_compact"] = dict(
         max_abs_err=0.0, bound_ms=b, bound_by=why, compact_rows=U,
-        parts=len(tables),
-        **timed(lambda: K.gather_compact_(parts, uniq, uniq_off)),
+        parts=len(tables), **t,
+        tb_s=nbytes / (t["ms"] * 1e-3) / 1e12,
         plain_ms=cuda_ms(lambda: K.gather_compact(tables, tuple(runs))),
         library_ms=cuda_ms(lambda: torch.cat([
             t.index_select(0, r) for t, r in zip(tables, runs)])))
@@ -1942,7 +1958,8 @@ def main() -> int:
     def show(tag, r):
         print(f"{tag}: {json.dumps(r)}", flush=True)
 
-    results = {"card": card}
+    results = {"card": card, "launch_floor_ms": launch_floor_ms()}
+    show("launch floor", {"launch_floor_ms": results["launch_floor_ms"]})
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
         # config 1: direct layout ---------------------------------- #

@@ -141,9 +141,17 @@
 //   out[u, :] = part_p[uniq[u], :]   for uniq_off[p] <= u < uniq_off[p+1]
 //
 // each unique row fetched from its own part only (a single slow table is
-// one part).  A plain row copy: one thread per output word, neighbouring
-// threads on neighbouring words of a row.  What bounds it: bytes (each
-// unique row read once and written once).
+// one part).  What bounds it: bytes (each unique row read once, at random,
+// and written once, in order).  Design: rows, not words.  A block is
+// kGatherThreads threads in (lanes x rows) -- one lane per load of a row,
+// 16-byte loads where the row bytes (8P) allow it, else 8 bytes (chosen
+// from w at launch) -- and each thread first finds its kRowsInFlight
+// rows' parts and source addresses, then issues all their loads before
+// any store.  A row's part is a binary search over uniq_off
+// staged in shared memory with the part bases (at most kMaxParts parts;
+// empty runs take no row).  The stores are normal ones: P3 reads the table
+// right after (on the other stream in the pipelined path), so it should
+// stay in L2.
 
 #include <cmath>
 #include <cstdint>
@@ -876,19 +884,74 @@ finalize_postings_warp_kernel(Rows rows, int P,
                   offset, wire, threadIdx.x & 31);
 }
 
-__global__ void gather_compact_kernel(Parts parts, int w,
-                                      const int32_t* __restrict__ uniq,
-                                      const int32_t* __restrict__ uniq_off,
-                                      int U, int32_t* __restrict__ out) {
-  const int64_t total = static_cast<int64_t>(U) * w;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int u = static_cast<int>(i / w);
-    int p = parts.n - 1;
-    while (p > 0 && u < uniq_off[p]) --p;
-    const int32_t* part = static_cast<const int32_t*>(parts.base(p));
-    out[i] = __ldg(part + static_cast<int64_t>(uniq[u]) * w + i % w);
+constexpr int kGatherThreads = 256;
+constexpr int kRowsInFlight = 4;
+
+// T: one load (int4 or int2); blockDim = (lanes, kGatherThreads / lanes):
+// lane x of row slot y copies loads x, x + lanes, ... of rows
+// blockIdx.x * rows + k * blockDim.y + y
+template <class T>
+__global__ void __launch_bounds__(kGatherThreads)
+gather_compact_kernel(Parts parts, int w, const int32_t* __restrict__ uniq,
+                      const int32_t* __restrict__ uniq_off, int U,
+                      int32_t* __restrict__ out) {
+  __shared__ const int32_t* s_base[kMaxParts];
+  __shared__ int s_off[kMaxParts];
+  const int n = parts.n;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int i = tid; i < n; i += blockDim.x * blockDim.y) {
+    s_base[i] = static_cast<const int32_t*>(parts.base(i));
+    s_off[i] = uniq_off[i];
   }
+  __syncthreads();
+
+  const int loads = w * 4 / static_cast<int>(sizeof(T));
+  const int first = blockIdx.x * blockDim.y * kRowsInFlight + threadIdx.y;
+  int row[kRowsInFlight];  // part-local rows, all loaded before the search
+#pragma unroll
+  for (int k = 0; k < kRowsInFlight; ++k) {
+    const int u = first + k * blockDim.y;
+    row[k] = u < U ? __ldg(uniq + u) : -1;
+  }
+  const T* src[kRowsInFlight];
+  T* dst[kRowsInFlight];
+#pragma unroll
+  for (int k = 0; k < kRowsInFlight; ++k) {
+    const int u = first + k * blockDim.y;
+    src[k] = nullptr;
+    dst[k] = nullptr;
+    if (u < U) {
+      int lo = 0, hi = n - 1;  // the last part whose run starts at or before u
+      while (lo < hi) {
+        const int mid = (lo + hi + 1) >> 1;
+        if (s_off[mid] <= u) lo = mid; else hi = mid - 1;
+      }
+      src[k] = reinterpret_cast<const T*>(
+          s_base[lo] + static_cast<int64_t>(row[k]) * w);
+      dst[k] = reinterpret_cast<T*>(out + static_cast<int64_t>(u) * w);
+    }
+  }
+  for (int x = threadIdx.x; x < loads; x += blockDim.x) {
+    T v[kRowsInFlight];
+#pragma unroll
+    for (int k = 0; k < kRowsInFlight; ++k)
+      if (src[k]) v[k] = __ldg(src[k] + x);
+#pragma unroll
+    for (int k = 0; k < kRowsInFlight; ++k)
+      if (src[k]) dst[k][x] = v[k];
+  }
+}
+
+template <class T>
+void launch_gather(Parts parts, int w, const int32_t* uniq,
+                   const int32_t* uniq_off, int U, int32_t* out,
+                   cudaStream_t stream) {
+  const int loads = w * 4 / static_cast<int>(sizeof(T));
+  const int lanes = loads < kGatherThreads ? loads : kGatherThreads;
+  const dim3 block(lanes, kGatherThreads / lanes);
+  const int rows = block.y * kRowsInFlight;
+  gather_compact_kernel<T><<<(U + rows - 1) / rows, block, 0, stream>>>(
+      parts, w, uniq, uniq_off, U, out);
 }
 
 // one P3 call with the row source `rows`: the warp launch over all B
@@ -1022,18 +1085,22 @@ int rp_finalize_postings_split(int routed, const int64_t* meta, int n, int P,
                    wide, offset, wire, stream);
 }
 
-// G1.  meta: int64[3, n] of the light parts, rows of w = 2P int32 words;
-// uniq: int32[U] part-local rows, part p's at uniq_off[p] .. uniq_off[p+1]
-// (uniq_off: int32[n + 1]); out: int32[U, w], written.
+// G1.  meta: int64[3, n] (n <= kMaxParts) of the light parts, rows of w
+// = 2P int32 words, every part's base aligned to 16 bytes when w % 4 ==
+// 0, else to 8; uniq: int32[U] part-local rows, part
+// p's at uniq_off[p] .. uniq_off[p+1] (uniq_off: int32[n + 1]); out:
+// int32[U, w], written.
 int rp_gather_compact(const int64_t* meta, int n, int w, const int32_t* uniq,
                       const int32_t* uniq_off, int U, int32_t* out,
                       cudaStream_t stream) {
-  const int64_t total = static_cast<int64_t>(U) * w;
-  if (total > 0) {
-    const int64_t blocks = (total + 255) / 256;
-    gather_compact_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096),
-                            256, 0, stream>>>(Parts{meta, n}, w, uniq,
-                                              uniq_off, U, out);
+  if (n < 1 || n > kMaxParts || w < 2 || w % 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (U > 0) {
+    const Parts parts{meta, n};
+    if (w % 4 == 0)
+      launch_gather<int4>(parts, w, uniq, uniq_off, U, out, stream);
+    else
+      launch_gather<int2>(parts, w, uniq, uniq_off, U, out, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1384,6 +1384,12 @@ def gather_compact_(parts: Parts, uniq: torch.Tensor,
     _check(t0, "parts[0]", torch.int32, tuple(t0.shape))
     _check(uniq, "uniq", torch.int32, (U,))
     _check(uniq_off, "uniq_off", torch.int32, (len(parts.tables) + 1,))
+    row_bytes = 4 * t0.shape[1]
+    load = 16 if row_bytes % 16 == 0 else 8
+    if row_bytes % 8 or any(t.data_ptr() % load for t in parts.tables):
+        raise ValueError(f"parts: want rows of 2P words copied in {load}-"
+                         f"byte loads, every part on a {load}-byte boundary"
+                         f"; got rows of {row_bytes} bytes")
     out = torch.empty((U, t0.shape[1]), dtype=torch.int32, device=t0.device)
     from rappas_tpu_torch._kernels import lib
     _launch("gather_compact", lib().rp_gather_compact, parts.meta.data_ptr(),

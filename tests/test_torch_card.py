@@ -25,7 +25,7 @@ bitwise against its sums in CSR order (no atomics,
 import numpy as np
 import pytest
 import torch
-from torch_cases import k3_rows
+from torch_cases import k3_rows, shard_wires
 
 from chip_smoke import inorder_slot_sums
 from rappas_tpu_torch.alphabet import DNA
@@ -370,45 +370,55 @@ def test_accumulate_rows_range_matches_plain_on_card(card):
     assert T.LAUNCHES["accumulate_rows_range"] >= mp
 
 
-def _shard_wires(rng, mp, B, K, E, wide):
-    """``mp`` candidate wires as P3 writes them on edge-range shards:
-    scores descending, -inf tails, distinct global edges per shard range,
-    |L| per shard; exact score ties across shards and within one."""
-    bounds = np.linspace(0, E, mp + 1).astype(np.int64)
-    wires = []
-    for j in range(mp):
-        ts = -np.sort(-(rng.integers(0, 40, (B, K)) * 0.25 - 30.0)
-                      .astype(np.float32), axis=1)
-        n_valid = rng.integers(0, K + 1, B)
-        ts[np.arange(K)[None, :] >= n_valid[:, None]] = -np.inf
-        te = np.stack([rng.choice(np.arange(bounds[j], bounds[j + 1]), K,
-                                  replace=False) for _ in range(B)])
-        te = np.where(np.isfinite(ts), te, -1)
-        nm = np.maximum(n_valid + rng.integers(0, 5, B), n_valid)
-        wires.append(T.pack_wire(
-            torch.from_numpy(te.astype(np.int32)), torch.from_numpy(ts),
-            torch.zeros(B, K), torch.from_numpy(nm.astype(np.int32)),
-            wide=wide))
-    return torch.stack(wires)
-
-
 @pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 1000, 4093])
 @pytest.mark.parametrize("mp, K_in, keep, E, wide", [
     (2, 7, 7, 7999, False), (4, 3, 7, 20, False), (8, 7, 7, 300, False),
-    (3, 5, 5, 70000, True)])
+    (3, 5, 5, 70000, True), (4, 20, 20, 300, False), (2, 7, 3, 7999, False)])
 def test_merge_candidates_wire_matches_plain_on_card(card, mp, K_in, keep,
-                                                     E, wide):
+                                                     E, wide, B):
     """M1 against its plain version, wire words bitwise: ties go to the
-    lower shard, -inf slots stay empty, |L| sums (-1 propagates)."""
+    lower shard, -inf slots stay empty, a finite score with no edge keeps
+    its score, |L| sums (-1 propagates); B = 1, and B not a multiple of
+    the reads per block (8)."""
     rng = np.random.default_rng(42 + mp)
-    B = 1000
-    wires = _shard_wires(rng, mp, B, K_in, E, wide)
-    wires[1, 5, -1] = -1                # a shard that could not sort read 5
+    wires = shard_wires(rng, mp, B, K_in, E, wide)
     got = T.merge_candidates_wire(wires.to(card), K_in, keep, wide)
     want = T.merge_candidates_wire(wires, K_in, keep, wide)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
-    assert int(want[5, -1]) == -1
+    if B > 4:
+        assert int(want[4, -1]) == -1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_parts, P, runs", [
+    (1, 8, "all"), (2, 8, "all"), (32, 8, "empty"), (1, 7, "all"),
+    (2, 7, "empty"), (32, 7, "empty"), (2, 8, "none"), (32, 7, "none")])
+def test_gather_compact_cases_on_card(card, n_parts, P, runs):
+    """G1 against its plain version, rows bitwise: one, 2 and 32 parts,
+    every third run empty ("empty") or all of them ("none": U = 0), P = 7
+    (56-byte rows: the 8-byte loads) and P = 8 (16-byte loads)."""
+    rng = np.random.default_rng(60 + n_parts + P)
+    heights = rng.integers(1000, 40000, n_parts)
+    tables = tuple(torch.from_numpy(
+        rng.integers(-2 ** 31, 2 ** 31, (h, 2 * P)).astype(np.int32))
+        .to(card) for h in heights)
+    uniq = []
+    for p, h in enumerate(heights):
+        empty = runs == "none" or (runs == "empty" and p % 3 == 1)
+        size = 0 if empty else int(rng.integers(1, h // 2))
+        uniq.append(np.sort(rng.choice(h, size, replace=False))
+                    .astype(np.int32))
+    off = np.concatenate([[0], np.cumsum([u.size for u in uniq])])
+    flat = torch.from_numpy(np.concatenate(uniq)).to(card)
+    got = T.gather_compact_(T.make_parts(tables, heights), flat,
+                            torch.from_numpy(off.astype(np.int32)).to(card))
+    want = T.gather_compact(tables, tuple(torch.from_numpy(u).to(card)
+                                          for u in uniq))
+    torch.cuda.synchronize()
+    assert got.shape == (int(off[-1]), 2 * P)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
