@@ -7,10 +7,29 @@ CUDA toolkit:
     python3 chip_smoke.py [--seed 0] [--cli-reads 50000] [--json-out F]
 
 It needs one card, builds the CUDA kernels from ``rappas_tpu_torch/csrc``
-(into ``rappas_tpu_torch/_build/``) and drives ``-p p`` placement on DBs
-made from the seed, at the widths of five configurations, in every table
-layout, precision and height split a single device resolves to:
+(into ``rappas_tpu_torch/_build/``), drives ``-p b`` (the DB build) and
+``-p p`` placement on DBs made from the seed, at the widths of five
+configurations, in every table layout, precision and height split a
+single device resolves to:
 
+* the build phase, first:
+  1. ``python -m rappas_tpu_torch.cli -p b --ardir`` on the canned
+     RAxML-ng fixture (``tests/fixtures/raxmlng_ardir``) in a
+     subprocess: its DB must equal ``expected_db.npz`` bitwise;
+  2. ``synthetic_ardir`` at config 1's widths (150 taxa x 1,500 sites,
+     596 ghost nodes tested, E = 299) through ``-p b --ardir
+     --calibration`` on the card: the build's stages timed, the
+     reference protocol's 1,000,000 random reads of mean length 150
+     scored by K1 accumulate_packed and K3 finalize_wire (both must
+     launch, K2 never), the header bound finite and the table direct;
+  3. ``calibrate`` on that DB at 65,536 reads on the card and on the
+     CPU: the bounds within 2e-4, K1 and K3 launched;
+  4. a CLI phase (``-p p``, 20k reads, half from the leaf sequences, the
+     calibrated bound switched off so that every read is counted) on it,
+     the scores held against the CPU engine within 2e-4 plus 1e-5 of the
+     accumulator (K1's tolerance against its plain version: such reads
+     hit every window, and f32 summation order alone moves a sum of
+     ~150 terms near 400 by more than 2e-4);
 * config 1, the direct layout (k=8, E=300 edge slots, a table
   ``D[4^8 + 1, 300]`` f32 of 79 MB, 150 bp reads):
   1. kernel phase -- K1 accumulate_packed, K2 accumulate_codes, K3
@@ -287,6 +306,120 @@ def config4_db(seed: int):
     return PhyloKmerDB(k=8, omega=1.5, alphabet=AA, thr_log10=thr,
                        tree=tree, keys=keys, offsets=offsets, edges=e,
                        deltas=deltas)
+
+
+def synthetic_ardir(out: Path, n_taxa: int, n_sites: int, seed: int,
+                    states: str = "nucl"):
+    """Inputs of a ``-p b --ardir`` build, made from the seed with port
+    modules only, as an AR program's run would leave them (no AR binary
+    is needed): a random rooted tree of ``n_taxa`` taxa (``tree.nwk``),
+    an ``n_sites``-column alignment simulated down it under
+    Jukes-Cantor (``align.fasta``), and ``ar/`` with the extended tree
+    unrooted as RAxML-ng writes it (``ancestralTree``, every internal
+    node labelled) and its ``ancestralProbs``: for each (internal node,
+    site), the simulated state with a probability drawn from Beta(8, 1),
+    the rest split by a flat Dirichlet draw.  Returns the three paths.
+    Config 1's widths are 150 taxa x 1,500 sites (BASELINE config 1:
+    E = 299 edges)."""
+    import numpy as np
+
+    from rappas_tpu_torch.alphabet import get_alphabet
+    from rappas_tpu_torch.extend import extend_tree
+    from rappas_tpu_torch.tree import Tree, parse_newick, write_newick
+
+    rng = np.random.default_rng(seed)
+    alphabet = get_alphabet(states)
+    S = alphabet.n_states
+    letters = np.frombuffer(alphabet.letters.encode(), np.uint8)
+    # random joins of the pool: a rooted binary tree
+    pool = [f"T{i}:{rng.exponential(0.05) + 1e-3:.6f}"
+            for i in range(n_taxa)]
+    n_inner = 0
+    while len(pool) > 2:
+        i, j = sorted(rng.choice(len(pool), 2, replace=False))
+        b, a = pool.pop(j), pool.pop(i)
+        n_inner += 1
+        pool.append(f"({a},{b})n{n_inner}:"
+                    f"{rng.exponential(0.05) + 1e-3:.6f}")
+    newick = f"({pool[0]},{pool[1]})root;"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "tree.nwk").write_text(newick + "\n")
+
+    # states down the extended tree (ghosts included), Jukes-Cantor
+    ext = extend_tree(parse_newick(newick))
+    seq = {ext.root.id: rng.integers(0, S, n_sites)}
+    for node in ext.nodes[1:]:                 # pre-order: parents first
+        t = float(node.branch_len)
+        p = (S - 1) / S * (1 - np.exp(-S / (S - 1) * t))
+        change = rng.random(n_sites) < p
+        s = seq[node.parent.id].copy()
+        s[change] = (s[change] + rng.integers(1, S, int(change.sum()))) % S
+        seq[node.id] = s
+    with open(out / "align.fasta", "wb") as f:
+        for node in ext.nodes:
+            if node.is_leaf and not node.is_fake:
+                f.write(b">" + node.label.encode() + b"\n" +
+                        letters[seq[node.id]].tobytes() + b"\n")
+
+    # the AR program's unrooting: the root's first child takes its place,
+    # the second child first among its children (undone by the parser,
+    # rappas_tpu_torch.ar.wrappers.reroot_ar_newick)
+    a, b = ext.root.children
+    b.branch_len = np.float32(a.branch_len + b.branch_len)
+    a.children.insert(0, b)
+    b.parent, a.parent = a, None
+    ar_tree = Tree(a, rooted=False)
+    inner = [n for n in ar_tree.nodes if not n.is_leaf]
+    width = len(str(max(n.id for n in inner)))
+    for n in inner:
+        n.label = f"N{n.id:0{width}d}"          # fixed width, like the rows
+    ar = out / "ar"
+    ar.mkdir(exist_ok=True)
+    stem = "extended_align.phylip.raxml."
+    (ar / (stem + "ancestralTree")).write_text(
+        write_newick(ar_tree, True, True, False, False) + "\n")
+
+    # posteriors as fixed-width rows "label\tsite\tstate\tp_1..p_S":
+    # probabilities 0.ddddddddd, sites zero-padded
+    top = rng.beta(8, 1, (len(inner), n_sites))
+    rest = rng.dirichlet(np.ones(S - 1), (len(inner), n_sites))
+    state = np.stack([seq[n.id] for n in inner])
+    probs = np.empty((len(inner), n_sites, S))
+    others = (state[..., None] + 1 + np.arange(S - 1)) % S
+    np.put_along_axis(probs, state[..., None], top[..., None], axis=-1)
+    np.put_along_axis(probs, others, (1 - top)[..., None] * rest, axis=-1)
+    fixed = np.clip(np.rint(probs * 1e9), 0, 999_999_999).astype(np.int64)
+    digits = fixed[..., None] // 10 ** np.arange(8, -1, -1) % 10 + 48
+    sw = len(str(n_sites))
+    rows = np.empty((len(inner), n_sites, width + sw + S * 12 + 5),
+                    np.uint8)
+    rows[..., 0] = ord("N")
+    ids = np.array([n.id for n in inner])
+    rows[..., 1:width + 1] = (ids[:, None] //
+                              10 ** np.arange(width - 1, -1, -1) % 10
+                              + 48)[:, None, :]
+    c = width + 1
+    rows[..., c] = 9
+    site = np.arange(1, n_sites + 1)
+    rows[..., c + 1:c + 1 + sw] = site[:, None] // 10 ** np.arange(
+        sw - 1, -1, -1) % 10 + 48
+    c += 1 + sw
+    rows[..., c] = 9
+    rows[..., c + 1] = letters[state]
+    c += 2
+    for j in range(S):
+        rows[..., c] = 9
+        rows[..., c + 1] = ord("0")
+        rows[..., c + 2] = ord(".")
+        rows[..., c + 3:c + 12] = digits[:, :, j]
+        c += 12
+    rows[..., c] = 10
+    header = "\t".join(["Node", "Site", "State"] +
+                       [f"p_{ch}" for ch in alphabet.letters])
+    with open(ar / (stem + "ancestralProbs"), "wb") as f:
+        f.write(header.encode() + b"\n")
+        f.write(rows.tobytes())
+    return out / "align.fasta", out / "tree.nwk", ar
 
 
 def key_chain(db, seed: int, n_keys: int = 50_000):
@@ -1715,7 +1848,7 @@ def host_steps(db, seed: int) -> dict:
 
 def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
               names, ref=None, precision: str = "f32",
-              device: str = "cuda") -> dict:
+              device: str = "cuda", extra=(), acc_rtol: float = 0.0) -> dict:
     import numpy as np
 
     from rappas_tpu_torch import cli
@@ -1737,7 +1870,7 @@ def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
     t0 = time.perf_counter()
     rc = cli.main(["-p", "p", "-d", str(db_path), "-q", str(fasta),
                    "-w", str(wd), "--table", "auto", "--precision",
-                   precision, "--device", device])
+                   precision, "--device", device, *extra])
     dt = time.perf_counter() - t0
     launches = {n: K.LAUNCHES[n] for n in names}
     check(rc == 0, f"CLI exited with {rc}")
@@ -1761,22 +1894,137 @@ def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
     idx = np.array([int(p["nm"][0][0].split()[1][4:]) for p in first])
     ref = PlacementEngine(db, device="cpu", precision=precision).score(
         mat[idx], lens[idx])
+    # score = Q * thr + acc: an f32 accumulator held within ``acc_rtol``
+    # of its plain version (``held``) moves the score by as much
+    acc = ref.top_scores[:, 0] - (lens[idx] - db.k + 1) * np.float32(
+        db.thr_log10)
+    tol = 2e-4 + acc_rtol * np.abs(acc)
+    diff = 0.0
     for i, p in enumerate(first):
         best = p["p"][0]
         node = int(ref.top_edges[i, 0])
         check(node >= 0, f"CLI placement {i}: the CPU engine leaves the "
               "read unplaced")
         near_tie = abs(float(ref.top_scores[i, 0]) -
-                       float(ref.top_scores[i, 1])) <= 2e-4
+                       float(ref.top_scores[i, 1])) <= tol[i]
         check(best[0] == int(arr.jplace_edge_id[node]) or near_tie,
               f"CLI placement {i}: best edge {best[0]} vs CPU "
               f"{arr.jplace_edge_id[node]}")
-        check(abs(best[1] - float(ref.top_scores[i, 0])) <= 2e-4,
-              f"CLI placement {i}: likelihood {best[1]} vs CPU "
-              f"{ref.top_scores[i, 0]}")
+        d = abs(best[1] - float(ref.top_scores[i, 0]))
+        diff = max(diff, d)
+        check(d <= tol[i], f"CLI placement {i}: likelihood {best[1]} vs "
+              f"CPU {ref.top_scores[i, 0]} (tolerance {tol[i]})")
     return {"reads_per_s": n_reads / dt, "seconds": dt, "reads": n_reads,
             "placements": len(jp["placements"]), "unplaced": n_unplaced,
-            "launches": launches}
+            "launches": launches, "max_score_diff": diff,
+            "max_acc": float(np.abs(acc).max())}
+
+
+def build_phase(work: Path, seed: int) -> tuple:
+    """``-p b`` on the card's machine: the canned ``--ardir`` fixture
+    (a subprocess; its DB must be ``expected_db.npz`` bitwise), then
+    :func:`synthetic_ardir` at config 1's widths through ``-p b --ardir
+    --calibration`` on the card (1,000,000 reads through K1 and K3, which
+    must launch), then ``calibrate`` on the new DB at 65,536 reads on the
+    card and on the CPU, the bounds within 2e-4.  Returns (results, DB,
+    its path, its reference: the ASCII leaf sequences one after
+    another)."""
+    import shutil
+
+    import numpy as np
+
+    from rappas_tpu_torch import cli
+    from rappas_tpu_torch.build import calibration, pipeline
+    from rappas_tpu_torch.db import PhyloKmerDB
+    from rappas_tpu_torch.place import kernels as K
+    from rappas_tpu_torch.place.engine import PlacementEngine
+
+    repo = Path(__file__).resolve().parent
+    fx = repo / "tests" / "fixtures"
+    # the canned fixture (a copy: a build writes its id mapping there)
+    ar = work / "canned_ar"
+    shutil.copytree(fx / "raxmlng_ardir", ar)
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "rappas_tpu_torch.cli", "-p", "b",
+         "-r", str(fx / "tiny.fasta"), "-t", str(fx / "tiny.tree"),
+         "-b", "/fake/raxml-ng", "--ardir", str(ar),
+         "-w", str(work / "canned")], cwd=repo, capture_output=True,
+        text=True, timeout=600)
+    canned_s = time.perf_counter() - t0
+    check(run.returncode == 0, f"canned -p b exited with {run.returncode}: "
+          f"{run.stderr[-2000:]}")
+    db = PhyloKmerDB.load(work / "canned" / "DB_k8_o1.5.rptpu")
+    exp = np.load(fx / "raxmlng_ardir" / "expected_db.npz")
+    for key in ("keys", "offsets", "edges", "deltas"):
+        check(np.array_equal(getattr(db, key).view(np.uint8),
+                             exp[key].view(np.uint8)),
+              f"canned -p b: {key} differ from expected_db.npz")
+    check((ar / "ARtree_id_mapping.tsv").read_bytes() ==
+          (fx / "raxmlng_ardir" / "ARtree_id_mapping.tsv").read_bytes(),
+          "canned -p b: ARtree_id_mapping.tsv differs")
+    out = {"canned": {"seconds": canned_s, "kmers": db.n_kmers,
+                      "postings": db.nnz, "bitwise": True}}
+
+    # config 1's widths: 150 taxa x 1,500 sites, calibrated on the card
+    n_taxa, n_sites = 150, 1500
+    t0 = time.perf_counter()
+    align, tree, ar = synthetic_ardir(work / "synthetic", n_taxa, n_sites,
+                                      seed)
+    gen_s = time.perf_counter() - t0
+    wd = work / "synthetic_db"
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["-p", "b", "-r", str(align), "-t", str(tree),
+                   "-b", "/fake/raxml-ng", "--ardir", str(ar), "-w", str(wd),
+                   "--calibration"])
+    cli_s = time.perf_counter() - t0
+    launches = {n: K.LAUNCHES[n] for n in BUILD}
+    check(rc == 0, f"-p b exited with {rc}")
+    for name, n in launches.items():
+        check(n > 0, f"build phase: kernel {name} was never launched")
+    check(K.LAUNCHES["accumulate_codes"] == 0,
+          "build phase: a calibration read went to K2")
+    stats, cal = dict(pipeline.LAST_BUILD), dict(calibration.LAST_RUN)
+    path = wd / "DB_k8_o1.5.rptpu"
+    db = PhyloKmerDB.load(path)
+    bound = db.meta["calibration_ns_bound"]
+    check(np.isfinite(bound), f"calibrated bound {bound} in the header")
+    table = PlacementEngine.resolve_table(
+        db, "auto", "f32", PlacementEngine.DIRECT_BYTE_LIMIT)
+    check(table == "direct", f"the synthetic DB resolves to {table}")
+    check(cal["reads"] == 1_000_000, f"calibration scored {cal['reads']}")
+    out["synthetic"] = {
+        "taxa": n_taxa, "sites": n_sites, "generate_s": gen_s,
+        "ghost_nodes": stats["nodes"], "raw_tuples": stats["raw_tuples"],
+        "postings": db.nnz, "kmers": db.n_kmers, "E": db.n_edge_slots,
+        "table": table, "db_mb": path.stat().st_size / 1e6,
+        "build_s": {key: stats[key] for key in ("inputs_s", "ar_s",
+                                                "kmers_s", "save_s")},
+        "calibration_s": cal["seconds"],
+        "calibration_reads_per_s": cal["reads"] / cal["seconds"],
+        "cli_s": cli_s, "bound": bound, "launches": launches}
+
+    # the same reads' bound on the card and on the CPU
+    n = 65_536
+    K.reset_launches()
+    on_card = calibration.calibrate(db, n_samples=n, device="cuda")
+    card_s = calibration.LAST_RUN["seconds"]
+    moved = {name: K.LAUNCHES[name] for name in BUILD}
+    for name, m in moved.items():
+        check(m > 0, f"calibrate on cuda: kernel {name} was never launched")
+    on_cpu = calibration.calibrate(db, n_samples=n, device="cpu")
+    check(abs(on_card - on_cpu) <= 2e-4, f"calibration bound on the card "
+          f"{on_card} vs the CPU {on_cpu}")
+    out["card_vs_cpu"] = {"reads": n, "card_bound": on_card,
+                          "cpu_bound": on_cpu,
+                          "abs_diff": abs(on_card - on_cpu),
+                          "card_s": card_s,
+                          "cpu_s": calibration.LAST_RUN["seconds"],
+                          "launches": moved}
+    seqs = [ln for ln in align.read_bytes().split(b"\n")
+            if ln and not ln.startswith(b">")]
+    return out, db, path, np.frombuffer(b"".join(seqs), np.uint8)
 
 
 # ---------------------------------------------------------------------- #
@@ -1806,6 +2054,8 @@ SPLIT_POSTINGS = ("ambiguous_postings_parts", "finalize_postings_wire_routed",
 SPLIT_DIRECT = ("routed_accumulate", "ambiguous_pass_split", "finalize_wire")
 SPLIT_DIRECT_U16 = ("routed_accumulate_u16", "ambiguous_pass_split_u16",
                     "finalize_wire")
+#: the build phase's calibration: clean reads, packed (K1), then K3
+BUILD = ("accumulate_packed", "finalize_wire")
 #: kernel instance -> (source in csrc/, the JAX functions it replaces,
 #: the main-path run whose launches its line reports)
 _E = "rappas_tpu/place/engine.py:"
@@ -1962,6 +2212,22 @@ def main() -> int:
     show("launch floor", {"launch_floor_ms": results["launch_floor_ms"]})
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         work = Path(tmp)
+        # the DB build: -p b --ardir, calibrated on the card ------- #
+        bres, db, path, ref = build_phase(work, args.seed)
+        for key, r in bres.items():
+            show(f"build {key}", r)
+        # the header's calibrated bound would drop reads from both the
+        # jplace and the unplaced list, which the phase counts; reads
+        # from the leaves hit on every window, so the accumulators reach
+        # hundreds and the scores are held as K1's sums are (``held``:
+        # 1e-5 relative, summation order)
+        cl = cli_phase(db, path, work, CLI_READS_U16, args.seed, DIRECT,
+                       ref, extra=["--nsbound=-inf"], acc_rtol=1e-5)
+        show("build cli", cl)
+        bres["cli"] = cl
+        results["build"] = bres
+        del db
+
         # config 1: direct layout ---------------------------------- #
         db, path = make_db("config1", config1_db, work)
         kern = kernel_phase(db, args.seed)
@@ -2247,6 +2513,8 @@ def main() -> int:
             "replaces": replaces,
             "launches": results[cfg][phase]["launches"][key],
             "engine_launches": results[cfg]["engine"]["launches"][key],
+            **({"build_launches": results["build"]["synthetic"]["launches"]
+                [name]} if name in BUILD else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -2,20 +2,24 @@
 ``rappas_tpu/cli.py`` (itself drop-in compatible with the reference
 RAPPAS, ``ArgumentsParser_v2.java``) plus ``--device``.
 
-Ported so far: ``-p p`` placement in every table layout (``--table
-auto``, ``direct``, ``compact`` or ``postings``) and both precisions
-(``--precision f32`` or ``u16``; u16 takes the direct or compact table)
-on one device, or over a ``--dp`` x ``--mp`` mesh of this host's devices
-(f32; :mod:`rappas_tpu_torch.parallel`), on one host or several
-(``--num-hosts``, ``--host-id``, ``--coordinator``).  The options that
-reach code not ported yet (``-p b``, ``--profile``) exit with status 2
-and name the ROADMAP item that ports them.
+Ported so far: ``-p b`` DB build (from an AR program's run or its
+outputs under ``--ardir``; ``--calibration`` scores its random reads on
+``--device``, and ``--dbinram -q`` places at once) and ``-p p``
+placement in every table layout (``--table auto``, ``direct``,
+``compact`` or ``postings``) and both precisions (``--precision f32`` or
+``u16``; u16 takes the direct or compact table) on one device, or over a
+``--dp`` x ``--mp`` mesh of this host's devices (f32;
+:mod:`rappas_tpu_torch.parallel`), on one host or several
+(``--num-hosts``, ``--host-id``, ``--coordinator``).  The option that
+reaches code not ported yet (``--profile``) exits with status 2 and
+names the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+from pathlib import Path
 
 from rappas_tpu_torch import __version__
 from rappas_tpu_torch.utils import log, set_verbosity
@@ -157,8 +161,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "--calibration is dead code; this is a working "
                         "implementation)")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="device of the placement engine: cuda runs the "
-                        "CUDA kernels (and fails where no CUDA device "
+                   help="device of the placement engine (placement, "
+                        "--calibration and -p b --dbinram -q): cuda runs "
+                        "the CUDA kernels (and fails where no CUDA device "
                         "is present), cpu their plain PyTorch versions "
                         "(a --dp x --mp mesh then repeats the CPU)")
     return p
@@ -168,14 +173,82 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     set_verbosity(args.verbosity)
     call_string = " ".join(argv if argv is not None else sys.argv[1:])
+
+    if args.extree:
+        log("--extree accepted for compatibility: the extended tree is "
+            "rebuilt deterministically here (combine with --ardir to "
+            "reuse AR outputs)")
+    if args.dbfull:
+        log("--dbfull accepted for compatibility: the union .rptpu DB "
+            "is already complete (no-op)")
+    if args.poshash:
+        log("--poshash accepted for compatibility: positional mode is a "
+            "deprecated no-op in the reference's live hash; union mode "
+            "is used")
     try:
         if args.phase == "b":
-            raise NotPorted("-p b (DB build) is not yet ported (ROADMAP "
-                            "queue 1 item 2)")
+            return run_build(args, call_string)
         return run_placement(args, call_string)
     except NotPorted as e:
         print(f"rappas-tpu-torch: {e}", file=sys.stderr)
         return 2
+
+
+def run_build(args, call_string: str) -> int:
+    from rappas_tpu_torch.build.pipeline import BuildConfig, build_database
+    from rappas_tpu_torch.models import EvolModel
+
+    if not args.refalign or not args.reftree:
+        print("DB build needs -r/--refalign and -t/--reftree",
+              file=sys.stderr)
+        return 2
+    if args.profile and args.dbinram and args.queries:
+        # the placement that --dbinram -q runs would be traced
+        raise NotPorted("--profile is not yet ported (ROADMAP queue 1 "
+                        "item 8)")
+    model = (EvolModel.from_string(args.model, args.alpha, args.categories)
+             if args.model else None)
+    cfg = BuildConfig(
+        k=args.k, omega=args.omega, states=args.states,
+        ghosts=args.ghosts,
+        reduction=not args.no_reduction,
+        reduction_ratio=args.ratio_reduction,
+        reduced_align_file=args.write_reduction,
+        model=model, ar_binary=args.arbinary, ar_dir=args.ardir,
+        ar_parameters=args.arparameters, threads=args.threads,
+        force_rooting=args.force_root, use_unrooted=args.use_unrooted,
+        only_fake_nodes=not args.original_nodes,
+        only_x1_nodes=args.onlyX1,
+        do_gap_jumps=args.force_gap_jump or args.do_n_jumps,
+        limit_to_1_jump=not args.do_n_jumps,
+        gap_jump_threshold=args.gap_jumps_thresh,
+        only_ar=args.aronly, only_ar_input=args.arinputonly,
+        db_filename=args.dbfilename, convert_uo=args.convertUO,
+        save_db=not args.dbinram)
+    db = build_database(args.refalign, args.reftree, args.workdir, cfg)
+    if db is None:
+        return 0
+    if args.calibration:
+        from rappas_tpu_torch.build.calibration import calibrate
+        bound = calibrate(db, device=args.device)
+        log(f"calibrated noise score bound: {bound}")
+        if not args.dbinram:
+            # re-save with the calibration in the header (--dbinram
+            # keeps the bound in the in-RAM db.meta for the placement
+            # below and never writes DB files)
+            name = args.dbfilename or f"DB_k{args.k}_o{args.omega}.rptpu"
+            if not name.endswith(".rptpu"):
+                name += ".rptpu"
+            db.save(Path(args.workdir) / name)
+    if args.jsondb:
+        import json
+        dump = Path(args.workdir) / "DB.json"
+        with open(dump, "w") as f:
+            json.dump(db.to_json_dump(), f, indent=1)
+        log(f"JSON DB dump: {dump}")
+    if args.dbinram and args.queries:
+        _place_all(db, args, call_string)
+    return 0
 
 
 def run_placement(args, call_string: str) -> int:
@@ -287,8 +360,6 @@ def _merge_host_parts(part_path, query, args, read_shard) -> None:
     """Rank 0 merges the per-host jplace parts once all hosts wrote
     theirs (a cross-host barrier exists only under --coordinator;
     otherwise parts are left for an offline merge)."""
-    from pathlib import Path
-
     from rappas_tpu_torch.parallel.distributed import merge_jplace
     pid, n_hosts = read_shard
     if args.coordinator:

@@ -1,7 +1,7 @@
 """Native (C++) host components, compiled on demand with g++.
 
-These are the host-side hot loops of the placement path (the
-reference's equivalents are its Java inner loops):
+These are the host-side hot loops of the placement path and the DB
+build (the reference's equivalents are its Java inner loops):
 
 * ``ingest.cpp`` -- FASTA block parse, md5 dedup keys, padded matrix
   fill and the md5 -> first-occurrence map;
@@ -9,7 +9,12 @@ reference's equivalents are its Java inner loops):
   TSV report lines, formatted per batch;
 * ``keyprobe.cpp`` -- fused rolling-hash k-mer indexing and bucketed
   sorted-key probe (the postings layout's row lookup when the k-mer
-  space is too big for a direct index: protein k >= 8).
+  space is too big for a direct index: protein k >= 8);
+* ``wordexplorer.cpp`` -- exact branch-and-bound phylo-kmer enumeration
+  incl. gap jumps (bit-identical f32 semantics to the reference
+  recursion), used by the DB build where the vectorized numpy frontier
+  doesn't apply; parallelised over ghost nodes from Python threads
+  (ctypes releases the GIL).
 
 Each library is built at first use into ``rappas_tpu_torch/_build/``
 (listed in ``.gitignore``), keyed by the hash of its source; no network
@@ -47,7 +52,8 @@ def _build(name: str) -> Path:
     # build under a per-process name and rename: concurrent test workers
     # may build the same library at once
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    # note: no -ffast-math -- float formatting must stay IEEE-exact
+    # note: no -ffast-math -- float formatting and the explorer's f32
+    # sums must stay IEEE-exact
     cmd = ["g++", "-O2", "-shared", "-fPIC", "-std=c++17", "-pthread",
            str(src), "-o", str(tmp)]
     try:
@@ -368,3 +374,67 @@ class NativeDedup:
             self._lib.dd_free(self._st)
         except Exception:
             pass
+
+
+# ------------------------------------------------------------------ #
+# wordexplorer wrapper
+# ------------------------------------------------------------------ #
+
+def _we_lib() -> ctypes.CDLL:
+    lib = load("wordexplorer")
+    if not getattr(lib, "_we_configured", False):
+        c = ctypes
+        lib.we_explore.restype = c.c_void_p
+        lib.we_explore.argtypes = [
+            c.c_void_p, c.c_void_p, c.c_int, c.c_int, c.c_int, c.c_float,
+            c.c_void_p, c.c_void_p, c.c_int, c.c_int, c.c_int]
+        lib.we_count.restype = c.c_int64
+        lib.we_count.argtypes = [c.c_void_p]
+        lib.we_codes.restype = c.POINTER(c.c_int64)
+        lib.we_codes.argtypes = [c.c_void_p]
+        lib.we_sums.restype = c.POINTER(c.c_float)
+        lib.we_sums.argtypes = [c.c_void_p]
+        lib.we_free.argtypes = [c.c_void_p]
+        lib._we_configured = True
+    return lib
+
+
+def gap_intervals_csr(gap_intervals: dict | None, n_cols: int):
+    """dict(col -> [lengths]) -> CSR (offsets int32[n_cols+1], lens)."""
+    offsets = np.zeros(n_cols + 1, np.int32)
+    lens: list[int] = []
+    gi = gap_intervals or {}
+    for c in range(n_cols):
+        offsets[c] = len(lens)
+        lens.extend(gi.get(c, ()))
+    offsets[n_cols] = len(lens)
+    return offsets, np.array(lens, np.int32)
+
+
+def explore_node_exact_native(states_sorted: np.ndarray,
+                              pp_sorted: np.ndarray, k: int, thr,
+                              gap_intervals: dict | None = None,
+                              do_gap_jumps: bool = False,
+                              limit_to_1_jump: bool = True):
+    """Drop-in native replacement for
+    ``rappas_tpu_torch.build.explorer.explore_node_exact``."""
+    lib = _we_lib()
+    st = np.ascontiguousarray(states_sorted, np.int8)
+    pp = np.ascontiguousarray(pp_sorted, np.float32)
+    L, S = pp.shape
+    offsets, lens = gap_intervals_csr(gap_intervals, L)
+    handle = lib.we_explore(
+        st.ctypes.data, pp.ctypes.data, L, S, k,
+        np.float32(thr),
+        offsets.ctypes.data, lens.ctypes.data, L,
+        1 if do_gap_jumps else 0, 1 if limit_to_1_jump else 0)
+    try:
+        n = lib.we_count(handle)
+        if n == 0:
+            return np.zeros(0, np.int64), np.zeros(0, np.float32)
+        codes = np.ctypeslib.as_array(lib.we_codes(handle),
+                                      (n,)).copy()
+        sums = np.ctypeslib.as_array(lib.we_sums(handle), (n,)).copy()
+    finally:
+        lib.we_free(handle)
+    return codes.astype(np.int64), sums.astype(np.float32)

@@ -1137,3 +1137,23 @@ def test_dense_side_edge_range_shard_on_card(card):
     torch.cuda.synchronize()
     assert torch.equal(got, inorder_slot_sums(shard, hrows, hoff))
     assert torch.equal(got, whole[:, 3999:])
+
+
+@pytest.mark.cuda
+def test_calibrate_on_card_matches_cpu(card):
+    """``calibrate`` on the card (K1 and K3 on every batch: calibration
+    reads are clean ACGT) gives the CPU bound within 2e-4 on the same
+    reads."""
+    from chip_smoke import bench_db
+    from rappas_tpu_torch.build.calibration import calibrate
+
+    db = bench_db(1, 6, 0.6)
+    kw = {"n_samples": 20_000, "mean_length": 60, "batch_size": 4096}
+    T.reset_launches()
+    on_card = calibrate(db, device="cuda", **kw)
+    launched = {n: T.LAUNCHES[n] for n in ("accumulate_packed",
+                                           "finalize_wire")}
+    assert launched == {"accumulate_packed": 5, "finalize_wire": 5}
+    assert T.LAUNCHES["accumulate_codes"] == 0
+    on_cpu = calibrate(db, device="cpu", **kw)
+    assert np.isfinite(on_card) and abs(on_card - on_cpu) <= 2e-4

@@ -1,7 +1,7 @@
-"""The port (``rappas_tpu_torch``) stands alone: it imports and runs with
-``jax``, ``jaxlib`` and ``rappas_tpu`` blocked, no module of it imports
-them, its entry points default to CUDA and refuse to run without it, and
-the options whose code is not ported yet fail loudly."""
+"""The port (``rappas_tpu_torch``) stands alone: it imports, places and
+builds a DB with ``jax``, ``jaxlib`` and ``rappas_tpu`` blocked, no module
+of it imports them, its entry points default to CUDA and refuse to run
+without it, and the option whose code is not ported yet fails loudly."""
 
 import ast
 import json
@@ -62,6 +62,10 @@ _BLOCKED_RUN = textwrap.dedent("""
     assert {{"rappas_tpu_torch.parallel." + m for m in (
         "mesh", "engine", "kmer_sharded", "postings_sharded",
         "distributed")}} <= set(names), names
+    assert {{"rappas_tpu_torch." + m for m in (
+        "build.pipeline", "build.explorer", "build.calibration",
+        "ar.launcher", "ar.wrappers", "ar.results", "extend", "alignment",
+        "models")}} <= set(names), names
     from rappas_tpu_torch import cli
     from rappas_tpu_torch.alphabet import DNA
     from rappas_tpu_torch.db import PhyloKmerDB, build_csr
@@ -120,6 +124,26 @@ _BLOCKED_RUN = textwrap.dedent("""
                           np.searchsorted(keys, np.arange(4 ** 5 + 1)
                                           ).astype(np.int32), 0, -1)
         assert rows.tolist() == [[0] * 5] * 2
+        # -p b from the canned AR outputs (a copy: the build writes its
+        # id mapping into the AR directory), the DB the fixture expects
+        import shutil
+        fx = pathlib.Path("tests/fixtures")
+        shutil.copytree(fx / "raxmlng_ardir", tmp / "ar")
+        assert cli.main(["-p", "b", "-r", str(fx / "tiny.fasta"),
+                         "-t", str(fx / "tiny.tree"), "-b", "/fake/raxml-ng",
+                         "--ardir", str(tmp / "ar"), "-w",
+                         str(tmp / "build"), "--force-gap-jump"]) == 0
+        built = PhyloKmerDB.load(tmp / "build" / "DB_k8_o1.5.rptpu")
+        assert built.nnz > 0 and built.meta["gap_jumps"]
+        assert cli.main(["-p", "b", "-r", str(fx / "tiny.fasta"),
+                         "-t", str(fx / "tiny.tree"), "-b", "/fake/raxml-ng",
+                         "--ardir", str(tmp / "ar"), "-w",
+                         str(tmp / "build")]) == 0
+        built = PhyloKmerDB.load(tmp / "build" / "DB_k8_o1.5.rptpu")
+        expected = np.load(fx / "raxmlng_ardir" / "expected_db.npz")
+        for key in ("keys", "offsets", "edges", "deltas"):
+            assert np.array_equal(getattr(built, key).view(np.uint8),
+                                  expected[key].view(np.uint8)), key
     leaked = sorted(n for n in sys.modules
                     if n.split(".")[0] in {blocked!r})
     assert not leaked, leaked
@@ -128,8 +152,10 @@ _BLOCKED_RUN = textwrap.dedent("""
 
 
 def test_port_imports_and_runs_with_jax_blocked():
-    """Every module imports, and CLI placements run (height-split tables
-    included), while any import of jax / jaxlib / rappas_tpu raises."""
+    """Every module imports, CLI placements run (height-split tables
+    included) and ``-p b --ardir`` builds the canned fixture's DB (with
+    the native explorer too), while any import of jax / jaxlib /
+    rappas_tpu raises."""
     r = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=REPO,
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -230,11 +256,6 @@ def test_cli_u16_and_compact_place(tmp_path, extra):
                      "--device", "cpu", *extra]) == 0
     jp = json.loads((tmp_path / "placements_q.fasta.jplace").read_text())
     assert len(jp["placements"]) == 1 and jp["placements"][0]["p"]
-
-
-def test_cli_build_phase_not_ported(capsys):
-    assert cli.main(["-p", "b", "-r", "a.fasta", "-t", "t.tree"]) == 2
-    assert "queue 1 item 2" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("dp", ["0", "1"])
