@@ -25,11 +25,18 @@ single device resolves to:
   3. ``calibrate`` on that DB at 65,536 reads on the card and on the
      CPU: the bounds within 2e-4, K1 and K3 launched;
   4. a CLI phase (``-p p``, 20k reads, half from the leaf sequences, the
-     calibrated bound switched off so that every read is counted) on it,
-     the scores held against the CPU engine within 2e-4 plus 1e-5 of the
-     accumulator (K1's tolerance against its plain version: such reads
-     hit every window, and f32 summation order alone moves a sum of
-     ~150 terms near 400 by more than 2e-4);
+     calibrated bound switched off so that every read is counted) on it:
+     such reads hit every window, their accumulators reach ~440, where
+     two f32 summation orders differ by more than 2e-4, so the first 512
+     placements of the card's jplace and of the CPU engine are each held
+     against the f64 sums of the same postings
+     (``rappas_tpu_torch.place.oracle.exact_scores``), with the f64 top
+     edges apart from near ties at the cut: the CPU engine within 2e-4,
+     the card within 2e-4 plus its f32 running sums' error bound
+     (``card_tolerance``);
+  5. 128 clean reads cut from the leaves through the card's engine, the
+     CPU engine and the port's serial oracle, each against f64 with the
+     same gates; the oracle's distance (Java's f32 order) is reported;
 * config 1, the direct layout (k=8, E=300 edge slots, a table
   ``D[4^8 + 1, 300]`` f32 of 79 MB, 150 bp reads):
   1. kernel phase -- K1 accumulate_packed, K2 accumulate_codes, K3
@@ -45,12 +52,23 @@ single device resolves to:
   3. CLI phase -- ``python -m rappas_tpu_torch.cli -p p`` on 50k reads
      with duplicates and N's; the jplace is parsed and its placements
      held against the CPU engine;
-  4. u16 (``precision="u16"``: ``D`` uint16 ``[4^8 + 1, 300]``, 39 MB)
+  4. oracle phase -- the engine phase's first 512 reads on the card
+     against the port's serial oracle (``place/oracle.py``) with the
+     tests' gate: ``|L|`` and edge sets identical, scores within 2e-4,
+     LWR within 1e-4;
+  5. profile phase -- the CLI on 20k reads without and with ``--profile
+     DIR``: the ``*.pt.trace.json`` must account for every launch of
+     K1-K4 the wrappers counted (its kernel record, or its runtime launch
+     record where the profiler lost the kernel record), and the card's
+     busy share (the union of kernel and copy intervals over the profiled
+     window) and its kernels' share are reported beside both runs'
+     reads/s;
+  6. u16 (``precision="u16"``: ``D`` uint16 ``[4^8 + 1, 300]``, 39 MB)
      -- K1, K2 and K4 on the uint16 table against their plain versions,
      an engine phase whose 512 reads are also held against the card's
      f32 engine within 5e-3, and a CLI phase (``--precision u16``, 20k
      reads);
-  5. compact f32 (``table="compact"``: ``D[39,322, 300]``, 47 MB, the
+  7. compact f32 (``table="compact"``: ``D[39,322, 300]``, 47 MB, the
      int32 keys on the card) -- C1 accumulate_compact at B=16384 against
      its plain version (2 slabs: the rows resolved once by a resolve
      pass, then summed slab by slab), and an engine phase through C1
@@ -76,9 +94,9 @@ single device resolves to:
   parts (a 32 MB budget), the select fallback after the unique-overflow
   halving, and max-mode ambiguity reads over the parts, each held
   against the one-table engine and checked for its path (parts, handle
-  type, launches); the CLI with ``--table auto`` (routed); half of each
-  batch is sampled from the reference (every window hits), half is
-  uniform;
+  type, launches); the CLI with ``--table auto`` (routed), and its
+  profile phase (P1, A1, R1 counted in the trace); half of each batch is
+  sampled from the reference (every window hits), half is uniform;
 * the sharded phases, on a (dp=2, mp=2) mesh of four distinct cards or
   of the one card repeated (``smoke_mesh``):
   1. config 1 through ``ShardedEngine`` (two 150-column shards of the
@@ -108,6 +126,20 @@ single device resolves to:
   GB, the compact one ``[2,010,001, 300]`` takes 1.2 GB): C1 on the f32
   (2.4 GB) and u16 tables against its plain version, an engine phase and
   a CLI phase (``--precision u16``, 20k reads).
+
+* the mp axis across processes, last: two rank processes (``chip_smoke.py
+  --mp-rank R``, started by the script) join a gloo group on localhost
+  and form the transposed (dp=2, mp=2) mesh whose mp pairs hold one
+  device of each rank (``cuda:0`` repeated; with two or more cards also a
+  run with one card per rank, whose row groups take NCCL): config 1's
+  ``ShardedPlacement`` (one 150-column shard per rank, 3 batches of
+  16,384 reads; the tiles all-gathered), config 6's
+  ``KmerShardedPlacement`` (one 1.2 GB k-mer range per rank, 10 batches
+  of 16,384 reads; the psum an all-reduce) and config 5's postings
+  ``ShardedEngine`` (one 4,000-edge range per rank, 3 batches of 8,192;
+  the wires all-gathered); each rank's results must equal the
+  single-process mesh's above bitwise, and each rank must launch K2, C3,
+  K3, P1-P3 and M1.
 
 Each row-sum kernel line (K1, K2, C1, C2, C3, and D1, which launches the
 row-sum template once per part) also reports the row bytes it moved
@@ -628,6 +660,57 @@ def same_placements(a, b, tol_score=2e-4, tol_lwr=1e-4) -> str | None:
             if any(abs(float(la[e]) - float(lb[e])) > tol_lwr for e in ea):
                 return f"read {i}: LWR differs"
     return None
+
+
+def result_rows(res, i: int) -> list:
+    """Read ``i``'s placements of a BatchResult: [(node id, score)], best
+    first."""
+    v = res.top_edges[i] >= 0
+    return [(int(e), float(x)) for e, x in zip(res.top_edges[i][v],
+                                               res.top_scores[i][v])]
+
+
+def card_tolerance(db, seq: str, exact: dict) -> float:
+    """The card's score gate against the f64 sums for one read: 2e-4 plus
+    the first-order error bound of its f32 running sums.  K1 adds each
+    hit window's delta to one running sum per edge, in window order; for
+    n non-negative terms summing to ``acc`` that error is at most ``n *
+    2^-24 * |acc|`` (Higham's gamma_n * sum |x_i|), n the read's hit
+    windows (an ambiguous window counts as one).  For a 150-bp read, n <=
+    143 keeps it under 2e-4 + 1e-5 |acc|."""
+    import numpy as np
+
+    codes = db.alphabet.encode(seq).astype(np.int64)
+    win = np.lib.stride_tricks.sliding_window_view(codes, db.k)
+    clean = (win >= 0).all(axis=1)
+    idx = win[clean] @ (db.alphabet.n_states **
+                        np.arange(db.k - 1, -1, -1, dtype=np.int64))
+    n = int(np.isin(idx, db.keys).sum()) + int((~clean).sum())
+    acc = max(abs(x - len(win) * float(np.float32(db.thr_log10)))
+              for x in exact.values())
+    return 2e-4 + n * 2.0 ** -24 * acc
+
+
+def exact_distance(rows, exact: dict, tol: float, what: str) -> tuple:
+    """One read's placements ``rows`` [(edge, score)], best first, against
+    ``exact`` (every candidate's f64 score,
+    ``rappas_tpu_torch.place.oracle.exact_scores``): the edges are the
+    f64 top ``len(rows)``, apart from edges whose f64 score lies within
+    ``tol`` of the f64 ``len(rows)``-th best (a near tie at the cut), and
+    every score lies within ``tol`` of its f64 sum.  Returns (the largest
+    distance, whether a near tie changed the edge set)."""
+    check(0 < len(rows) <= len(exact), f"{what}: {len(rows)} placements "
+          f"of {len(exact)} candidates")
+    ranked = sorted(exact, key=exact.get, reverse=True)
+    got, want = {e for e, _ in rows}, set(ranked[:len(rows)])
+    cut = exact[ranked[len(rows) - 1]]
+    check(all(e in exact and abs(exact[e] - cut) <= tol
+              for e in got ^ want),
+          f"{what}: edges {sorted(got)} vs the f64 top {sorted(want)}")
+    d = max(abs(x - exact[e]) for e, x in rows)
+    check(d <= tol, f"{what}: a score lies {d} from its f64 sum "
+          f"(tolerance {tol})")
+    return d, got != want
 
 
 # ---------------------------------------------------------------------- #
@@ -1469,7 +1552,8 @@ def kmer_sharded_phase(db, mesh, seed: int, ref, n_batches: int = 10,
     ``n_batches`` batches back to back (launches counted), the first
     batch's first 512 reads held against the card's single compact engine
     (KmerShardedPlacement scores no ambiguity windows, so that engine runs
-    with ``treat_ambiguities=False``)."""
+    with ``treat_ambiguities=False``).  Returns (C3's kernel line, the
+    batches' results, the phase's report)."""
     import numpy as np
     import torch
 
@@ -1481,15 +1565,7 @@ def kmer_sharded_phase(db, mesh, seed: int, ref, n_batches: int = 10,
     t0 = time.perf_counter()
     ksp = KmerShardedPlacement(db, mesh)
     setup_s = time.perf_counter() - t0
-    rng = np.random.default_rng(seed + 9)
-    batches = [random_reads(rng, B_KERNEL, B_KERNEL // 100, 0.05, ref=ref)
-               for _ in range(n_batches)]
-    # PlacementEngine.encode_batch on these reads: ACGT -> 0-3, N -> -1
-    # (ambiguous), the 0xFF padding -> -2
-    tab = np.full(256, -2, np.int8)
-    tab[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
-    tab[ord("N")] = -1
-    coded = [(tab[m], ln) for m, ln in batches]
+    batches, coded = coded_batches(seed, ref, n_batches)
 
     # C3 on shard 1 ---------------------------------------------------- #
     dp, per = mesh.shape["dp"], ksp._per
@@ -1556,13 +1632,12 @@ def kmer_sharded_phase(db, mesh, seed: int, ref, n_batches: int = 10,
     for x in pend:
         x.result()
     single_dt = time.perf_counter() - t0
-    return kern, {"reads_per_s": n_batches * B_KERNEL / dt, "seconds": dt,
-                  "single_compact_reads_per_s": n_batches * B_KERNEL /
-                  single_dt,
-                  "setup_s": setup_s, "batches": n_batches,
-                  "batch_size": B_KERNEL, "mesh": dict(mesh.shape),
-                  "shard_rows": per + 1, "launches": launches,
-                  "host_steps_s": steps}
+    return kern, results, {
+        "reads_per_s": n_batches * B_KERNEL / dt, "seconds": dt,
+        "single_compact_reads_per_s": n_batches * B_KERNEL / single_dt,
+        "setup_s": setup_s, "batches": n_batches, "batch_size": B_KERNEL,
+        "mesh": dict(mesh.shape), "shard_rows": per + 1,
+        "launches": launches, "host_steps_s": steps}
 
 
 def sharded_place_phase(db, mesh, work: Path, n_reads: int, seed: int,
@@ -1846,14 +1921,37 @@ def host_steps(db, seed: int) -> dict:
     return steps
 
 
+#: the CLI in a process of its own, its launch counts on the last line
+CLI_PROCESS = ("import json, sys\n"
+               "from rappas_tpu_torch import cli\n"
+               "from rappas_tpu_torch.place import kernels\n"
+               "rc = cli.main(sys.argv[1:])\n"
+               "print(json.dumps(kernels.LAUNCHES))\n"
+               "sys.exit(rc)\n")
+
+
 def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
               names, ref=None, precision: str = "f32",
-              device: str = "cuda", extra=(), acc_rtol: float = 0.0) -> dict:
+              device: str = "cuda", extra=(), exact: bool = False,
+              tag: str = "", fresh: bool = False) -> dict:
+    """``python -m rappas_tpu_torch.cli -p p`` (``cli.main``, ``extra``
+    appended; with ``fresh`` in a process of its own, as a user runs it,
+    the wall time then including the interpreter's start) on ``n_reads``
+    reads (10% duplicates, 1% with an N, half
+    from ``ref`` when given): every kernel in ``names`` must launch, every
+    read be placed or listed unplaced, and the first 512 placements agree
+    with the CPU engine's (best edge, or a near tie; likelihood within
+    2e-4).  With ``exact`` they are held instead against the f64 sums of
+    the same postings (``oracle.exact_scores``), with the f64 top edges
+    apart from near ties at the cut: every placement row of the CPU
+    engine within 2e-4 of its f64 sum, of the card's jplace within
+    :func:`card_tolerance`."""
     import numpy as np
 
     from rappas_tpu_torch import cli
     from rappas_tpu_torch.place import kernels as K
     from rappas_tpu_torch.place.engine import PlacementEngine
+    from rappas_tpu_torch.place.oracle import exact_scores
 
     rng = np.random.default_rng(seed + 3)
     n_unique = n_reads - n_reads // 10
@@ -1865,14 +1963,24 @@ def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
         for i, s in enumerate(src.tolist()):
             f.write(b">r%d src=%d\n" % (i, s) +
                     mat[s, :lens[s]].tobytes() + b"\n")
-    wd = work / f"cli_{db_path.stem}_{precision}"
+    wd = work / f"cli_{db_path.stem}_{precision}{tag}"
+    argv = ["-p", "p", "-d", str(db_path), "-q", str(fasta), "-w", str(wd),
+            "--table", "auto", "--precision", precision, "--device", device,
+            *extra]
     K.reset_launches()
     t0 = time.perf_counter()
-    rc = cli.main(["-p", "p", "-d", str(db_path), "-q", str(fasta),
-                   "-w", str(wd), "--table", "auto", "--precision",
-                   precision, "--device", device, *extra])
+    if fresh:
+        run = subprocess.run([sys.executable, "-c", CLI_PROCESS, *argv],
+                             cwd=Path(__file__).resolve().parent,
+                             capture_output=True, text=True, timeout=600)
+        rc = run.returncode
+        check(rc == 0, f"CLI process exited with {rc}: {run.stderr[-2000:]}")
+        counts = json.loads(run.stdout.strip().splitlines()[-1])
+    else:
+        rc = cli.main(argv)
+        counts = K.LAUNCHES
     dt = time.perf_counter() - t0
-    launches = {n: K.LAUNCHES[n] for n in names}
+    launches = {n: counts[n] for n in names}
     check(rc == 0, f"CLI exited with {rc}")
     for name, n in launches.items():
         check(n > 0, f"CLI phase: kernel {name} was never launched")
@@ -1888,17 +1996,37 @@ def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
           f"jplace names {n_named} + unplaced {n_unplaced} != {n_reads}")
     check(len(jp["placements"]) <= n_unique, "more placements than "
           "distinct reads")
-    # the first 512 placements against the CPU engine, read by read
+    out = {"reads_per_s": n_reads / dt, "seconds": dt, "reads": n_reads,
+           "placements": len(jp["placements"]), "unplaced": n_unplaced,
+           "launches": launches}
+    # the first 512 placements, read by read
     arr = db.arrays
     first = jp["placements"][:512]
     idx = np.array([int(p["nm"][0][0].split()[1][4:]) for p in first])
     ref = PlacementEngine(db, device="cpu", precision=precision).score(
         mat[idx], lens[idx])
-    # score = Q * thr + acc: an f32 accumulator held within ``acc_rtol``
-    # of its plain version (``held``) moves the score by as much
     acc = ref.top_scores[:, 0] - (lens[idx] - db.k + 1) * np.float32(
         db.thr_log10)
-    tol = 2e-4 + acc_rtol * np.abs(acc)
+    out["max_acc"] = float(np.abs(acc).max())
+    if exact:
+        node_of = {int(j): n for n, j in enumerate(arr.jplace_edge_id)
+                   if j >= 0}
+        card = cpu = over = 0.0
+        ties = 0
+        for i, p in enumerate(first):
+            seq = mat[idx[i], :lens[idx[i]]].tobytes().decode()
+            ex = exact_scores(db, seq)
+            tol = card_tolerance(db, seq, ex)
+            d, tie = exact_distance([(node_of[r[0]], r[1]) for r in p["p"]],
+                                    ex, tol, f"CLI placement {i} (card)")
+            card, ties = max(card, d), ties + tie
+            over = max(over, d - 2e-4)
+            d, tie = exact_distance(result_rows(ref, i), ex, 2e-4,
+                                    f"CLI placement {i} (CPU engine)")
+            cpu, ties = max(cpu, d), ties + tie
+        out.update(card_max_f64_diff=card, cpu_max_f64_diff=cpu,
+                   card_past_2e4=max(over, 0.0), near_ties=ties)
+        return out
     diff = 0.0
     for i, p in enumerate(first):
         best = p["p"][0]
@@ -1906,18 +2034,16 @@ def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
         check(node >= 0, f"CLI placement {i}: the CPU engine leaves the "
               "read unplaced")
         near_tie = abs(float(ref.top_scores[i, 0]) -
-                       float(ref.top_scores[i, 1])) <= tol[i]
+                       float(ref.top_scores[i, 1])) <= 2e-4
         check(best[0] == int(arr.jplace_edge_id[node]) or near_tie,
               f"CLI placement {i}: best edge {best[0]} vs CPU "
               f"{arr.jplace_edge_id[node]}")
         d = abs(best[1] - float(ref.top_scores[i, 0]))
         diff = max(diff, d)
-        check(d <= tol[i], f"CLI placement {i}: likelihood {best[1]} vs "
-              f"CPU {ref.top_scores[i, 0]} (tolerance {tol[i]})")
-    return {"reads_per_s": n_reads / dt, "seconds": dt, "reads": n_reads,
-            "placements": len(jp["placements"]), "unplaced": n_unplaced,
-            "launches": launches, "max_score_diff": diff,
-            "max_acc": float(np.abs(acc).max())}
+        check(d <= 2e-4, f"CLI placement {i}: likelihood {best[1]} vs "
+              f"CPU {ref.top_scores[i, 0]}")
+    out["max_score_diff"] = diff
+    return out
 
 
 def build_phase(work: Path, seed: int) -> tuple:
@@ -2025,6 +2151,366 @@ def build_phase(work: Path, seed: int) -> tuple:
     seqs = [ln for ln in align.read_bytes().split(b"\n")
             if ln and not ln.startswith(b">")]
     return out, db, path, np.frombuffer(b"".join(seqs), np.uint8)
+
+
+def oracle_phase(db, seed: int, n_reads: int = 512) -> dict:
+    """The card against the serial reference semantics: the first
+    ``n_reads`` reads of the config-1 engine phase's first batch through
+    the card's engine and through the port's oracle
+    (``rappas_tpu_torch.place.oracle.place_read``), held with the tests'
+    gate (``tests/test_engine.py:41-60``): ``|L|`` and edge sets
+    identical, scores within 2e-4, LWR within 1e-4."""
+    import numpy as np
+
+    from rappas_tpu_torch.place.engine import PlacementEngine
+    from rappas_tpu_torch.place.oracle import place_read
+
+    rng = np.random.default_rng(seed + 2)
+    mat, lens = random_reads(rng, B_KERNEL, B_KERNEL // 100, 0.05)
+    mat, lens = mat[:n_reads], lens[:n_reads]
+    res = PlacementEngine(db, device="cuda").score(mat, lens)
+    t0 = time.perf_counter()
+    score_d = lwr_d = 0.0
+    placed = 0
+    for i in range(n_reads):
+        rows, nm = place_read(db, mat[i, :lens[i]].tobytes().decode())
+        check(nm == res.n_matched[i], f"oracle phase read {i}: |L| "
+              f"{res.n_matched[i]} on the card, {nm} in the oracle")
+        if nm == 0:
+            continue
+        placed += 1
+        v = res.top_edges[i] >= 0
+        got = {int(e): (float(x), float(w)) for e, x, w in zip(
+            res.top_edges[i][v], res.top_scores[i][v], res.top_lwr[i][v])}
+        check(set(got) == {r[0] for r in rows}, f"oracle phase read {i}: "
+              f"edges {sorted(got)} vs {sorted(r[0] for r in rows)}")
+        for e, x, w in rows:
+            score_d = max(score_d, abs(got[e][0] - float(x)))
+            lwr_d = max(lwr_d, abs(got[e][1] - w))
+    check(score_d <= 2e-4 and lwr_d <= 1e-4, f"oracle phase: scores "
+          f"{score_d}, LWR {lwr_d} from the oracle's")
+    check(placed > n_reads // 2, f"oracle phase: {placed} reads placed")
+    return {"reads": n_reads, "placed": placed, "max_score_diff": score_d,
+            "max_lwr_diff": lwr_d,
+            "oracle_s": time.perf_counter() - t0}
+
+
+def exact_phase(db, leaves, n_sites: int, seed: int,
+                n_reads: int = 128) -> dict:
+    """``n_reads`` clean 150-bp reads cut from the build DB's leaves
+    (``leaves``: the leaf sequences one after another, ``n_sites`` each)
+    through the card's engine, the CPU engine and the port's oracle, each
+    against the f64 sums of the same postings (``exact_scores``), with the
+    f64 top edges (near ties at the cut apart): the CPU engine within
+    2e-4, the card within :func:`card_tolerance`; the oracle's own
+    distance (Java's f32 order) is reported, not gated."""
+    import numpy as np
+
+    from rappas_tpu_torch.place.engine import PlacementEngine
+    from rappas_tpu_torch.place.oracle import exact_scores, place_read
+
+    rng = np.random.default_rng(seed + 12)
+    start = (rng.integers(0, leaves.size // n_sites, n_reads) * n_sites +
+             rng.integers(0, n_sites - READ_LEN + 1, n_reads))
+    mat = leaves[start[:, None] + np.arange(READ_LEN)]
+    lens = np.full(n_reads, READ_LEN, np.int32)
+    res = {dev: PlacementEngine(db, device=dev).score(mat, lens)
+           for dev in ("cuda", "cpu")}
+    dist = {"cuda": 0.0, "cpu": 0.0, "oracle": 0.0}
+    ties = over = 0
+    for i in range(n_reads):
+        seq = mat[i].tobytes().decode()
+        ex = exact_scores(db, seq)
+        for dev, r in res.items():
+            tol = card_tolerance(db, seq, ex) if dev == "cuda" else 2e-4
+            d, tie = exact_distance(result_rows(r, i), ex, tol,
+                                    f"exact phase read {i} ({dev})")
+            dist[dev], ties = max(dist[dev], d), ties + tie
+            over += dev == "cuda" and d > 2e-4
+        rows, _ = place_read(db, seq)
+        dist["oracle"] = max(dist["oracle"], max(
+            abs(float(x) - ex[e]) for e, x, _ in rows))
+    acc = res["cuda"].top_scores[:, 0] - (READ_LEN - db.k + 1) * np.float32(
+        db.thr_log10)
+    return {"reads": n_reads, "card_max_f64_diff": dist["cuda"],
+            "cpu_max_f64_diff": dist["cpu"],
+            "oracle_max_f64_diff": dist["oracle"], "near_ties": ties,
+            "card_reads_past_2e4": over,
+            "max_acc": float(np.abs(acc).max())}
+
+
+#: the ``__global__`` kernel of each wrapper the profile phase counts in a
+#: trace (a regex of the demangled name), and the one a call may launch
+#: right after it on its stream (P3/R1's block kernel after the warp one)
+TRACE_KERNELS = {
+    "accumulate_packed": (r"accumulate_kernel<[^,]*PackedRow, float,", None),
+    "accumulate_codes": (r"accumulate_kernel<[^,]*CodeRow, float,", None),
+    "finalize_wire": (r"finalize_wire_kernel", None),
+    "ambiguous_pass": (r"ambiguous_direct_kernel<[^,]*DirectRows<float>",
+                       None),
+    "dense_side": (r"dense_side_kernel", None),
+    "ambiguous_postings_parts": (
+        r"ambiguous_postings_kernel<[^>]*PartLight", None),
+    "finalize_postings_wire_routed": (
+        r"finalize_postings_warp_kernel<[^>]*RoutedRows",
+        r"finalize_postings_kernel<[^>]*RoutedRows"),
+}
+
+
+def read_trace(trace_dir: Path, names) -> dict:
+    """The ``*.pt.trace.json`` that ``--profile`` wrote into ``trace_dir``:
+    the launches of each wrapper in ``names`` counted from its kernel
+    events (:data:`TRACE_KERNELS`); ``lost_kernel_records``, the kernel
+    launches of the runtime's records (``cudaLaunchKernel``) whose kernel
+    record the trace lacks, and ``lost_copy_records`` likewise for
+    copies; the card's busy share, the union of its kernel, memcpy and
+    memset intervals over the profiled window (the first event's start to
+    the last one's end: a lower bound where records were lost), and its
+    kernels' share alone."""
+    import re
+
+    files = list(trace_dir.glob("*.pt.trace.json"))
+    check(len(files) == 1, f"{trace_dir}: {len(files)} trace files")
+    events = [e for e in json.loads(files[0].read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+
+    def union(cats):
+        busy, end = 0.0, float("-inf")
+        for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                           for e in events if e.get("cat") in cats):
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        return busy
+
+    kern = sorted((e for e in events if e.get("cat") == "kernel"),
+                  key=lambda e: (e.get("args", {}).get("stream", 0),
+                                 float(e["ts"])))
+    check(kern, f"{files[0].name} holds no kernel events (CPU only)")
+    counts = {}
+    for name in names:
+        first, then = (re.compile(p) if p else None
+                       for p in TRACE_KERNELS[name])
+        n, prev = 0, (None, False)
+        for e in kern:
+            stream = e.get("args", {}).get("stream", 0)
+            is_first = bool(first.search(e["name"]))
+            if is_first or (then is not None and then.search(e["name"]) and
+                            prev != (stream, True)):
+                n += 1
+            prev = (stream, is_first)
+        counts[name] = n
+    def correlations(pred):
+        return {e.get("args", {}).get("correlation") for e in events
+                if pred(e)}
+    launched = correlations(lambda e: e.get("cat") == "cuda_runtime" and
+                            "LaunchKernel" in e.get("name", ""))
+    recorded = correlations(lambda e: e.get("cat") == "kernel")
+    copies = correlations(lambda e: e.get("cat") == "cuda_runtime" and
+                          "Memcpy" in e.get("name", ""))
+    copied = correlations(lambda e: e.get("cat") == "gpu_memcpy")
+    busy = union(("kernel", "gpu_memcpy", "gpu_memset"))
+    kernel_busy = union(("kernel",))
+    t0 = min(float(e["ts"]) for e in events)
+    t1 = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    return {"launches": counts,
+            "lost_kernel_records": len(launched - recorded),
+            "lost_copy_records": len(copies - copied),
+            "busy_share": busy / (t1 - t0),
+            "idle_share": 1 - busy / (t1 - t0),
+            "kernel_share": kernel_busy / (t1 - t0),
+            "window_s": (t1 - t0) / 1e6, "device_busy_s": busy / 1e6,
+            "kernel_busy_s": kernel_busy / 1e6,
+            "kernel_events": len(kern),
+            "kernel_names": sorted({e["name"][:120] for e in kern}),
+            "trace_mb": files[0].stat().st_size / 1e6}
+
+
+def profile_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
+                  names, ref=None) -> dict:
+    """The CLI on ``n_reads`` reads in processes of its own, as a user runs
+    it, without and with ``--profile DIR`` (``torch.profiler``, CPU and
+    CUDA activity): the trace must account for every launch the profiled
+    run counted (``kernels.LAUNCHES``) of each wrapper in ``names``, by
+    its kernel record or, where the profiler lost that record, by its
+    runtime launch record (the trace then holds exactly as many launch
+    records without a kernel record as the wrappers' kernel records fall
+    short).  Reports the card's busy, idle and kernel shares over the
+    profiled window, the records lost, and both runs' reads/s (process
+    start, CUDA set-up and, profiled, the profiler's start and the trace's
+    export included)."""
+    plain = cli_phase(db, db_path, work, n_reads, seed, names, ref,
+                      tag="_unprofiled", fresh=True)
+    trace_dir = work / f"profile_{db_path.stem}"
+    prof = cli_phase(db, db_path, work, n_reads, seed, names, ref,
+                     extra=["--profile", str(trace_dir)], tag="_profiled",
+                     fresh=True)
+    tr = read_trace(trace_dir, names)
+    short = {n: prof["launches"][n] - tr["launches"][n] for n in names}
+    check(min(short.values()) >= 0 and
+          sum(short.values()) == tr["lost_kernel_records"],
+          f"profile of {db_path.stem}: the trace counts {tr['launches']} "
+          f"kernel records and {tr['lost_kernel_records']} launch records "
+          f"without one, the wrappers {prof['launches']} launches (kernels "
+          f"seen: {tr['kernel_names']})")
+    return {"reads": n_reads, "reads_per_s": plain["reads_per_s"],
+            "profiled_reads_per_s": prof["reads_per_s"],
+            "launches": prof["launches"], "trace": tr}
+
+
+def coded_batches(seed: int, ref, n: int) -> tuple:
+    """``n`` batches of B_KERNEL reads (1% with an N, 5% short, half from
+    ``ref`` when given) as ASCII and as ``PlacementEngine.encode_batch``
+    gives them (ACGT -> 0-3, N -> -1 (ambiguous), the 0xFF padding -> -2):
+    the k-mer-sharded phases' batches, and at ``seed + 1`` without
+    ``ref`` the cross-process phase's config-1 batches."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 9)
+    batches = [random_reads(rng, B_KERNEL, B_KERNEL // 100, 0.05, ref=ref)
+               for _ in range(n)]
+    tab = np.full(256, -2, np.int8)
+    tab[np.frombuffer(b"ACGT", np.uint8)] = np.arange(4)
+    tab[ord("N")] = -1
+    return batches, [(tab[m], ln) for m, ln in batches]
+
+
+def postings_batches(seed: int, ref, n: int = 3) -> list:
+    """The cross-process phase's config-5 batches: ``n`` of B_POSTINGS
+    reads, 1% with an N, 5% short, half from ``ref``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 11)
+    return [random_reads(rng, B_POSTINGS, B_POSTINGS // 100, 0.05, ref=ref)
+            for _ in range(n)]
+
+
+#: each mp pair of the cross-process mesh holds one device of each rank
+#: (JAX's ``devs.reshape(2, 2).T`` over two processes, as
+#: ``tests/test_multihost_mp.py`` builds it)
+MP_RANKS = [[0, 1], [0, 1]]
+#: the kernels each rank of the cross-process phase must launch
+CROSS_PROCESS = ("accumulate_codes", "accumulate_rows_range",
+                 "finalize_wire", "dense_side", "ambiguous_postings",
+                 "finalize_postings_wire", "merge_candidates_wire")
+
+
+def rank_main(rank: int, port: int, work: Path, devices: list,
+              seed: int) -> int:
+    """One rank of the cross-process phase (run by
+    :func:`cross_process_phase` as ``chip_smoke.py --mp-rank R``): joins a
+    two-rank gloo group on ``localhost:port``, forms the ``(dp=2, mp=2)``
+    mesh with :data:`MP_RANKS`, scores config 1's column shards
+    (``ShardedPlacement``, 3 batches of 16,384 reads), config 6's k-mer
+    ranges (``KmerShardedPlacement``, 10 batches of 16,384) and config
+    5's edge ranges (``ShardedEngine`` on postings, 3 batches of 8,192),
+    and writes its results to ``work/rank{rank}.npz`` and its launches
+    and seconds per batch to ``work/rank{rank}.json``."""
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rappas_tpu_torch.db import PhyloKmerDB
+    from rappas_tpu_torch.parallel.engine import ShardedEngine
+    from rappas_tpu_torch.parallel.kmer_sharded import KmerShardedPlacement
+    from rappas_tpu_torch.parallel.mesh import ShardedPlacement, make_mesh
+    from rappas_tpu_torch.place import kernels as K
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank,
+                            timeout=timedelta(seconds=60))
+    mesh = make_mesh(devices, dp=2, mp=2, ranks=MP_RANKS)
+    check(mesh.local_rows() == [0, 1], f"rank {rank} holds rows "
+          f"{mesh.local_rows()}")
+    ref = config5_reference(seed)
+    out, report = {}, {"rank": rank, "devices": [str(d) for d in devices],
+                       "backends": [g[1] for g in mesh._groups.values()]}
+    K.reset_launches()
+    for cfg, n in (("config1", 3), ("config6", 10), ("config5", 3)):
+        db = PhyloKmerDB.load(work / f"{cfg}.rptpu")
+        t0 = time.perf_counter()
+        if cfg == "config1":
+            eng = ShardedPlacement(db, mesh)
+            batches = coded_batches(seed + 1, None, n)[1]
+        elif cfg == "config6":
+            eng = KmerShardedPlacement(db, mesh)
+            batches = coded_batches(seed, ref, n)[1]
+        else:
+            eng = ShardedEngine(db, mesh)
+            check(eng.table == "postings", f"config 5 on {eng.table}")
+            batches = postings_batches(seed, ref, n)
+        setup = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = [eng.score(*b) for b in batches]
+        torch.cuda.synchronize()
+        report[cfg] = {"setup_s": setup, "batches": n,
+                       "s_per_batch": (time.perf_counter() - t0) / n,
+                       "card_mb": torch.cuda.memory_allocated() / 1e6}
+        if cfg != "config5":
+            # a rank holds its own shard only
+            report[cfg]["shards_here"] = [j for j, d in enumerate(eng.D)
+                                          if d]
+        for name, x in zip(res[0]._fields, zip(*res)):
+            out[f"{cfg}/{name}"] = np.concatenate(x)
+        del eng, db
+    report["launches"] = {n: K.LAUNCHES[n] for n in CROSS_PROCESS}
+    np.savez(work / f"rank{rank}.npz", **out)
+    (work / f"rank{rank}.json").write_text(json.dumps(report))
+    dist.destroy_process_group()
+    return 0
+
+
+def cross_process_phase(work: Path, seed: int, want: dict,
+                        devices: list) -> dict:
+    """Two rank processes (:func:`rank_main`) on the mesh of ``devices``
+    (a row group of gloo on one card, NCCL where each rank has a card of
+    its own): each rank's results must equal ``want`` (``{cfg: the
+    single-process mesh's BatchResults of the same batches}``) bitwise,
+    and each rank must launch every kernel of :data:`CROSS_PROCESS`."""
+    import socket
+
+    import numpy as np
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    script = Path(__file__).resolve()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(script), "--seed", str(seed), "--mp-rank",
+         str(r), "--mp-port", str(port), "--mp-work", str(work),
+         "--mp-devices", ",".join(devices)], cwd=script.parent,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=400)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    wall = time.perf_counter() - t0
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"cross-process rank {r} exited with "
+              f"{p.returncode}:\n{o[-3000:]}")
+    ranks = []
+    for r in range(2):
+        got = np.load(work / f"rank{r}.npz")
+        for cfg, res in want.items():
+            for name in res[0]._fields:
+                w = np.concatenate([getattr(x, name) for x in res])
+                g = got[f"{cfg}/{name}"]
+                check(g.dtype == w.dtype and g.shape == w.shape and
+                      np.array_equal(g.view(np.uint8), w.view(np.uint8)),
+                      f"cross-process rank {r}: {cfg} {name} differs from "
+                      "the single-process mesh's")
+        rep = json.loads((work / f"rank{r}.json").read_text())
+        for name, n in rep["launches"].items():
+            check(n > 0, f"cross-process rank {r}: kernel {name} was "
+                  "never launched")
+        ranks.append(rep)
+    return {"wall_s": wall, "bitwise": True, "ranks": ranks}
 
 
 # ---------------------------------------------------------------------- #
@@ -2165,6 +2651,12 @@ def main() -> int:
     ap.add_argument("--cli-reads", type=int, default=50_000)
     ap.add_argument("--json-out", default=None,
                     help="also write the results to this file")
+    # one rank of the cross-process phase (the script starts them)
+    ap.add_argument("--mp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mp-port", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--mp-work", help=argparse.SUPPRESS)
+    ap.add_argument("--mp-devices", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -2175,11 +2667,15 @@ def main() -> int:
         from rappas_tpu_torch import _kernels
         from rappas_tpu_torch.db import PhyloKmerDB
         from rappas_tpu_torch.parallel.engine import ShardedEngine
+        from rappas_tpu_torch.parallel.mesh import ShardedPlacement
         from rappas_tpu_torch.place.engine import PlacementEngine
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})",
               file=sys.stderr)
         return 1
+    if args.mp_rank is not None:
+        return rank_main(args.mp_rank, args.mp_port, Path(args.mp_work),
+                         args.mp_devices.split(","), args.seed)
 
     card = card_line()
     print(card, flush=True)
@@ -2219,12 +2715,15 @@ def main() -> int:
         # the header's calibrated bound would drop reads from both the
         # jplace and the unplaced list, which the phase counts; reads
         # from the leaves hit on every window, so the accumulators reach
-        # hundreds and the scores are held as K1's sums are (``held``:
-        # 1e-5 relative, summation order)
+        # hundreds, where two f32 summation orders differ by more than
+        # 2e-4: the card and the CPU engine are each held against f64
         cl = cli_phase(db, path, work, CLI_READS_U16, args.seed, DIRECT,
-                       ref, extra=["--nsbound=-inf"], acc_rtol=1e-5)
+                       ref, extra=["--nsbound=-inf"], exact=True)
         show("build cli", cl)
         bres["cli"] = cl
+        ex = exact_phase(db, ref, 1500, args.seed)
+        show("build exact", ex)
+        bres["exact"] = ex
         results["build"] = bres
         del db
 
@@ -2238,7 +2737,13 @@ def main() -> int:
         show("config1 engine", eng)
         cl = cli_phase(db, path, work, args.cli_reads, args.seed, DIRECT)
         show("config1 cli", cl)
-        results["config1"] = {"engine": eng, "cli": cl}
+        orc = oracle_phase(db, args.seed)
+        show("config1 oracle", orc)
+        pr = profile_phase(db, path, work, CLI_READS_U16, args.seed,
+                           DIRECT)
+        show("config1 profile", pr)
+        results["config1"] = {"engine": eng, "cli": cl, "oracle": orc,
+                              "profile": pr}
 
         # config 1 at u16 (direct) and compact f32 ------------------ #
         ku = kernel_phase(db, args.seed, "u16")
@@ -2271,6 +2776,12 @@ def main() -> int:
 
         # config 1 on a (dp=2, mp=2) mesh: two 150-column shards -------- #
         mesh = smoke_mesh()
+        # the cross-process phase's reference: ShardedPlacement (K2 per
+        # column shard, the gather, K3) on the same batches here
+        sp = ShardedPlacement(db, mesh)
+        want = {"config1": [sp.score(c, ln) for c, ln in
+                            coded_batches(args.seed + 1, None, 3)[1]]}
+        del sp
         eng = engine_phase(db, args.seed, DIRECT, mesh=mesh)
         check(eng["table"] == "direct", f"config 1 sharded: {eng['table']}")
         show("config1 sharded engine", eng)
@@ -2373,7 +2884,10 @@ def main() -> int:
         cl5 = cli_phase(db, path, work, args.cli_reads, args.seed,
                         POSTINGS_ROUTED, ref)
         show("config5 cli", cl5)
-        results["config5"] = {"engine": eng5, "cli": cl5}
+        pr5 = profile_phase(db, path, work, CLI_READS_U16, args.seed,
+                            POSTINGS_ROUTED, ref)
+        show("config5 profile", pr5)
+        results["config5"] = {"engine": eng5, "cli": cl5, "profile": pr5}
         results["config5_one"] = {"engine": one5}
         for tag, names, cls, prep, inspect, kw in (
                 ("two_stage", TWO_STAGE, None,
@@ -2419,6 +2933,9 @@ def main() -> int:
                            batch=B_POSTINGS, ref=ref, mesh=mesh,
                            engine=seng)
         e5s["setup_s"] = setup
+        # the cross-process phase's reference: the same batches here
+        want["config5"] = [seng.score(m, ln) for m, ln in
+                           postings_batches(args.seed, ref)]
         del seng
         show("config5 sharded engine", e5s)
         results["config5_sharded"] = {"engine": e5s}
@@ -2457,7 +2974,8 @@ def main() -> int:
         results["config6"] = {"engine": eng6, "cli": cl6}
 
         # config 6 on the mesh: k-mer ranges, and compact columns ------ #
-        kk, ke = kmer_sharded_phase(db, mesh, args.seed, ref)
+        kk, want["config6"], ke = kmer_sharded_phase(db, mesh, args.seed,
+                                                     ref)
         for name, r in kk.items():
             show(f"kernel {name}", r)
         kern.update(kk)
@@ -2501,6 +3019,23 @@ def main() -> int:
                   f"{e['keys_on_card']}")
             show(f"config4 {tag} engine", e)
             results[f"config4_{tag}"] = {"engine": e}
+        del db, chain
+
+        # the mp axis across two processes: config 1's column shards,
+        # config 6's k-mer ranges and config 5's edge ranges, each rank
+        # bitwise the mesh above ------------------------------------- #
+        torch.cuda.empty_cache()
+        runs = {"gloo": ["cuda:0"] * 4}
+        if torch.cuda.device_count() >= 2:
+            runs["nccl"] = ["cuda:0", "cuda:1"] * 2
+        cp = {}
+        for tag, devices in runs.items():
+            cp[tag] = cross_process_phase(work, args.seed, want, devices)
+            check(cp[tag]["ranks"][0]["backends"] == [tag, tag],
+                  f"cross-process {tag}: row groups "
+                  f"{cp[tag]['ranks'][0]['backends']}")
+            show(f"cross-process {tag}", cp[tag])
+        results["cross_process"] = cp
     results["kernels"] = kern
 
     rows = []
@@ -2515,6 +3050,10 @@ def main() -> int:
             "engine_launches": results[cfg]["engine"]["launches"][key],
             **({"build_launches": results["build"]["synthetic"]["launches"]
                 [name]} if name in BUILD else {}),
+            **({"cross_process_launches": [
+                rank["launches"][key]
+                for rank in results["cross_process"]["gloo"]["ranks"]]}
+               if key in CROSS_PROCESS else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],

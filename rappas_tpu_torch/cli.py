@@ -10,9 +10,9 @@ placement in every table layout (``--table auto``, ``direct``,
 ``u16``; u16 takes the direct or compact table) on one device, or over a
 ``--dp`` x ``--mp`` mesh of this host's devices (f32;
 :mod:`rappas_tpu_torch.parallel`), on one host or several
-(``--num-hosts``, ``--host-id``, ``--coordinator``).  The option that
-reaches code not ported yet (``--profile``) exits with status 2 and
-names the ROADMAP item that ports it.
+(``--num-hosts``, ``--host-id``, ``--coordinator``).  ``--profile DIR``
+traces the placement with ``torch.profiler`` (the host, and the card on
+``--device cuda``) into a ``*.pt.trace.json`` under DIR.
 """
 
 from __future__ import annotations
@@ -23,10 +23,6 @@ from pathlib import Path
 
 from rappas_tpu_torch import __version__
 from rappas_tpu_torch.utils import log, set_verbosity
-
-
-class NotPorted(Exception):
-    """An option whose code path is not ported yet."""
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -153,8 +149,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "host of rank 0; the hosts join one "
                         "torch.distributed gloo group there)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="capture a profiler trace of the placement into "
-                        "DIR (not yet ported: exits with status 2)")
+                   help="capture a torch.profiler trace of the placement "
+                        "into DIR (TensorBoard / Perfetto *.pt.trace.json)")
     p.add_argument("--calibration", action="store_true",
                    help="calibrate a normalized-score lower bound from "
                         "random sequences at DB build (the reference's "
@@ -185,13 +181,9 @@ def main(argv=None) -> int:
         log("--poshash accepted for compatibility: positional mode is a "
             "deprecated no-op in the reference's live hash; union mode "
             "is used")
-    try:
-        if args.phase == "b":
-            return run_build(args, call_string)
-        return run_placement(args, call_string)
-    except NotPorted as e:
-        print(f"rappas-tpu-torch: {e}", file=sys.stderr)
-        return 2
+    if args.phase == "b":
+        return run_build(args, call_string)
+    return run_placement(args, call_string)
 
 
 def run_build(args, call_string: str) -> int:
@@ -202,10 +194,6 @@ def run_build(args, call_string: str) -> int:
         print("DB build needs -r/--refalign and -t/--reftree",
               file=sys.stderr)
         return 2
-    if args.profile and args.dbinram and args.queries:
-        # the placement that --dbinram -q runs would be traced
-        raise NotPorted("--profile is not yet ported (ROADMAP queue 1 "
-                        "item 8)")
     model = (EvolModel.from_string(args.model, args.alpha, args.categories)
              if args.model else None)
     cfg = BuildConfig(
@@ -258,9 +246,6 @@ def run_placement(args, call_string: str) -> int:
         print("placement needs -d/--database and -q/--queries",
               file=sys.stderr)
         return 2
-    if args.profile:
-        raise NotPorted("--profile is not yet ported (ROADMAP queue 1 "
-                        "item 8)")
     db = PhyloKmerDB.load(args.database)
     if args.convertUO and db.alphabet.name == "amino":
         from rappas_tpu_torch.alphabet import get_alphabet
@@ -343,17 +328,42 @@ def _place_all(db, args, call_string: str) -> None:
         device=args.device,
         invocation=f"rappas-tpu-torch {call_string}",
         read_shard=read_shard)
-    try:
+
+    def run_all():
         # one engine (device tables + kernels) for all query files
         engine = _make_engine(db, args, cfg)
         for q in args.queries.split(","):
             out = place_queries(db, q, args.workdir, cfg, engine=engine)
             if read_shard is not None:
                 _merge_host_parts(out, q, args, read_shard)
+
+    try:
+        if args.profile:
+            _profiled(run_all, args.profile, args.device)
+            log(f"profiler trace written to {args.profile}")
+        else:
+            run_all()
     finally:
         if joined:
             import torch.distributed as dist
             dist.destroy_process_group()
+
+
+def _profiled(fn, out_dir: str, device: str) -> None:
+    """``fn()`` inside ``torch.profiler.profile`` (host activity, and the
+    card's on ``device`` cuda), the trace written into ``out_dir`` as a
+    ``*.pt.trace.json`` when it ends (``rappas_tpu/cli.py:325-329`` wraps
+    ``jax.profiler.trace`` the same way).  Shapes and stacks are off: a
+    trace of a large read file stays small."""
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+    activities = [ProfilerActivity.CPU]
+    if device == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, record_shapes=False,
+                 with_stack=False,
+                 on_trace_ready=tensorboard_trace_handler(out_dir)):
+        fn()
 
 
 def _merge_host_parts(part_path, query, args, read_shard) -> None:

@@ -12,8 +12,9 @@ cut into ``dp`` slices, one per mesh row.
   Per slice the host runs the single engine's batch preparation (the
   direct table's per-read split, the ambiguity expansion); each device of
   the row sums its shard's tile with the single engine's kernels (K1/K2
-  or C1/C2, then K4), the lead device gathers the tiles and runs K3 --
-  what GSPMD does to the single-chip functions in JAX.
+  or C1/C2, then K4), the tiles are all-gathered (across processes on a
+  mesh with ranks) and K3 runs on the whole row -- what GSPMD does to the
+  single-chip functions in JAX.
 * **postings layout (large trees)**: ``PostingsShardedPlacement`` of
   :mod:`rappas_tpu_torch.parallel.postings_sharded`.
 
@@ -71,7 +72,7 @@ class ShardedEngine(PlacementEngine):
         else:
             shards = column_shards(db, table, self.mp)
             self.n_rows = shards[0].shape[0]
-            self.D_shards = [mesh.put(s, mesh.devices[:, j])
+            self.D_shards = [mesh.put(s, mesh.column(j))
                              for j, s in enumerate(shards)]
             self.wire_k, self.wide, _ = kernels.wire_format(
                 shards[0].shape[1] * self.mp, keep_at_most)
@@ -85,15 +86,20 @@ class ShardedEngine(PlacementEngine):
 
     # -------------------------------------------------------------- #
     def score_async(self, matrix: np.ndarray, lengths: np.ndarray):
+        """The batch's handle; its results are those of the mesh's
+        :meth:`~rappas_tpu_torch.parallel.mesh.Mesh.local_rows` (every
+        row on a mesh of this process alone).  On a mesh that spans
+        processes the call is synchronous at each row's collective."""
         B, L = matrix.shape
         dp_slices(self.mesh, B)          # B must divide by dp
         if L < self.k:
             K = min(self.keep_at_most, self.db.n_edge_slots)
+            n = len(self.mesh.local_rows()) * (B // self.dp)
             return PendingBatch(BatchResult(
-                np.full((B, K), -1, np.int32),
-                np.full((B, K), -np.inf, np.float32),
-                np.zeros((B, K), np.float32),
-                np.zeros(B, np.int32)))
+                np.full((n, K), -1, np.int32),
+                np.full((n, K), -np.inf, np.float32),
+                np.zeros((n, K), np.float32),
+                np.zeros(n, np.int32)))
         lengths = np.ascontiguousarray(lengths, np.int32)
         codes = self.encode_batch(matrix)
         if self.table == "postings":
@@ -106,7 +112,7 @@ class ShardedEngine(PlacementEngine):
             lambda j, dev, t: self.dense_acc(
                 t, self.D_shards[j][dev],
                 self.keys_dev and self.keys_dev[dev], B // self.dp, L),
-            lambda tiles, t: kernels.finalize_wire(
-                torch.cat(tiles, dim=1), t["lengths"], self.thr, self.k,
-                self.keep_at_most),
+            lambda d, tiles, t: kernels.finalize_wire(
+                torch.cat(self.mesh.gather(tiles, d), dim=1), t["lengths"],
+                self.thr, self.k, self.keep_at_most),
             self.wire_k, self.wide)

@@ -6,9 +6,10 @@ keys' compact table is split into ``mp`` contiguous k-mer ranges
 (:func:`rappas_tpu_torch.convert.kmer_range_shards`).  The host searches
 each window's global row once; every device of a mesh row folds those
 rows into its own range and sums a partial ``[B / dp, E]`` tile (C3
-``accumulate_rows_range``), the row's lead device sums the tiles (the
+``accumulate_rows_range``), the tiles are summed (:meth:`Mesh.psum`, the
 psum over mp: k-mers are unique, so each posting comes from exactly one
-shard) and takes the top-K (K3).
+shard; an all-reduce where the row spans processes) and the top-K taken
+(K3).
 """
 
 from __future__ import annotations
@@ -40,24 +41,23 @@ class KmerShardedPlacement:
         per, shards = kmer_range_shards(db, mesh.shape["mp"])
         self._per = per
         self.n_local_rows = per + 1
-        self.D = [mesh.put(s, mesh.devices[:, j])
+        self.D = [mesh.put(s, mesh.column(j))
                   for j, s in enumerate(shards)]
         self._lookup = make_key_lookup(db.keys)
         self.wire_k, self.wide, _ = kernels.wire_format(db.n_edge_slots,
                                                         keep_at_most)
 
     def score(self, codes: np.ndarray, lengths: np.ndarray) -> BatchResult:
-        """codes: int8[B, L] state codes (B divisible by dp)."""
+        """codes: int8[B, L] state codes (B divisible by dp) -> the
+        results of the mesh's :meth:`~Mesh.local_rows`."""
         per = self._per
         lengths = np.ascontiguousarray(lengths, np.int32)
         rows = self._lookup(host_kmer_indices(
             codes, lengths, self.k, self.db.alphabet.n_states))
 
-        def finish(tiles, t):
-            acc = tiles[0]
-            for x in tiles[1:]:          # the psum over mp
-                acc = acc + x
-            return kernels.finalize_wire(acc, t["lengths"], self.thr, self.k,
+        def finish(d, tiles, t):
+            return kernels.finalize_wire(self.mesh.psum(tiles, d),
+                                         t["lengths"], self.thr, self.k,
                                          self.keep_at_most)
         return score_rows(
             self.mesh, codes.shape[0],

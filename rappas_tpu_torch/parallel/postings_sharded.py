@@ -12,10 +12,12 @@ partitioned by **edge range** over the ``mp`` mesh axis
   the reads -- P1 ``dense_side``, P2 ``ambiguous_postings`` and P3
   ``finalize_postings_wire`` with the shard's ``edge_offset`` -- and
   writes its top-K candidates as a wire with global edge ids;
-* the mesh row's lead device gathers the ``mp`` wires (a copy) and M1
-  ``merge_candidates_wire`` takes the exact global top-K of the ``mp *
-  K`` candidates (edges are partitioned, so per-edge scores never need a
-  cross-shard sum) and sums the shards' ``|L|``.
+* the mesh row's wires are all-gathered (:meth:`Mesh.gather`: a copy
+  in one process, a collective over the row's group where the row spans
+  processes) and M1 ``merge_candidates_wire`` takes the exact global
+  top-K of the ``mp * K`` candidates (edges are partitioned, so per-edge
+  scores never need a cross-shard sum) and sums the shards' ``|L|``, on
+  every process of the row.
 
 Reads stay data-parallel over ``dp``.  The host computes the batch's
 k-mer indices once and takes each shard's encoded rows with one fancy
@@ -160,7 +162,7 @@ class PostingsShardedPlacement:
             nh = t["heavy_keys"][j].shape[0]
             pairs = np.ascontiguousarray(t["light_pairs"][j, :nl + 1])
             heavy = np.ascontiguousarray(t["heavy_dense"][j, :nh + 1])
-            cols = mesh.devices[:, j]
+            cols = mesh.column(j)
             self._shards.append(dict(
                 offset=int(bounds[j]), nl=nl, nh=nh, rof=t["rof"][j],
                 light_counts=(pairs[:, :postings_width] != LIGHT_PAD_EDGE)
@@ -171,7 +173,10 @@ class PostingsShardedPlacement:
     def score_async(self, codes: np.ndarray, lengths: np.ndarray,
                     amb_host=None) -> PendingSlices:
         """codes int8[B, L] (B divisible by dp); ``amb_host`` is the
-        engine's host-side ambiguity expansion of the batch (or None)."""
+        engine's host-side ambiguity expansion of the batch (or None).
+        The results are those of the mesh's :meth:`~Mesh.local_rows`; on
+        a mesh that spans processes this returns once the gathers have
+        (they are synchronous)."""
         mesh, S = self.mesh, self.db.alphabet.n_states
         lengths = np.ascontiguousarray(lengths, np.int32)
         # the batch's k-mer indices once; -1 (invalid) -> the miss entry
@@ -179,9 +184,13 @@ class PostingsShardedPlacement:
         kidx = np.where(kidx >= 0, kidx, S ** self.k)
         parts = []
         for d, sl in dp_slices(mesh, codes.shape[0]):
+            cols = mesh.row_columns(d)
+            if not cols:
+                continue
             amb = slice_ambiguities(amb_host, sl.start, sl.stop)
             wires = []
-            for sh, dev in zip(self._shards, mesh.devices[d]):
+            for j, dev in cols:
+                sh = self._shards[j]
                 host, plan = postings_batch(
                     sh["rof"][kidx[sl]], sh["nl"], sh["light_counts"],
                     lengths[sl], amb, None if amb is None else alt_rows_of(
@@ -200,10 +209,10 @@ class PostingsShardedPlacement:
                         pairs, t["lrows"], acc_c, t["slot_of"],
                         t["lengths"], self.thr, self.k, self.keep_at_most,
                         plan, sh["offset"], self.n_edges))
-            lead = mesh.devices[d, 0]
+            lead = mesh.lead(d)
             with mesh.on(lead):
                 wire = kernels.merge_candidates_wire(
-                    torch.stack(mesh.gather(wires, lead)), self._k_shard,
+                    torch.stack(mesh.gather(wires, d)), self._k_shard,
                     self.wire_k, self.wide)
                 parts.append(fetch_wire(wire, mesh.stream(lead),
                                         self.wire_k, self.wide))

@@ -458,15 +458,3 @@ def test_cli_compat_flags_logged(tmp_path, fixtures_dir, capsys, flag, note):
 def test_cli_build_needs_inputs(capsys):
     assert port_main(["-p", "b", "-w", "."]) == 2
     assert "-r/--refalign" in capsys.readouterr().err
-
-
-def test_cli_build_profile_not_ported(tmp_path, fixtures_dir, capsys):
-    """``--profile`` on the placement that ``--dbinram -q`` runs names its
-    ROADMAP item, before anything is built."""
-    assert port_main(["-p", "b", "-r", str(fixtures_dir / "tiny.fasta"),
-                      "-t", str(fixtures_dir / "tiny.tree"),
-                      "-b", "/fake/raxml-ng", "-w", str(tmp_path),
-                      "--dbinram", "-q", "reads.fasta",
-                      "--profile", "trace"]) == 2
-    assert "queue 1 item 8" in capsys.readouterr().err
-    assert not (tmp_path / "extended_trees").exists()

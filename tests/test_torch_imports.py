@@ -200,18 +200,14 @@ def test_cli_defaults_to_cuda_and_raises_without_it(tmp_path, monkeypatch):
                   "-q", str(tmp_path / "q.fasta"), "-w", str(tmp_path)])
 
 
-@pytest.mark.parametrize("extra, item", [
-    (["--dp", "2"], "item 7"),
-    (["--mp", "2"], "item 7"),
-    (["--coordinator", "127.0.0.1:PORT"], "item 7"),
-    (["--num-hosts", "2"], "item 7"),
-    (["--profile", "trace"], "item 8"),
-])
-def test_cli_not_ported_options_exit_nonzero(tmp_path, capsys, extra, item):
-    """An option not yet ported exits with status 2 and names its ROADMAP
-    item.  Item 7's options (multi-device and multi-host placement) are
-    ported now: they place, ``--num-hosts`` without a coordinator into
-    this host's part of the jplace."""
+@pytest.mark.parametrize("extra", [
+    ["--dp", "2"], ["--mp", "2"], ["--coordinator", "127.0.0.1:PORT"],
+    ["--num-hosts", "2"]])
+def test_cli_mesh_and_host_options_place(tmp_path, extra):
+    """Multi-device and multi-host placement options place: a (dp, mp)
+    mesh that repeats the CPU, a one-host gloo group at ``--coordinator``,
+    and ``--num-hosts`` without a coordinator into this host's part of
+    the jplace."""
     import socket
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -221,15 +217,10 @@ def test_cli_not_ported_options_exit_nonzero(tmp_path, capsys, extra, item):
     rc = cli.main(["-p", "p", "-d", str(tmp_path / "db.rptpu"),
                    "-q", str(tmp_path / "q.fasta"), "-w", str(tmp_path),
                    "--device", "cpu", *extra])
-    if item == "item 7":
-        assert rc == 0
-        out = tmp_path / ("placements_q.fasta.jplace" +
-                          (".part0" if "--num-hosts" in extra else ""))
-        assert json.loads(out.read_text())["placements"]
-        return
-    assert rc == 2
-    err = capsys.readouterr().err
-    assert "not" in err and "ported" in err and f"queue 1 {item}" in err
+    assert rc == 0
+    out = tmp_path / ("placements_q.fasta.jplace" +
+                      (".part0" if "--num-hosts" in extra else ""))
+    assert json.loads(out.read_text())["placements"]
 
 
 def test_cli_table_postings_runs(tmp_path):
