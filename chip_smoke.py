@@ -20,10 +20,14 @@ single device resolves to:
      596 ghost nodes tested, E = 299) through ``-p b --ardir
      --calibration`` on the card: the build's stages timed, the
      reference protocol's 1,000,000 random reads of mean length 150
-     scored by K1 accumulate_packed and K3 finalize_wire (both must
-     launch, K2 never), the header bound finite and the table direct;
+     scored on the compact table ``table="auto"`` takes, by C1
+     accumulate_compact and K3 finalize_wire (both must launch, K1 and
+     K2 never), the header bound finite;
   3. ``calibrate`` on that DB at 65,536 reads on the card and on the
-     CPU: the bounds within 2e-4, K1 and K3 launched;
+     CPU: the bounds within two f32 ulps (the distance they had when
+     calibration ran K1 on the direct table), C1 and K3 launched; then
+     C1, K1 (on the direct table) and K3 timed at calibration's own
+     shape, its first 8,192 reads of width 225, C1's sums held to K1's;
   4. a CLI phase (``-p p``, 20k reads, half from the leaf sequences, the
      calibrated bound switched off so that every read is counted) on it:
      such reads hit every window, their accumulators reach ~440, where
@@ -37,8 +41,9 @@ single device resolves to:
   5. 128 clean reads cut from the leaves through the card's engine, the
      CPU engine and the port's serial oracle, each against f64 with the
      same gates; the oracle's distance (Java's f32 order) is reported;
-* config 1, the direct layout (k=8, E=300 edge slots, a table
-  ``D[4^8 + 1, 300]`` f32 of 79 MB, 150 bp reads):
+* config 1, the direct layout asked for (k=8, E=300 edge slots, a table
+  ``D[4^8 + 1, 300]`` f32 of 79 MB, 150 bp reads; ``table="auto"`` takes
+  the compact table, step 8):
   1. kernel phase -- K1 accumulate_packed, K2 accumulate_codes, K3
      finalize_wire and K4 ambiguous_pass at B=16384 against their plain
      PyTorch versions on the card, with each kernel's device time (a
@@ -49,13 +54,13 @@ single device resolves to:
   2. engine phase -- 10 batches of 16384 reads (1% carry one N) through
      ``PlacementEngine.score_async``; every kernel must launch; 512 reads
      are held against the same engine on the CPU;
-  3. CLI phase -- ``python -m rappas_tpu_torch.cli -p p`` on 50k reads
-     with duplicates and N's; the jplace is parsed and its placements
-     held against the CPU engine;
-  4. oracle phase -- the engine phase's first 512 reads on the card
-     against the port's serial oracle (``place/oracle.py``) with the
-     tests' gate: ``|L|`` and edge sets identical, scores within 2e-4,
-     LWR within 1e-4;
+  3. CLI phase -- ``python -m rappas_tpu_torch.cli -p p --table direct``
+     on 50k reads with duplicates and N's; the jplace is parsed and its
+     placements held against the CPU engine;
+  4. oracle phase -- the engine phase's first 512 reads on the card's
+     ``auto`` engine against the port's serial oracle
+     (``place/oracle.py``) with the tests' gate: ``|L|`` and edge sets
+     identical, scores within 2e-4, LWR within 1e-4;
   5. profile phase -- the CLI on 20k reads without and with ``--profile
      DIR``: the ``*.pt.trace.json`` must account for every launch of
      K1-K4 the wrappers counted (its kernel record, or its runtime launch
@@ -73,30 +78,39 @@ single device resolves to:
      its plain version (2 slabs: the rows resolved once by a resolve
      pass, then summed slab by slab), and an engine phase through C1
      whose placements must equal the direct engine's;
+  8. layout phase -- engine phases through ``table="auto"`` (compact,
+     the layout ``PlacementEngine.resolve_table``'s H100 rule takes) and
+     through the layout the rule took before (direct), the auto engine's
+     512 reads held against the CPU engine and against the other layout
+     on the card (``|L|`` and edge sets identical, scores within 2e-4);
+     each layout's set-up seconds, MB on the card and engine reads/s
+     printed, no time asserted;
 * config 2, the direct table height-split (``bench.py:60-84``'s recipe
   at k=10, 5% of the k-mers present: ``D[4^10 + 1, 300]``, 1.26 GB f32
-  in 13 parts of 96 MB, 629 MB u16 in 7; ``DIRECT_SPLIT_MIN`` lowered on
-  a subclass, as the JAX default never splits): D1 routed_accumulate and
-  A1 ambiguous_pass_split (f32 and u16) against their plain versions,
-  then engine phases of the unsplit direct engine and of the split f32
-  and u16 engines on the same batches, the split ones held against the
-  unsplit; half of each batch from a chain of DB k-mers;
+  in 13 parts of 100 MB, 629 MB u16 in 7; ``DIRECT_SPLIT_MIN`` and
+  ``DIRECT_PART_BYTES`` set on a subclass, as the default never splits):
+  D1 routed_accumulate and A1 ambiguous_pass_split (f32 and u16) against
+  their plain versions, then engine phases of the unsplit direct engine
+  and of the split f32 and u16 engines on the same batches, the split
+  ones held against the unsplit; half of each batch from a chain of DB
+  k-mers; then a layout phase, auto (compact) against postings;
 * config 5, the postings layout (k=12, a 4000-taxon star: E=7999; 2M
   light k-mers with 1-7 postings, 10k heavy ones with 32-199, as
   ``scripts/scale_check.py:21-48`` builds it, with every 12-mer of a
   400 kb reference among the keys): kernel phases for P1 dense_side,
   P2 ambiguous_postings and P3 finalize_postings_wire on the one light
-  table, and for R1 (routed and part-select), G1 gather_compact and A1
-  ambiguous_postings_parts on the default engine's 2 parts (B=8192; R1's
-  and the two-stage wires bitwise P3's); engine phases of the default
-  engine (its 128 MB light table past the 96 MB budget: 2 routed parts),
-  the one-table engine, the two-stage and pipelined paths, 4 routed
-  parts (a 32 MB budget), the select fallback after the unique-overflow
-  halving, and max-mode ambiguity reads over the parts, each held
-  against the one-table engine and checked for its path (parts, handle
-  type, launches); the CLI with ``--table auto`` (routed), and its
-  profile phase (P1, A1, R1 counted in the trace); half of each batch is
-  sampled from the reference (every window hits), half is uniform;
+  table the default engine holds, and for R1 (routed and part-select),
+  G1 gather_compact and A1 ambiguous_postings_parts on the 128 MB light
+  table split in 2 parts (``LIGHT_PART_BYTES`` set on a subclass; B=8192;
+  R1's and the two-stage wires bitwise P3's); engine phases of the
+  default engine (one table), the 2 routed parts, the two-stage and
+  pipelined paths, 4 routed parts, the select fallback after the
+  unique-overflow halving (``MIN_SPLIT_B`` set), and max-mode ambiguity
+  reads over the parts, each held against the one-table engine and
+  checked for its path (parts, handle type, launches); the CLI with
+  ``--table auto`` (one table), and its profile phase (P1, P2, P3
+  counted in the trace); half of each batch is sampled from the
+  reference (every window hits), half is uniform;
 * the sharded phases, on a (dp=2, mp=2) mesh of four distinct cards or
   of the one card repeated (``smoke_mesh``):
   1. config 1 through ``ShardedEngine`` (two 150-column shards of the
@@ -121,11 +135,12 @@ single device resolves to:
   version, and engine phases at u16 and at compact f32, half of each
   batch sampled from a chain of DB keys;
 * config 6, k=12 DNA on config 1's 300 edge slots (config 5's recipe
-  otherwise): f32 resolves to postings, u16 to the compact table with
-  the keys searched on the card (the dense u16 table would take 10.1
-  GB, the compact one ``[2,010,001, 300]`` takes 1.2 GB): C1 on the f32
-  (2.4 GB) and u16 tables against its plain version, an engine phase and
-  a CLI phase (``--precision u16``, 20k reads).
+  otherwise): f32 and u16 resolve to the compact table with the keys
+  searched on the card (``[2,010,001, 300]``: 2.4 GB f32, 1.2 GB u16;
+  the dense u16 table would take 10.1 GB): C1 on the f32 and u16 tables
+  against its plain version, an engine phase and a CLI phase
+  (``--precision u16``, 20k reads), then a layout phase, auto (compact)
+  against postings.
 
 * the mp axis across processes, last: two rank processes (``chip_smoke.py
   --mp-rank R``, started by the script) join a gloo group on localhost
@@ -1641,7 +1656,8 @@ def kmer_sharded_phase(db, mesh, seed: int, ref, n_batches: int = 10,
 
 
 def sharded_place_phase(db, mesh, work: Path, n_reads: int, seed: int,
-                        names, device: str = "cuda") -> dict:
+                        names, device: str = "cuda",
+                        table: str = "auto") -> dict:
     """``place_queries`` (the pipeline behind the CLI, which on one card
     can only ask for a one-device engine) through the sharded engine on
     ``mesh`` and through the single card engine on the same reads file:
@@ -1662,8 +1678,10 @@ def sharded_place_phase(db, mesh, work: Path, n_reads: int, seed: int,
         for i in range(n_reads):
             f.write(b">s%d\n" % i + mat[i, :lens[i]].tobytes() + b"\n")
     out = {}
-    for tag, make in (("sharded", lambda: ShardedEngine(db, mesh)),
-                      ("single", lambda: PlacementEngine(db, device=device))):
+    for tag, make in (("sharded", lambda: ShardedEngine(db, mesh,
+                                                        table=table)),
+                      ("single", lambda: PlacementEngine(db, device=device,
+                                                         table=table))):
         eng = make()
         K.reset_launches()
         t0 = time.perf_counter()
@@ -1730,12 +1748,16 @@ def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
     n_amb = batch // 100 if n_ambiguous is None else n_ambiguous
     batches = [random_reads(rng, batch, n_amb, 0.05, length, letters, ref)
                for _ in range(n_batches)]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     eng = engine or (cls(db, device=device, **kw) if mesh is None
                      else ShardedEngine(db, mesh, **kw))
     if prepare is not None:
         prepare(eng)
+    torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    card_mb = (torch.cuda.memory_allocated() - base) / 1e6
     eng.score(*batches[0])                    # warm-up
     torch.cuda.synchronize()
     K.reset_launches()
@@ -1821,10 +1843,29 @@ def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
             "mesh": None if mesh is None else dict(mesh.shape),
             "reads_per_s": n_batches * batch / dt,
             "seconds": dt, "score_async_s": issue_s, "setup_s": setup_s,
+            "card_mb": card_mb,
             "batches": n_batches, "batch_size": batch, "launches": launches,
             "handles": sorted(handles), "path": path,
             "bitwise_vs_against": same_bits,
             "probe_rows_calls": probes, "host_steps_s": steps}
+
+
+def layout_phase(db, seed: int, names, old: str, old_names,
+                 ref=None) -> dict:
+    """A DB placed through ``table="auto"`` (``PlacementEngine.
+    resolve_table``'s H100 rule) and through ``old``, the layout the rule
+    gave it while its budgets were the JAX engine's: an
+    :func:`engine_phase` of each (the kernels ``names`` / ``old_names``
+    must launch), the auto engine's first 512 reads held against the CPU
+    engine and against the ``old`` engine on the card (``|L|`` and edge
+    sets identical, scores within 2e-4, LWR within 1e-4).  Each layout's
+    set-up seconds, MB on the card and engine reads/s are reported;
+    nothing here asserts a time."""
+    auto = engine_phase(db, seed, names, ref=ref,
+                        against=({"table": old}, 2e-4))
+    prev = engine_phase(db, seed, old_names, ref=ref,
+                        engine_kw={"table": old})
+    return {"auto": auto, "old": prev}
 
 
 def direct_split_host_steps(eng, mat, lens) -> dict:
@@ -1901,7 +1942,7 @@ def host_steps(db, seed: int) -> dict:
 
     from rappas_tpu_torch.place.engine import PlacementEngine, pack_reads
 
-    eng = PlacementEngine(db, device="cpu")
+    eng = PlacementEngine(db, device="cpu", table="direct")
     mat, lens = random_reads(np.random.default_rng(seed + 5), B_KERNEL,
                              B_KERNEL // 100, 0.05)
     steps = {}
@@ -2109,16 +2150,18 @@ def build_phase(work: Path, seed: int) -> tuple:
     check(rc == 0, f"-p b exited with {rc}")
     for name, n in launches.items():
         check(n > 0, f"build phase: kernel {name} was never launched")
-    check(K.LAUNCHES["accumulate_codes"] == 0,
-          "build phase: a calibration read went to K2")
+    check(K.LAUNCHES["accumulate_codes"] == K.LAUNCHES["accumulate_packed"]
+          == 0, "build phase: a calibration read left the compact table")
     stats, cal = dict(pipeline.LAST_BUILD), dict(calibration.LAST_RUN)
     path = wd / "DB_k8_o1.5.rptpu"
     db = PhyloKmerDB.load(path)
     bound = db.meta["calibration_ns_bound"]
     check(np.isfinite(bound), f"calibrated bound {bound} in the header")
     table = PlacementEngine.resolve_table(
-        db, "auto", "f32", PlacementEngine.DIRECT_BYTE_LIMIT)
-    check(table == "direct", f"the synthetic DB resolves to {table}")
+        db, "auto", "f32", PlacementEngine.table_budget("cuda"))
+    check(table == cal["table"] == "compact",
+          f"the synthetic DB resolves to {table}, calibration took "
+          f"{cal['table']}")
     check(cal["reads"] == 1_000_000, f"calibration scored {cal['reads']}")
     out["synthetic"] = {
         "taxa": n_taxa, "sites": n_sites, "generate_s": gen_s,
@@ -2140,17 +2183,76 @@ def build_phase(work: Path, seed: int) -> tuple:
     for name, m in moved.items():
         check(m > 0, f"calibrate on cuda: kernel {name} was never launched")
     on_cpu = calibration.calibrate(db, n_samples=n, device="cpu")
-    check(abs(on_card - on_cpu) <= 2e-4, f"calibration bound on the card "
-          f"{on_card} vs the CPU {on_cpu}")
+    # two f32 ulps of the bound: the card's distance from the CPU when
+    # calibration ran K1 on the direct table (3.05e-5 at -197.37)
+    tol = 2 * float(np.spacing(np.float32(abs(on_cpu))))
+    check(abs(on_card - on_cpu) <= tol, f"calibration bound on the card "
+          f"{on_card} vs the CPU {on_cpu} (more than {tol} apart)")
     out["card_vs_cpu"] = {"reads": n, "card_bound": on_card,
                           "cpu_bound": on_cpu,
-                          "abs_diff": abs(on_card - on_cpu),
+                          "abs_diff": abs(on_card - on_cpu), "tol": tol,
                           "card_s": card_s,
                           "cpu_s": calibration.LAST_RUN["seconds"],
                           "launches": moved}
+    out["card_vs_cpu"]["table"] = calibration.LAST_RUN["table"]
+    out["calibration_kernels"] = calibration_kernel_phase(db)
     seqs = [ln for ln in align.read_bytes().split(b"\n")
             if ln and not ln.startswith(b">")]
     return out, db, path, np.frombuffer(b"".join(seqs), np.uint8)
+
+
+def calibration_kernel_phase(db) -> dict:
+    """The row sum and K3 at calibration's own shape: its first batch of
+    reads (``calibration.calibration_reads``, seed 1: 8,192 reads of width
+    225 on a DNA DB), on the layout ``calibrate``'s engine takes (C1 on
+    the compact table) and on the direct table (K1), each kernel's device
+    time in :func:`device_ms`'s harness beside its bound."""
+    import numpy as np
+    import torch
+
+    from rappas_tpu_torch.build import calibration
+    from rappas_tpu_torch.place import kernels as K
+    from rappas_tpu_torch.place.engine import PlacementEngine, pack_reads
+
+    cal = PlacementEngine(db, device="cuda", treat_ambiguities=False)
+    check(cal.table == "compact" and cal.keys_dev is not None,
+          f"calibration's engine took {cal.table}")
+    eng = PlacementEngine(db, device="cuda", treat_ambiguities=False,
+                          table="direct")
+    B, S = 8192, db.alphabet.n_states
+    mat, lens = calibration.calibration_reads(
+        db, np.random.default_rng(1), B, calibration.DEFAULT_MEAN_LEN)
+    L, E = mat.shape[1], eng.D.shape[1]
+    codes = eng.encode_batch(mat)
+    packed = torch.from_numpy(pack_reads(codes)).cuda()
+    codes_d = torch.from_numpy(codes).cuda()
+    lens_d = torch.from_numpy(lens).cuda()
+    acc = K.accumulate_packed(eng.D, packed, lens_d, L, db.k, eng.scale)
+    got = K.accumulate_compact(cal.D, cal.keys_dev, codes_d, db.k, S)
+    torch.cuda.synchronize()
+    c1_vs_k1 = float((got - acc).abs().max())
+    check(c1_vs_k1 <= 2e-4, f"calibration: C1's sums {c1_vs_k1} from K1's")
+    rows = K.kmer_rows_packed(packed, lens_d, db.k, 4, eng.D.shape[0], L)
+    valid = rows[rows != eng.D.shape[0] - 1]
+    out_b = B * E * 4
+    touched = torch.unique(valid).numel() * E * 4
+    k1 = bound(packed.numel() + B * 4 + touched + out_b,
+               (valid.numel() + B) * E)
+    c1 = bound(codes_d.numel() + cal.keys_dev.numel() * 4 + touched + out_b,
+               (valid.numel() + B) * E)
+    wire = K.finalize_wire(acc, lens_d, eng.thr, db.k, eng.keep_at_most)
+    k3 = bound(out_b + B * 4 + wire.numel() * 4, acc.numel())
+    return {"reads": B, "width": L, "table": cal.table,
+            "c1_vs_k1_max_abs": c1_vs_k1,
+            "accumulate_compact": dict(timed(lambda: K.accumulate_compact(
+                cal.D, cal.keys_dev, codes_d, db.k, S)),
+                bound_ms=c1[0], bound_by=c1[1]),
+            "accumulate_packed": dict(timed(lambda: K.accumulate_packed(
+                eng.D, packed, lens_d, L, db.k, eng.scale, acc=acc)),
+                bound_ms=k1[0], bound_by=k1[1]),
+            "finalize_wire": dict(timed(lambda: K.finalize_wire(
+                acc, lens_d, eng.thr, db.k, eng.keep_at_most)),
+                bound_ms=k3[0], bound_by=k3[1])}
 
 
 def oracle_phase(db, seed: int, n_reads: int = 512) -> dict:
@@ -2249,6 +2351,10 @@ TRACE_KERNELS = {
     "ambiguous_pass": (r"ambiguous_direct_kernel<[^,]*DirectRows<float>",
                        None),
     "dense_side": (r"dense_side_kernel", None),
+    "ambiguous_postings": (r"ambiguous_postings_kernel<[^>]*OneLight", None),
+    "finalize_postings_wire": (
+        r"finalize_postings_warp_kernel<[^>]*OneTable",
+        r"finalize_postings_kernel<[^>]*OneTable"),
     "ambiguous_postings_parts": (
         r"ambiguous_postings_kernel<[^>]*PartLight", None),
     "finalize_postings_wire_routed": (
@@ -2327,7 +2433,7 @@ def read_trace(trace_dir: Path, names) -> dict:
 
 
 def profile_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
-                  names, ref=None) -> dict:
+                  names, ref=None, extra=()) -> dict:
     """The CLI on ``n_reads`` reads in processes of its own, as a user runs
     it, without and with ``--profile DIR`` (``torch.profiler``, CPU and
     CUDA activity): the trace must account for every launch the profiled
@@ -2340,11 +2446,11 @@ def profile_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
     start, CUDA set-up and, profiled, the profiler's start and the trace's
     export included)."""
     plain = cli_phase(db, db_path, work, n_reads, seed, names, ref,
-                      tag="_unprofiled", fresh=True)
+                      extra=extra, tag="_unprofiled", fresh=True)
     trace_dir = work / f"profile_{db_path.stem}"
     prof = cli_phase(db, db_path, work, n_reads, seed, names, ref,
-                     extra=["--profile", str(trace_dir)], tag="_profiled",
-                     fresh=True)
+                     extra=[*extra, "--profile", str(trace_dir)],
+                     tag="_profiled", fresh=True)
     tr = read_trace(trace_dir, names)
     short = {n: prof["launches"][n] - tr["launches"][n] for n in names}
     check(min(short.values()) >= 0 and
@@ -2540,8 +2646,9 @@ SPLIT_POSTINGS = ("ambiguous_postings_parts", "finalize_postings_wire_routed",
 SPLIT_DIRECT = ("routed_accumulate", "ambiguous_pass_split", "finalize_wire")
 SPLIT_DIRECT_U16 = ("routed_accumulate_u16", "ambiguous_pass_split_u16",
                     "finalize_wire")
-#: the build phase's calibration: clean reads, packed (K1), then K3
-BUILD = ("accumulate_packed", "finalize_wire")
+#: the build phase's calibration: clean reads on the compact table
+#: ``table="auto"`` takes (C1), then K3
+BUILD = ("accumulate_compact", "finalize_wire")
 #: kernel instance -> (source in csrc/, the JAX functions it replaces,
 #: the main-path run whose launches its line reports)
 _E = "rappas_tpu/place/engine.py:"
@@ -2555,9 +2662,9 @@ SOURCES = {
                        "cli"),
     "dense_side": ("postings.cu", _E + "484,773", "config5", "cli"),
     "ambiguous_postings": ("ambiguous.cu", _E + "950,967,1433",
-                           "config5_one", "engine"),
+                           "config5", "cli"),
     "finalize_postings_wire": ("postings.cu", _E + "654,684,68",
-                               "config5_one", "engine"),
+                               "config5", "cli"),
     "accumulate_packed_u16": ("accumulate.cu", _E + "253,195",
                               "config1_u16", "cli"),
     "accumulate_codes_u16": ("accumulate.cu", _E + "175,195", "config1_u16",
@@ -2583,13 +2690,13 @@ SOURCES = {
     "merge_candidates_wire": ("merge.cu", _PS + "217,223,192-206",
                               "config5_sharded", "engine"),
     "finalize_postings_wire_routed": ("postings.cu", _E + "609,632,68",
-                                      "config5", "cli"),
+                                      "config5_routed", "engine"),
     "finalize_postings_wire_parts": ("postings.cu", _E + "654-681,535,68",
                                      "config5_select", "engine"),
     "gather_compact": ("postings.cu", _E + "557,566", "config5_two_stage",
                        "engine"),
     "ambiguous_postings_parts": ("ambiguous.cu", _E + "950,654-681,967",
-                                 "config5", "cli"),
+                                 "config5_routed", "engine"),
     "routed_accumulate": ("accumulate.cu", _E + "915", "config2_split",
                           "engine"),
     "routed_accumulate_u16": ("accumulate.cu", _E + "915",
@@ -2704,6 +2811,13 @@ def main() -> int:
     def show(tag, r):
         print(f"{tag}: {json.dumps(r)}", flush=True)
 
+    def show_layout(name):
+        """The layout phase of ``name``: each side's layout, set-up s, MB
+        on the card and engine reads/s (asserted nowhere)."""
+        show(f"{name} layout", {side: {key: lay[name][side][key] for key in (
+            "table", "setup_s", "card_mb", "reads_per_s", "launches")}
+            for side in ("auto", "old")})
+
     results = {"card": card, "launch_floor_ms": launch_floor_ms()}
     show("launch floor", {"launch_floor_ms": results["launch_floor_ms"]})
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -2717,7 +2831,7 @@ def main() -> int:
         # from the leaves hit on every window, so the accumulators reach
         # hundreds, where two f32 summation orders differ by more than
         # 2e-4: the card and the CPU engine are each held against f64
-        cl = cli_phase(db, path, work, CLI_READS_U16, args.seed, DIRECT,
+        cl = cli_phase(db, path, work, CLI_READS_U16, args.seed, COMPACT,
                        ref, extra=["--nsbound=-inf"], exact=True)
         show("build cli", cl)
         bres["cli"] = cl
@@ -2727,23 +2841,28 @@ def main() -> int:
         results["build"] = bres
         del db
 
-        # config 1: direct layout ---------------------------------- #
+        # config 1: direct layout (auto takes compact: layout phase) - #
         db, path = make_db("config1", config1_db, work)
         kern = kernel_phase(db, args.seed)
         for name, r in kern.items():
             show(f"kernel {name}", r)
-        eng = engine_phase(db, args.seed, DIRECT)
+        direct = {"table": "direct"}
+        eng = engine_phase(db, args.seed, DIRECT, engine_kw=direct)
         eng["host_steps_s"] = host_steps(db, args.seed)
         show("config1 engine", eng)
-        cl = cli_phase(db, path, work, args.cli_reads, args.seed, DIRECT)
+        cl = cli_phase(db, path, work, args.cli_reads, args.seed, DIRECT,
+                       extra=["--table", "direct"])
         show("config1 cli", cl)
         orc = oracle_phase(db, args.seed)
         show("config1 oracle", orc)
         pr = profile_phase(db, path, work, CLI_READS_U16, args.seed,
-                           DIRECT)
+                           DIRECT, extra=["--table", "direct"])
         show("config1 profile", pr)
         results["config1"] = {"engine": eng, "cli": cl, "oracle": orc,
                               "profile": pr}
+        lay = {"config1": layout_phase(db, args.seed, COMPACT, "direct",
+                                       DIRECT)}
+        show_layout("config1")
 
         # config 1 at u16 (direct) and compact f32 ------------------ #
         ku = kernel_phase(db, args.seed, "u16")
@@ -2751,12 +2870,12 @@ def main() -> int:
             show(f"kernel {name}", r)
         kern.update(ku)
         eng = engine_phase(db, args.seed, DIRECT_U16,
-                           engine_kw={"precision": "u16"},
-                           against=({}, 5e-3))
+                           engine_kw={"precision": "u16", **direct},
+                           against=(direct, 5e-3))
         check(eng["table"] == "direct", f"config 1 u16: {eng['table']}")
         show("config1 u16 engine", eng)
         cl = cli_phase(db, path, work, CLI_READS_U16, args.seed, DIRECT_U16,
-                       precision="u16")
+                       precision="u16", extra=["--table", "direct"])
         show("config1 u16 cli", cl)
         results["config1_u16"] = {"engine": eng, "cli": cl}
         ceng = PlacementEngine(db, device="cuda", table="compact")
@@ -2782,18 +2901,21 @@ def main() -> int:
         want = {"config1": [sp.score(c, ln) for c, ln in
                             coded_batches(args.seed + 1, None, 3)[1]]}
         del sp
-        eng = engine_phase(db, args.seed, DIRECT, mesh=mesh)
+        eng = engine_phase(db, args.seed, DIRECT, mesh=mesh,
+                           engine_kw=direct)
         check(eng["table"] == "direct", f"config 1 sharded: {eng['table']}")
         show("config1 sharded engine", eng)
         pl = sharded_place_phase(db, mesh, work, CLI_READS_U16, args.seed,
-                                 DIRECT)
+                                 DIRECT, table="direct")
         show("config1 sharded place_queries", pl)
         results["config1_sharded"] = {"engine": eng, "place": pl}
 
         # config 2: the direct table height-split (k=10) ------------ #
         db, path = make_db("config2", config2_db, work)
         chain2 = key_chain(db, args.seed)
-        Split2 = engine_class("DirectSplit", DIRECT_SPLIT_MIN=0)
+        # 100 MB parts: 13 of the f32 table, 7 of the u16 one
+        Split2 = engine_class("DirectSplit", DIRECT_SPLIT_MIN=0,
+                              DIRECT_PART_BYTES=100_000_000)
         for precision, n_parts in (("f32", 13), ("u16", 7)):
             t0 = time.perf_counter()
             whole = PlacementEngine(db, device="cuda", table="direct",
@@ -2837,13 +2959,15 @@ def main() -> int:
         results["config2"] = {"engine": e2}
         results["config2_split"] = {"engine": e2s}
         results["config2_split_u16"] = {"engine": e2u}
+        lay["config2"] = layout_phase(db, args.seed, COMPACT, "postings",
+                                      POSTINGS, chain2)
+        show_layout("config2")
         del db
 
         # config 5: postings layout, large tree --------------------- #
         db, path = make_db("config5", config5_db, work)
-        OneTable = engine_class("OneTable", LIGHT_SPLIT_BYTES=1 << 62)
         t0 = time.perf_counter()
-        peng = OneTable(db, device="cuda")
+        peng = PlacementEngine(db, device="cuda")
         check(peng.table == "postings" and peng._rof_np is not None and
               len(peng.light_parts) == 1,
               f"config 5 resolved to {peng.table}, not postings on one "
@@ -2857,58 +2981,66 @@ def main() -> int:
               "host", flush=True)
         ref = config5_reference(args.seed)
         pk = postings_kernel_phase(peng, args.seed, ref)
-        # the default engine: the 128 MB light table in 2 routed parts
-        deng = PlacementEngine(db, device="cuda")
+        # the split light table (no light table the card holds is split
+        # by default): 2 routed parts, R1
+        light_bytes = peng.pairs.nbytes
+
+        def light_split(name, n_parts, **consts):
+            return engine_class(name, LIGHT_PART_BYTES=light_bytes //
+                                n_parts + 64, **consts)
+        TwoParts = light_split("TwoParts", 2)
+        deng = TwoParts(db, device="cuda")
         check(len(deng.light_parts) == 2 and deng._routed_windows,
-              f"config 5 default: {len(deng.light_parts)} light parts, "
+              f"config 5 split: {len(deng.light_parts)} light parts, "
               f"routed {deng._routed_windows}")
         pk.update(split_postings_kernel_phase(deng, peng, args.seed, ref))
         del peng, deng
         for name, r in pk.items():
             show(f"kernel {name}", r)
         kern.update(pk)
-        against = ({}, 2e-4, OneTable)
+        against = ({}, 2e-4, PlacementEngine)
         two_parts = path_check("PendingBatch", light_parts=2)
+        one5 = engine_phase(db, args.seed, POSTINGS, batch=B_POSTINGS,
+                            ref=ref, absent=SPLIT_POSTINGS,
+                            inspect=path_check("PendingBatch",
+                                               light_parts=1))
+        show("config5 engine", one5)
         eng5 = engine_phase(db, args.seed, POSTINGS_ROUTED, batch=B_POSTINGS,
-                            ref=ref, against=against, inspect=two_parts,
+                            ref=ref, engine_cls=TwoParts, against=against,
+                            inspect=two_parts,
                             absent=("ambiguous_postings",
                                     "finalize_postings_wire",
                                     "gather_compact"))
-        show("config5 engine", eng5)
-        one5 = engine_phase(db, args.seed, POSTINGS, batch=B_POSTINGS,
-                            ref=ref, engine_cls=OneTable,
-                            absent=SPLIT_POSTINGS,
-                            inspect=path_check("PendingBatch",
-                                               light_parts=1))
-        show("config5 one-table engine", one5)
-        cl5 = cli_phase(db, path, work, args.cli_reads, args.seed,
-                        POSTINGS_ROUTED, ref)
+        show("config5 routed engine", eng5)
+        cl5 = cli_phase(db, path, work, args.cli_reads, args.seed, POSTINGS,
+                        ref)
         show("config5 cli", cl5)
         pr5 = profile_phase(db, path, work, CLI_READS_U16, args.seed,
-                            POSTINGS_ROUTED, ref)
+                            POSTINGS, ref)
         show("config5 profile", pr5)
-        results["config5"] = {"engine": eng5, "cli": cl5, "profile": pr5}
-        results["config5_one"] = {"engine": one5}
+        results["config5"] = {"engine": one5, "cli": cl5, "profile": pr5}
+        results["config5_routed"] = {"engine": eng5}
         for tag, names, cls, prep, inspect, kw in (
-                ("two_stage", TWO_STAGE, None,
+                ("two_stage", TWO_STAGE, TwoParts,
                  lambda e: e.enable_routed_windows(False), two_parts, {}),
-                ("pipelined", TWO_STAGE, None, lambda e: e.enable_pipeline(),
+                ("pipelined", TWO_STAGE, TwoParts,
+                 lambda e: e.enable_pipeline(),
                  path_check("PipelinedBatch", light_parts=2), {}),
-                ("four_parts", POSTINGS_ROUTED,
-                 engine_class("FourParts", LIGHT_SPLIT_BYTES=32 << 20), None,
-                 path_check("PendingBatch", light_parts=4), {}),
+                ("four_parts", POSTINGS_ROUTED, light_split("FourParts", 4),
+                 None, path_check("PendingBatch", light_parts=4), {}),
                 ("select", SELECT,
-                 engine_class("SelectFallback", TWO_STAGE_MAX_UNIQUE=0),
+                 light_split("SelectFallback", 2, TWO_STAGE_MAX_UNIQUE=0,
+                             MIN_SPLIT_B=1024),
                  lambda e: e.enable_routed_windows(False),
                  path_check("SplitPending", light_parts=2),
                  {"n_batches": 3}),
-                ("ambiguity_max", POSTINGS_ROUTED, None, None, two_parts,
+                ("ambiguity_max", POSTINGS_ROUTED, TwoParts, None, two_parts,
                  {"n_batches": 3, "n_ambiguous": B_POSTINGS // 10,
                   "engine_kw": {"ambiguities_with_max": True}})):
             other = kw.get("engine_kw", {})
             e = engine_phase(db, args.seed, names, batch=B_POSTINGS, ref=ref,
                              engine_cls=cls, prepare=prep, inspect=inspect,
-                             against=(other, 2e-4, OneTable), **kw)
+                             against=(other, 2e-4, PlacementEngine), **kw)
             show(f"config5 {tag} engine", e)
             results[f"config5_{tag}"] = {"engine": e}
 
@@ -2943,10 +3075,10 @@ def main() -> int:
 
         # config 6: k=12 on 300 edge slots, u16 -> compact ---------- #
         db, path = make_db("config6", config6_db, work)
-        limit = PlacementEngine.DIRECT_BYTE_LIMIT
+        limit = PlacementEngine.table_budget("cuda")
         got = {p: PlacementEngine.resolve_table(db, "auto", p, limit)
                for p in ("f32", "u16")}
-        check(got == {"f32": "postings", "u16": "compact"},
+        check(got == {"f32": "compact", "u16": "compact"},
               f"config 6 resolves to {got}")
         for precision in ("f32", "u16"):
             t0 = time.perf_counter()
@@ -2972,6 +3104,10 @@ def main() -> int:
                         COMPACT_U16, ref, precision="u16")
         show("config6 cli", cl6)
         results["config6"] = {"engine": eng6, "cli": cl6}
+        lay["config6"] = layout_phase(db, args.seed, COMPACT, "postings",
+                                      POSTINGS, ref)
+        show_layout("config6")
+        results["layout"] = lay
 
         # config 6 on the mesh: k-mer ranges, and compact columns ------ #
         kk, want["config6"], ke = kmer_sharded_phase(db, mesh, args.seed,

@@ -13,10 +13,11 @@ below it are indistinguishable from noise and filtered like ``--nsbound``
 
 The reads come from the same numpy generator, drawn in the same order,
 as ``rappas_tpu.build.calibration`` draws them, so both packages score
-the same reads.  They are clean ACGT (or amino) reads, so on a direct
-table every batch goes through the packed row sum (K1) and the top-K
-wire (K3) of the placement engine, on the card unless the caller asks
-for the CPU.
+the same reads (padded past their lengths, which JAX's direct table
+ignores, so the bound is JAX's in every layout).  They are clean ACGT
+(or amino) reads: on the layout ``table="auto"`` picks for the DB
+(compact for the usual DNA DB: C1 then K3; on a direct table the packed
+row sum K1, then K3), on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ DEFAULT_SAMPLES = 1_000_000
 DEFAULT_MEAN_LEN = 150
 DEFAULT_QUANTILE = 0.99
 
-#: the last :func:`calibrate`'s reads and seconds (engine set-up, read
-#: generation and scoring)
+#: the last :func:`calibrate`'s reads, seconds (engine set-up, read
+#: generation and scoring), table layout and batch size
 LAST_RUN: dict = {}
 
 
@@ -65,18 +66,11 @@ def calibrate(db: PhyloKmerDB, n_samples: int | None = None,
     engine = engine or PlacementEngine(db, treat_ambiguities=False,
                                        device=device)
     rng = np.random.default_rng(seed)
-    sd = mean_length * 0.1
-    letters = np.frombuffer(db.alphabet.letters.encode(), np.uint8)
     best: list[np.ndarray] = []
     n_done = 0
-    L_max = int(mean_length + 5 * sd)
     while n_done < n_samples:
         b = min(batch_size, n_samples - n_done)
-        lens = np.clip(np.rint(rng.normal(mean_length, sd, b)),
-                       db.k, L_max).astype(np.int32)
-        mat = letters[rng.integers(0, db.alphabet.n_states,
-                                   (b, L_max))].astype(np.uint8)
-        res = engine.score(mat, lens)
+        res = engine.score(*calibration_reads(db, rng, b, mean_length))
         placed = res.n_matched > 0
         if placed.any():
             best.append(res.top_scores[placed, 0])
@@ -86,5 +80,25 @@ def calibrate(db: PhyloKmerDB, n_samples: int | None = None,
     else:
         bound = float(np.quantile(np.concatenate(best), quantile))
     db.meta["calibration_ns_bound"] = bound
-    LAST_RUN.update(reads=n_done, seconds=time.perf_counter() - t0)
+    LAST_RUN.update(reads=n_done, seconds=time.perf_counter() - t0,
+                    table=engine.table, batch_size=batch_size)
     return bound
+
+
+def calibration_reads(db: PhyloKmerDB, rng, n: int, mean_length: int):
+    """``n`` random reads of :func:`calibrate`, drawn from ``rng``: ASCII
+    ``uint8[n, L_max]`` (``L_max = mean + 5 sd``, sd a tenth of the mean:
+    225 letters at the DNA default) and their gaussian lengths, at least
+    k.  Past its length a read is padded with 0xFF, as the engine's
+    batches are: the letters drawn there are never scored, in any
+    layout (the direct table's kernels read a read's length, the compact
+    and postings layouts its codes)."""
+    sd = mean_length * 0.1
+    L_max = int(mean_length + 5 * sd)
+    letters = np.frombuffer(db.alphabet.letters.encode(), np.uint8)
+    lens = np.clip(np.rint(rng.normal(mean_length, sd, n)),
+                   db.k, L_max).astype(np.int32)
+    mat = letters[rng.integers(0, db.alphabet.n_states,
+                               (n, L_max))].astype(np.uint8)
+    mat[np.arange(L_max)[None, :] >= lens[:, None]] = 0xFF
+    return mat, lens

@@ -124,10 +124,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--table",
                    choices=["auto", "direct", "compact", "postings"],
                    default="auto",
-                   help="device k-mer table layout (auto: direct-indexed "
-                        "when S^k is small enough, else binary-search "
-                        "compact table, else light/heavy postings for "
-                        "the large-tree regime)")
+                   help="device k-mer table layout (auto, the layout "
+                        "that placed such a DB fastest on an H100: the "
+                        "compact table searched on the card while its "
+                        "keys fit int32 and it fits 7.3 GB, else "
+                        "light/heavy postings for a light-dominated f32 "
+                        "DB, else compact; direct only when asked for)")
     # multi-chip / multi-host placement (no reference analog: the
     # reference is single-threaded, PlacementProcess.java:1239-1241)
     p.add_argument("--dp", type=int, default=0,

@@ -83,17 +83,18 @@ def device_tables(db: PhyloKmerDB, device, table: str = "direct",
                         torch.tensor(float(db.thr_log10), **f32), keys)
 
 
-def light_parts(pairs: np.ndarray, split_bytes: int,
+def light_parts(pairs: np.ndarray, part_bytes: int,
                 max_parts: int) -> tuple[list, bool]:
     """The light table's height split (``rappas_tpu/place/engine.py:
-    1126-1142``): ``(parts, slow)``.  A table past ``split_bytes`` is
-    cut into ``ceil(nbytes / split_bytes)`` parts of equal height
-    (``np.linspace`` cuts) when that is at most ``max_parts`` parts and
-    the table has more rows than parts; rows keep their global order, so
-    the miss row ``nl`` is the last row of the last part.  A table past
-    the budget that cannot be cut stays one part with ``slow`` set."""
-    slow = pairs.nbytes > split_bytes
-    n_parts = -(-pairs.nbytes // max(split_bytes, 1))
+    1126-1142``): ``(parts, slow)``.  A table past ``part_bytes``
+    (``PlacementEngine.LIGHT_PART_BYTES``) is cut into ``ceil(nbytes /
+    part_bytes)`` parts of equal height (``np.linspace`` cuts) when that
+    is at most ``max_parts`` parts and the table has more rows than
+    parts; rows keep their global order, so the miss row ``nl`` is the
+    last row of the last part.  A table past the budget that cannot be
+    cut stays one part with ``slow`` set."""
+    slow = pairs.nbytes > part_bytes
+    n_parts = -(-pairs.nbytes // max(part_bytes, 1))
     if slow and n_parts <= max_parts and pairs.shape[0] > n_parts:
         cuts = np.linspace(0, pairs.shape[0], n_parts + 1, dtype=np.int64)
         return [np.ascontiguousarray(pairs[lo:hi])
@@ -101,28 +102,29 @@ def light_parts(pairs: np.ndarray, split_bytes: int,
     return [pairs], slow
 
 
-def _direct_part_count(nbytes: int, n_rows: int, split_bytes: int,
+def _direct_part_count(nbytes: int, n_rows: int, part_bytes: int,
                        split_min: int, max_parts: int) -> int:
     """Parts of a direct table of ``nbytes`` and ``n_rows`` rows (the
     miss row included), 0 when it stays whole
     (``rappas_tpu/place/engine.py:1692-1696``)."""
-    n_parts = int(-(-nbytes // split_bytes))
+    n_parts = int(-(-nbytes // part_bytes))
     if (nbytes <= split_min or n_parts < 2 or n_parts > max_parts or
             n_rows - 1 < n_parts):
         return 0
     return n_parts
 
 
-def direct_parts(dense: np.ndarray, split_bytes: int, split_min: int,
+def direct_parts(dense: np.ndarray, part_bytes: int, split_min: int,
                  max_parts: int):
     """The direct table's height split (``rappas_tpu/place/engine.py:
     1675-1703``): ``(parts, cuts)``, or None when the table stays whole
     (at most ``split_min`` bytes, fewer than 2 or more than ``max_parts``
-    parts of ``split_bytes``, or fewer body rows than parts).  The global
+    parts of ``part_bytes``, ``PlacementEngine.DIRECT_PART_BYTES``, or
+    fewer body rows than parts).  The global
     miss row (the last row of ``dense``, f32 or uint16) is dropped; part
     ``i`` is the body rows ``cuts[i] .. cuts[i + 1]`` plus one trailing
     zero row, its pad and miss target."""
-    n_parts = _direct_part_count(dense.nbytes, dense.shape[0], split_bytes,
+    n_parts = _direct_part_count(dense.nbytes, dense.shape[0], part_bytes,
                                  split_min, max_parts)
     if not n_parts:
         return None
@@ -134,7 +136,7 @@ def direct_parts(dense: np.ndarray, split_bytes: int, split_min: int,
 
 
 def direct_split_tables(db: PhyloKmerDB, device, precision: str,
-                        split_bytes: int, split_min: int, max_parts: int):
+                        part_bytes: int, split_min: int, max_parts: int):
     """The direct table of ``db`` in ``precision`` (f32 or u16), split by
     :func:`direct_parts` onto ``device``: ``(parts, cuts, scale)``, or
     None when it stays whole -- decided from its size before the table is
@@ -142,13 +144,13 @@ def direct_split_tables(db: PhyloKmerDB, device, precision: str,
     itemsize = 2 if precision == "u16" else 4
     n_rows = db.alphabet.n_states ** db.k + 1
     if not _direct_part_count(n_rows * db.n_edge_slots * itemsize, n_rows,
-                              split_bytes, split_min, max_parts):
+                              part_bytes, split_min, max_parts):
         return None
     if precision == "u16":
         dense, scale = db.dense_matrix_u16(pad_rows=1)
     else:
         dense, scale = db.dense_matrix(pad_rows=1), np.float32(1.0)
-    parts, cuts = direct_parts(dense, split_bytes, split_min, max_parts)
+    parts, cuts = direct_parts(dense, part_bytes, split_min, max_parts)
     del dense
     return ([torch.from_numpy(p).to(device) for p in parts], cuts,
             np.float32(scale))
@@ -157,7 +159,7 @@ def direct_split_tables(db: PhyloKmerDB, device, precision: str,
 class PostingsState(NamedTuple):
     """The postings layout of a DB: device tables and host lookups."""
     light_parts: tuple         # int32[H_i, 2P] parts of pairs[nl + 1, 2P]
-    light_slow: bool           # one part, past the split budget
+    light_slow: bool           # one part, past the part budget
     heavy_dense: torch.Tensor  # f32[nh + 1, E] on the device
     light_counts: np.ndarray   # int32[nl + 1] real postings per row
     light_keys: np.ndarray     # int64[nl] sorted
@@ -175,11 +177,11 @@ class PostingsState(NamedTuple):
 
 def postings_device_tables(db: PhyloKmerDB, width: int, device,
                            direct_index_limit: int = 1 << 30,
-                           split_bytes: int | None = None,
+                           part_bytes: int | None = None,
                            max_parts: int = 32) -> PostingsState:
     """The postings layout of ``db`` (``rappas_tpu/place/engine.py:
     1110-1166``), the light table height-split by :func:`light_parts`
-    when ``split_bytes`` is given (one part when it is None).
+    when ``part_bytes`` is given (one part when it is None).
 
     ``pairs[r]`` holds light k-mer ``r``'s postings as P edge ids then P
     bit-cast f32 deltas (pads: ``LIGHT_PAD_EDGE`` and 0.0; the last row
@@ -201,8 +203,8 @@ def postings_device_tables(db: PhyloKmerDB, width: int, device,
         rof = np.full(space + 1, nl, np.int32)
         rof[pt.light_keys] = np.arange(nl, dtype=np.int32)
         rof[pt.heavy_keys] = nl + 1 + np.arange(nh, dtype=np.int32)
-    parts, slow = ([pairs], False) if split_bytes is None else \
-        light_parts(pairs, split_bytes, max_parts)
+    parts, slow = ([pairs], False) if part_bytes is None else \
+        light_parts(pairs, part_bytes, max_parts)
     return PostingsState(
         light_parts=tuple(torch.from_numpy(p).to(device) for p in parts),
         light_slow=slow,

@@ -20,8 +20,9 @@ cut into ``dp`` slices, one per mesh row.
 
 Sharded placement is f32-only (strict parity with the single-device
 default; the postings sort payload needs exact deltas), and the table
-auto-selection budget scales with ``mp``: a DB too big for one device is
-exactly why the mp axis exists.
+auto-selection budget is the per-card budget
+(``PlacementEngine.table_budget``) times ``mp``: a DB too big for one
+device is exactly why the mp axis exists.
 """
 
 from __future__ import annotations
@@ -53,9 +54,11 @@ class ShardedEngine(PlacementEngine):
         self.mesh = mesh
         self.dp = mesh.shape["dp"]
         self.mp = mesh.shape["mp"]
-        table = self.resolve_table(db, table, "f32",
-                                   self.DIRECT_BYTE_LIMIT * self.mp,
-                                   postings_width)
+        # the per-card budget of the mesh's first device, once per shard
+        table = self.resolve_table(
+            db, table, "f32",
+            self.table_budget(mesh.devices.flat[0]) * self.mp,
+            postings_width)
         if table not in ("direct", "compact", "postings"):
             raise ValueError(f"table must be auto/direct/compact/"
                              f"postings, got {table!r}")

@@ -26,9 +26,9 @@ batch with a few ambiguous reads still sends the rest packed (the JAX
 engine packs a batch only when no read in it needs codes; the results
 are the same).
 
-Compact (``D[n_kmers + 1, E]``, row = position in the sorted keys; for
-DBs too large for the direct table and not light-dominated, and for
-every u16 run the direct table does not take): when k-mer indices fit
+Compact (``D[n_kmers + 1, E]``, row = position in the sorted keys; what
+``table="auto"`` takes on the card for a DB whose keys fit int32 and
+whose compact table fits ``AUTO_COMPACT_BYTES``): when k-mer indices fit
 int32, every read goes as codes to C1 ``accumulate_compact``, which
 searches the keys on the card (the JAX engine packs only for direct);
 above 31 bits (amino k >= 8, DNA k >= 16) the host searches the keys
@@ -58,26 +58,29 @@ The wire carries edge ids as u16 below 65535 edge slots and as int32 at
 or above (``kernels.WIDE_EDGES``).  On ``device="cpu"`` the wrappers
 compute their plain PyTorch versions.
 
-Height-split tables (one device; JAX's rules and constants, so a DB
-takes the same path in both packages): a light table past
-``LIGHT_SPLIT_BYTES`` lives as up to ``MAX_LIGHT_PARTS`` parts
-(``convert.light_parts``), and P3 reads it through one of JAX's row
-sources (:meth:`PlacementEngine._light_source`): the **routed** windows
-(the default; R1 ``finalize_postings_wire_routed``), the **two-stage**
-compact table of the batch's unique rows (G1 ``gather_compact``, then P3
-on it; with :meth:`PlacementEngine.enable_pipeline`, G1 of the next batch
-runs on a second stream beside this batch's P3), the **select** fallback
-(R1 ``finalize_postings_wire_parts``) after halving a batch whose unique
-rows overflow (:class:`SplitPending`); A1 ``ambiguous_postings_parts``
-scores ambiguity windows over the parts.  A direct table past
-``DIRECT_SPLIT_MIN`` (never, by default) lives as parts of
-``LIGHT_SPLIT_BYTES`` (``convert.direct_parts``): the host routes each
+Height-split tables (one device; JAX's rules, the H100's budgets): a
+light table past ``LIGHT_PART_BYTES`` lives as up to ``MAX_LIGHT_PARTS``
+parts (``convert.light_parts``), and P3 reads it through one of JAX's
+row sources (:meth:`PlacementEngine._light_source`): the **routed**
+windows (the default; R1 ``finalize_postings_wire_routed``), the
+**two-stage** compact table of the batch's unique rows (G1
+``gather_compact``, then P3 on it, within ``TWO_STAGE_MAX_UNIQUE`` rows
+and ``TWO_STAGE_MAX_BYTES``; with :meth:`PlacementEngine.enable_pipeline`,
+G1 of the next batch runs on a second stream beside this batch's P3), the
+**select** fallback (R1 ``finalize_postings_wire_parts``) for a batch
+whose unique rows overflow, halved first down to ``MIN_SPLIT_B`` reads
+(:class:`SplitPending`; never, by default); A1
+``ambiguous_postings_parts`` scores ambiguity windows over the parts.  A
+direct table past ``DIRECT_SPLIT_MIN`` lives as parts of
+``DIRECT_PART_BYTES`` (``convert.direct_parts``): the host routes each
 read's windows to their parts, D1 ``routed_accumulate`` and A1
-``ambiguous_pass_split`` replace K1/K2 and K4.
+``ambiguous_pass_split`` replace K1/K2 and K4.  On the H100 neither
+table is split by default: one table outran its parts (PERF.md).
 
 Host side (copied from the JAX engine): the ASCII -> code table, the
 ambiguity expansion and its cycling order, 2-bit packing, the k-mer
-lookups, the table layout rule and the wire decode.  Per batch the host
+lookups and the wire decode.  The table layout rule
+(:meth:`PlacementEngine.resolve_table`) is the H100's own.  Per batch the host
 inputs travel in ONE pinned staging buffer with one H2D copy on the
 engine's stream, and the result comes back as one pinned copy of the
 wire words; ``result()`` waits on the event recorded after it.  The
@@ -474,31 +477,63 @@ def alt_rows_of(rof: np.ndarray, nl: int, nh: int):
 
 
 class PlacementEngine:
-    #: byte budget for the direct-indexed dense table (above it the JAX
-    #: engine takes the compact table).  PLACEHOLDER: the JAX engine's
-    #: value for a 16 GB TPU v5e, kept so that ``table="auto"`` resolves
-    #: as it does there, until H100 measurements set it.
-    DIRECT_BYTE_LIMIT = 8 << 30
+    # The layout policy.  Every value below was measured, or checked, on
+    # an NVIDIA H100 80GB HBM3 at a 700.00 W power limit by
+    # ``scripts/layout_sweep.py``; "row X" names the DB's row of PERF.md's
+    # table "Table layouts" (section 5).
+    #: the card the budgets were set on:
+    #: ``torch.cuda.get_device_properties(0).total_memory``.  A byte
+    #: budget below is a share of it: on another card it scales with that
+    #: card's memory (:meth:`card_bytes`); on the CPU it stands as set,
+    #: so the CPU engine makes the card's choices
+    CARD_MEMORY_BYTES = 85_017_493_504
+    #: one table's budget: half the card.  The largest tables placed in
+    #: the sweep (a 32.2 GB u16 compact table, row config 5; 20.1 GB
+    #: direct, rows config 6 and sparse12) ran at their layout's engine
+    #: rate; the other half is left to the batches' buffers and a second
+    #: engine
+    DIRECT_BYTE_LIMIT = CARD_MEMORY_BYTES // 2
     #: byte budget for the postings layout's host k-mer -> row index
     #: (int32[S^k + 1]); above it the host searches the sorted keys
     DIRECT_INDEX_LIMIT = 1 << 30
-    #: PLACEHOLDER, as above: the JAX engine's fast-gather zone edge on
-    #: the v5e (``resolve_table`` picks direct below twice this size).  A
-    #: light table past it is height-split into parts of at most this
-    #: size, and so is a direct table past DIRECT_SPLIT_MIN.
-    LIGHT_SPLIT_BYTES = 96 << 20
-    #: PLACEHOLDERS, as above, with the JAX engine's values
-    #: (``rappas_tpu/place/engine.py:1035-1064``) so that a DB takes the
-    #: same path in both packages: the light table's part cap (past it,
-    #: one slow table); the two-stage path's batch-unique row cap; the
-    #: batch size down to which a unique-budget overflow halves the batch
-    #: before the select fallback; the direct table size past which it is
-    #: split (1 << 62: never, the JAX default); the direct table's part
-    #: cap.
-    MAX_LIGHT_PARTS = 32
-    TWO_STAGE_MAX_UNIQUE = 1 << 21
-    MIN_SPLIT_B = 1024
+    #: resolve_table's compact line: past this many bytes a compact
+    #: table's host build and upload cost a 200k-read CLI run more than
+    #: postings' slower placement (compact ahead by 1.83 s at 2.41 GB,
+    #: row config 6; postings by 0.28 s at 8.04 GB, row k12_E1000; the
+    #: line where they cross).  Below it ``table="auto"`` takes compact,
+    #: which outran direct on every DB swept (direct tied it only with
+    #: every k-mer present at k=8, row k8_occ1.0), so auto never takes
+    #: direct
+    AUTO_COMPACT_BYTES = 7_300_000_000
+    #: the light table's part size: a light table that fits one table's
+    #: budget stays one table; one table outran the light table routed in
+    #: two parts on every DB swept (row config 5: 71,606 against 47,196
+    #: engine reads/s, CLI 30,145 against 24,293)
+    LIGHT_PART_BYTES = DIRECT_BYTE_LIMIT
+    #: the two-stage path's caps on a batch's unique light rows and on
+    #: their compact table's bytes (2P int32 words a row): config 5's
+    #: 8,192-read batches hold 352,879-359,369 unique rows (23 MB), so
+    #: both admit batches up to twice that; past them a batch takes the
+    #: select fallback (63,815 engine reads/s on row config 5, ahead of
+    #: the two-stage path's 53,972)
+    TWO_STAGE_MAX_UNIQUE = 1 << 20
+    TWO_STAGE_MAX_BYTES = 64 << 20
+    #: the batch size down to which a batch whose unique rows pass the
+    #: two-stage caps is halved before the select fallback: never (row
+    #: config 5: the select fallback on whole 8,192-read batches ran at
+    #: 0.86x the one table; halved down to 1,024 reads, in
+    #: ``chip_smoke.py``'s select phase, at 0.21x)
+    MIN_SPLIT_B = 1 << 62
+    #: the direct table's split: past ``DIRECT_SPLIT_MIN`` bytes (never:
+    #: on row config 2 the split engine ran 78,334 engine reads/s against
+    #: the whole table's 514,228, and its CLI 34,697 reads/s against
+    #: 74,640) into parts of ``DIRECT_PART_BYTES`` (one table's budget)
     DIRECT_SPLIT_MIN = 1 << 62
+    DIRECT_PART_BYTES = DIRECT_BYTE_LIMIT
+    #: the most parts of a light or direct table: the kernels' part table
+    #: (``csrc/parts.cuh`` ``kMaxParts``); past it a light table stays one
+    #: slow part and a direct table stays whole
+    MAX_LIGHT_PARTS = 64
     MAX_DIRECT_PARTS = 64
     #: tables are height-split, routed and pipelined only on the
     #: one-device engine (JAX: ``type(self) is PlacementEngine``); the
@@ -522,7 +557,8 @@ class PlacementEngine:
             raise ValueError(f"precision must be f32 or u16, got "
                              f"{precision!r}")
         table = self.resolve_table(db, table, precision,
-                                   self.DIRECT_BYTE_LIMIT, postings_width)
+                                   self.table_budget(self.device),
+                                   postings_width)
         if table not in ("direct", "compact", "postings"):
             raise ValueError(f"table must be auto/direct/compact/"
                              f"postings, got {table!r}")
@@ -535,7 +571,8 @@ class PlacementEngine:
         split = None
         if table == "direct" and self.SINGLE_DEVICE:
             split = direct_split_tables(
-                db, self.device, precision, self.LIGHT_SPLIT_BYTES,
+                db, self.device, precision,
+                self.card_bytes(self.DIRECT_PART_BYTES, self.device),
                 self.DIRECT_SPLIT_MIN, self.MAX_DIRECT_PARTS)
         if split is not None:
             # a split direct table lives only as its parts
@@ -554,7 +591,8 @@ class PlacementEngine:
         else:
             ps = postings_device_tables(
                 db, postings_width, self.device, self.DIRECT_INDEX_LIMIT,
-                self.LIGHT_SPLIT_BYTES if self.SINGLE_DEVICE else None,
+                self.card_bytes(self.LIGHT_PART_BYTES, self.device)
+                if self.SINGLE_DEVICE else None,
                 self.MAX_LIGHT_PARTS)
             self.light_parts, self.heavy_dense = ps.light_parts, \
                 ps.heavy_dense
@@ -615,46 +653,67 @@ class PlacementEngine:
 
     # -------------------------------------------------------------- #
     @classmethod
+    def card_bytes(cls, nbytes: int, device) -> int:
+        """A byte budget set for the H100 80GB (``nbytes``) on
+        ``device``: scaled by its card's memory over
+        ``CARD_MEMORY_BYTES`` on CUDA, as it stands on the CPU."""
+        device = torch.device(device)
+        if device.type != "cuda":
+            return nbytes
+        total = torch.cuda.get_device_properties(device).total_memory
+        return nbytes * total // cls.CARD_MEMORY_BYTES
+
+    @classmethod
+    def table_budget(cls, device) -> int:
+        """The bytes one table may take on ``device``
+        (``DIRECT_BYTE_LIMIT``, :meth:`card_bytes`)."""
+        return cls.card_bytes(cls.DIRECT_BYTE_LIMIT, device)
+
+    @classmethod
     def resolve_table(cls, db: PhyloKmerDB, table: str, precision: str,
                       direct_byte_limit: int,
                       postings_width: int = 8) -> str:
-        """'auto' -> the concrete device layout for this DB size (the
-        analog of the reference's direct-vs-hashed capacity choice,
-        ``CustomHash_v4_FastUtil81.java:49-63``).
+        """'auto' -> the concrete device layout for this DB (the analog of
+        the reference's direct-vs-hashed capacity choice,
+        ``CustomHash_v4_FastUtil81.java:49-63``), among the layouts whose
+        table fits ``direct_byte_limit`` bytes, the one that placed such a
+        DB fastest on the H100 (CLI reads/s over 200k reads, set-up
+        included; PERF.md "Table layouts"):
 
-        The rule is the JAX engine's, unchanged, so that both packages
-        pick the same layout for a DB: direct while the dense table is
-        small (under ``2 * LIGHT_SPLIT_BYTES`` and the direct budget);
-        past that, postings for light-dominated DBs (most postings in
-        k-mers with at most ``postings_width`` entries) and the
-        direct/compact capacity rule otherwise.  Its thresholds were
-        measured for a TPU v5e; for the port they are placeholders until
-        H100 measurements set them.
+        * **compact** while its keys fit int32 (the card searches them)
+          and its table fits ``AUTO_COMPACT_BYTES``;
+        * else f32: **postings** for a light-dominated DB (most postings
+          in k-mers with at most ``postings_width`` entries) or one whose
+          compact table does not fit; **compact** otherwise;
+        * else u16 (never postings): **compact** while it fits; a DB too
+          large for it raises.
+
+        Direct, never faster than compact on the card, is taken only when
+        asked for.
         """
         if table != "auto":
             return table
         itemsize = 2 if precision == "u16" else 4
-        dense_bytes = (db.alphabet.n_states ** db.k *
-                       db.n_edge_slots * itemsize)
         compact_bytes = (db.n_kmers + 1) * db.n_edge_slots * itemsize
-        fast_bytes = 2 * cls.LIGHT_SPLIT_BYTES
-        if dense_bytes <= min(fast_bytes, direct_byte_limit):
-            return "direct"
+        if (db.alphabet.n_states ** db.k <= 2 ** 31 - 1 and
+                compact_bytes <= min(direct_byte_limit,
+                                     cls.AUTO_COMPACT_BYTES)):
+            return "compact"
+        if precision == "u16":
+            if compact_bytes <= direct_byte_limit:
+                return "compact"
+            raise ValueError(
+                f"DB too large for a u16 table: the compact table takes "
+                f"{compact_bytes} bytes, past the card's budget of "
+                f"{direct_byte_limit}; use precision='f32' (postings "
+                f"layout)")
         lens = np.diff(db.offsets)
         heavy_nnz = int(lens[lens > postings_width].sum()) \
             if lens.size else 0
         light_dominated = heavy_nnz * 2 <= max(int(db.nnz), 1)
-        if precision != "u16" and light_dominated:
+        if light_dominated or compact_bytes > direct_byte_limit:
             return "postings"
-        if dense_bytes <= max(direct_byte_limit, 2 * compact_bytes):
-            return "direct"
-        if compact_bytes <= direct_byte_limit:
-            return "compact"
-        if precision == "u16":
-            raise ValueError(
-                "DB too large for u16 dense/compact tables; use "
-                "precision='f32' (postings layout)")
-        return "postings"
+        return "compact"
 
     def _init_host_codec(self) -> None:
         # max ambiguities per k-mer: floor(k^(1/S))
@@ -1054,7 +1113,7 @@ class PlacementEngine:
         * ``("routed",)`` -- a split table with routed windows: ``lrows``
           becomes ``routed`` int32[n_parts, B, W] (:meth:`_route_windows`);
         * ``("compact", miss)`` -- the two-stage path, on a split table or a
-          single one past the split budget whose batch-unique rows pay:
+          single one past the part budget whose batch-unique rows pay:
           ``uniq``/``uniq_off`` give each part's unique rows (part-local,
           each run padded to a :func:`_bucket_size`; a single table's pads
           are the miss row), ``lrows`` becomes the inverse map into the
@@ -1078,10 +1137,9 @@ class PlacementEngine:
         B = lrows.shape[0]
         uniq, inv = _fast_unique_inverse(lrows.ravel())
         U = uniq.shape[0]
-        # the compact [U, 2P] table must itself stay within the split
-        # budget
+        # the compact [U, 2P] table must stay within the two-stage caps
         compact_ok = (U <= self.TWO_STAGE_MAX_UNIQUE and
-                      U * parts[0].shape[1] * 4 <= self.LIGHT_SPLIT_BYTES)
+                      U * parts[0].shape[1] * 4 <= self.TWO_STAGE_MAX_BYTES)
         if not compact_ok and nparts > 1 and B >= 2 * self.MIN_SPLIT_B:
             return None
         if not (compact_ok and (nparts > 1 or U * 3 <= lrows.size)):

@@ -498,7 +498,7 @@ def test_split_postings_kernels_match_plain_on_card(card):
     one = PlacementEngine(db, device=card, table="postings")
 
     class Split(PlacementEngine):
-        LIGHT_SPLIT_BYTES = one.pairs.nbytes // 3 + 64
+        LIGHT_PART_BYTES = one.pairs.nbytes // 3 + 64
     eng = Split(db, device=card, table="postings")
     assert len(eng.light_parts) == 3 and eng._routed_windows
     host, plan = eng.postings_inputs(eng.encode_batch(mat), mat, lens)
@@ -526,7 +526,7 @@ def test_split_postings_kernels_match_plain_on_card(card):
     routed = torch.from_numpy(eng._route_windows(host["lrows"])).to(card)
     routed_wire = T.finalize_postings_wire_routed(eng._light, routed, *args)
     eng.enable_routed_windows(False)
-    eng.LIGHT_SPLIT_BYTES = 1 << 30     # a compact budget for every row
+    eng.TWO_STAGE_MAX_BYTES = 1 << 30   # a compact budget for every row
     src = eng._light_source(host)
     assert src[0] == "compact"
     uniq = torch.from_numpy(host["uniq"]).to(card)
@@ -611,7 +611,7 @@ def test_split_engines_match_one_table_on_card(card):
     want = one.score(mat, lens)
 
     class Split(PlacementEngine):
-        LIGHT_SPLIT_BYTES = one.pairs.nbytes // 4 + 64
+        LIGHT_PART_BYTES = TWO_STAGE_MAX_BYTES = one.pairs.nbytes // 4 + 64
         MIN_SPLIT_B = 64
 
     class Select(Split):
@@ -1141,19 +1141,25 @@ def test_dense_side_edge_range_shard_on_card(card):
 
 @pytest.mark.cuda
 def test_calibrate_on_card_matches_cpu(card):
-    """``calibrate`` on the card (K1 and K3 on every batch: calibration
-    reads are clean ACGT) gives the CPU bound within 2e-4 on the same
-    reads."""
+    """``calibrate`` on the card on the layout ``table="auto"`` takes (the
+    compact table: C1 and K3 on every batch, calibration reads being clean
+    ACGT) and on the direct table (K1 and K3) gives the CPU bound within
+    2e-4 on the same reads."""
     from chip_smoke import bench_db
+    from rappas_tpu_torch.build import calibration
     from rappas_tpu_torch.build.calibration import calibrate
 
     db = bench_db(1, 6, 0.6)
     kw = {"n_samples": 20_000, "mean_length": 60, "batch_size": 4096}
-    T.reset_launches()
-    on_card = calibrate(db, device="cuda", **kw)
-    launched = {n: T.LAUNCHES[n] for n in ("accumulate_packed",
-                                           "finalize_wire")}
-    assert launched == {"accumulate_packed": 5, "finalize_wire": 5}
-    assert T.LAUNCHES["accumulate_codes"] == 0
     on_cpu = calibrate(db, device="cpu", **kw)
-    assert np.isfinite(on_card) and abs(on_card - on_cpu) <= 2e-4
+    assert calibration.LAST_RUN["table"] == "compact"
+    for table, row_sum in (("compact", "accumulate_compact"),
+                           ("direct", "accumulate_packed")):
+        engine = PlacementEngine(db, device="cuda", table=table,
+                                 treat_ambiguities=False)
+        T.reset_launches()
+        on_card = calibrate(db, engine=engine, device="cuda", **kw)
+        launched = {n: T.LAUNCHES[n] for n in (row_sum, "finalize_wire")}
+        assert launched == {row_sum: 5, "finalize_wire": 5}
+        assert T.LAUNCHES["accumulate_codes"] == 0
+        assert np.isfinite(on_card) and abs(on_card - on_cpu) <= 2e-4

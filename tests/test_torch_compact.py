@@ -153,7 +153,7 @@ def test_device_tables_compact_and_u16(db, tdb):
 # ---- engines against the JAX engine ----------------------------------- #
 
 MODES = [{}, {"ambiguities_with_max": True}, {"treat_ambiguities": False}]
-LAYOUTS = [{"table": "compact"}, {"precision": "u16"},
+LAYOUTS = [{"table": "compact"}, {"table": "direct", "precision": "u16"},
            {"table": "compact", "precision": "u16"}]
 
 
@@ -256,13 +256,16 @@ def test_u16_close_to_f32(tdb, table):
 
 
 def test_resolve_table_u16_never_postings():
-    """A sparse k=12 DB (``tests/test_lookup.py:109-115``): f32 resolves to
-    postings, u16 to compact, as in the JAX engine."""
+    """A sparse k=12 DB (``tests/test_lookup.py:109-115``): the JAX engine
+    resolves f32 to postings and u16 to compact; the port's H100 rule
+    takes the compact table (120 MB, its keys searched on the card) in
+    both precisions, and neither package gives u16 postings."""
     jdb = _wide_db(DNA, 12, 100_000, n_edges=300)
     tdb12 = port_db(jdb)
     for prec, want in (("f32", "postings"), ("u16", "compact")):
         assert PlacementEngine.resolve_table(
-            tdb12, "auto", prec, PlacementEngine.DIRECT_BYTE_LIMIT) == want
+            tdb12, "auto", prec,
+            PlacementEngine.table_budget("cpu")) == "compact"
         assert JaxEngine.resolve_table(
             jdb, "auto", prec, JaxEngine.DIRECT_BYTE_LIMIT) == want
 

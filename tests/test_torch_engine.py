@@ -33,7 +33,9 @@ def tdb(db):
 
 @pytest.fixture(scope="module")
 def engine(tdb):
-    return PlacementEngine(tdb, device="cpu")
+    """The direct layout, which the JAX engine's ``auto`` takes for this
+    DB (the port's takes compact)."""
+    return PlacementEngine(tdb, device="cpu", table="direct")
 
 
 def same_as_jax(res_t, res_j):
@@ -59,14 +61,16 @@ def test_ambiguous_reads_match_oracle(db, engine):
 
 
 def test_ambiguous_max_mode(db, tdb):
-    engine = PlacementEngine(tdb, ambiguities_with_max=True, device="cpu")
+    engine = PlacementEngine(tdb, ambiguities_with_max=True, device="cpu",
+                             table="direct")
     rng = np.random.default_rng(3)
     compare(db, engine, random_reads(30, rng, with_amb=1.0),
             ambiguities_with_max=True)
 
 
 def test_noamb_mode(db, tdb):
-    engine = PlacementEngine(tdb, treat_ambiguities=False, device="cpu")
+    engine = PlacementEngine(tdb, treat_ambiguities=False, device="cpu",
+                             table="direct")
     rng = np.random.default_rng(4)
     compare(db, engine, random_reads(30, rng, with_amb=1.0),
             treat_ambiguities=False)
@@ -83,7 +87,7 @@ def test_mixed_batch_packed_and_coded_reads(db, engine):
     # (the oracle rejects such reads; the JAX engine scores them)
     junk = reads + ["ACGTTGCA" + "X" + "ACGTGGCATTAC"]
     same_as_jax(engine.score(*batch_of(junk)),
-                JaxEngine(db).score(*batch_of(junk)))
+                JaxEngine(db, table="direct").score(*batch_of(junk)))
     alone = engine.score(*batch_of([reads[0]]))
     mixed = engine.score(*batch_of(reads))
     assert np.array_equal(alone.top_edges[0], mixed.top_edges[0])
@@ -141,14 +145,15 @@ def test_packed_path_matches_int8(engine):
 def test_matches_jax_engine(db, tdb, kw, amb):
     rng = np.random.default_rng(7)
     mat, lens = batch_of(random_reads(64, rng, with_amb=amb))
-    same_as_jax(PlacementEngine(tdb, device="cpu", **kw).score(mat, lens),
-                JaxEngine(db, **kw).score(mat, lens))
+    same_as_jax(PlacementEngine(tdb, device="cpu", table="direct",
+                                **kw).score(mat, lens),
+                JaxEngine(db, table="direct", **kw).score(mat, lens))
 
 
 def test_protein_mode_matches_oracle_and_jax():
     """A non-DNA alphabet sends every read through the int8-code path."""
     db = synthetic_aa_db()
-    engine = PlacementEngine(port_db(db), device="cpu")
+    engine = PlacementEngine(port_db(db), device="cpu", table="direct")
     assert engine.table == "direct"
     rng = np.random.default_rng(12)
     letters = db.alphabet.letters
@@ -157,7 +162,7 @@ def test_protein_mode_matches_oracle_and_jax():
     reads[0] = reads[0][:5] + "X" + reads[0][6:]
     compare(db, engine, reads)
     same_as_jax(engine.score(*batch_of(reads)),
-                JaxEngine(db).score(*batch_of(reads)))
+                JaxEngine(db, table="direct").score(*batch_of(reads)))
 
 
 def test_score_async_result_and_table_resolution(db, tdb, engine):
@@ -168,6 +173,10 @@ def test_score_async_result_and_table_resolution(db, tdb, engine):
     assert res.top_edges.shape == (12, min(7, tdb.n_edge_slots))
     assert engine.table == JaxEngine.resolve_table(
         db, "auto", "f32", JaxEngine.DIRECT_BYTE_LIMIT) == "direct"
+    # the port's H100 rule takes the compact table for this DB
+    assert PlacementEngine.resolve_table(
+        tdb, "auto", "f32", PlacementEngine.table_budget("cpu")) == "compact"
+    assert PlacementEngine(tdb, device="cpu").table == "compact"
 
 
 @pytest.mark.parametrize("kw", [{"precision": "u16"}, {"table": "compact"}],
@@ -177,12 +186,14 @@ def test_u16_and_compact_layouts_place(db, tdb, kw):
     as the JAX engine does (``tests/test_torch_compact.py`` holds them
     against it in every mode)."""
     engine = PlacementEngine(tdb, device="cpu", **kw)
-    assert engine.table == kw.get("table", "direct")
+    # u16 alone: the port's rule takes the compact table
+    assert engine.table == kw.get("table", "compact")
     mat, lens = batch_of(random_reads(16, np.random.default_rng(13),
                                       with_amb=0.5))
     res = engine.score(mat, lens)
     assert (res.n_matched > 0).any()
-    same_as_jax(res, JaxEngine(db, **kw).score(mat, lens))
+    same_as_jax(res, JaxEngine(db, **dict(kw, table=engine.table)).score(
+        mat, lens))
 
 
 def test_postings_layout_runs(db, tdb):

@@ -104,7 +104,8 @@ _BLOCKED_RUN = textwrap.dedent("""
         # height-split tables (no CLI flag: the engine's constants), the
         # light table routed and the direct one split, placed by the CLI
         from rappas_tpu_torch.place.engine import PlacementEngine
-        PlacementEngine.LIGHT_SPLIT_BYTES = 4096
+        PlacementEngine.LIGHT_PART_BYTES = 4096
+        PlacementEngine.DIRECT_PART_BYTES = 4096
         PlacementEngine.DIRECT_SPLIT_MIN = 0
         eng = PlacementEngine(db, device="cpu", table="postings")
         assert len(eng.light_parts) > 1 and eng._routed_windows

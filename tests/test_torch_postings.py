@@ -313,20 +313,26 @@ def _star_dbs(trees, k, seed=0):
 @pytest.mark.parametrize("k, table", [(5, "auto"), (3, "direct")])
 def test_wide_result_path_matches_jax(star_trees, k, table):
     """65,601 edge slots: edge ids do not fit u16.  The port's wire
-    carries them as int32 (P3 on the postings layout, which ``auto``
-    picks at k=5; K3 on a direct table at k=3), the JAX engine returns
-    its four arrays; both give the oracle's placements."""
+    carries them as int32 (P3 on the postings layout, which JAX's
+    ``auto`` picks at k=5, and K3 on the compact table the port's picks;
+    K3 on a direct table at k=3), the JAX engine, on the same layout,
+    returns its four arrays; both give the oracle's placements."""
     db, tdb = _star_dbs(star_trees, k)
     assert db.n_edge_slots == tdb.n_edge_slots == 65601
-    engine = PlacementEngine(tdb, table=table, device="cpu")
-    assert engine.wide
-    assert engine.table == ("postings" if k == 5 else "direct")
-    j = JaxEngine(db, table=table)
-    assert not j._wire_ok
+    if table == "auto":
+        assert JaxEngine.resolve_table(
+            db, "auto", "f32", JaxEngine.DIRECT_BYTE_LIMIT) == "postings"
     reads = with_db_kmers(db, random_reads(10, 30, seed=21), n=6)
     reads[1] = reads[1][:7] + "N" + reads[1][8:]
     mat, lens = batch_of(reads)
-    res = engine.score(mat, lens)
-    same_as_jax(res, j.score(mat, lens))
-    assert res.top_edges.max() >= 65535
-    compare(db, engine, reads[-3:])
+    want = {"auto": "compact", "postings": "postings", "direct": "direct"}
+    for layout in (table, "postings") if table == "auto" else (table,):
+        engine = PlacementEngine(tdb, table=layout, device="cpu")
+        assert engine.wide
+        assert engine.table == want[layout]
+        j = JaxEngine(db, table=engine.table)
+        assert not j._wire_ok
+        res = engine.score(mat, lens)
+        same_as_jax(res, j.score(mat, lens))
+        assert res.top_edges.max() >= 65535
+        compare(db, engine, reads[-3:])

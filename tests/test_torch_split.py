@@ -49,11 +49,20 @@ def _pairs_bytes(db):
     return (db.postings_tables(8).light_keys.shape[0] + 1) * 64
 
 
+#: the port's budgets for the jobs JAX's one ``LIGHT_SPLIT_BYTES`` does
+#: on these paths: the light part size, the two-stage table's cap, the
+#: direct part size
+PORT_SPLIT = ("LIGHT_PART_BYTES", "TWO_STAGE_MAX_BYTES", "DIRECT_PART_BYTES")
+
+
 def _patch(monkeypatch, **consts):
-    """The same engine constants on both packages' engines."""
-    for cls in (PlacementEngine, JaxEngine):
-        for name, value in consts.items():
-            monkeypatch.setattr(cls, name, value)
+    """The same engine constants on both packages' engines; JAX's
+    ``LIGHT_SPLIT_BYTES`` is set on the port as each budget of
+    :data:`PORT_SPLIT`, so that both take the same path."""
+    for name, value in consts.items():
+        monkeypatch.setattr(JaxEngine, name, value)
+        for port in PORT_SPLIT if name == "LIGHT_SPLIT_BYTES" else (name,):
+            monkeypatch.setattr(PlacementEngine, port, value)
 
 
 def _split(monkeypatch, db, div, **consts):
@@ -313,7 +322,7 @@ def test_split_engine_errors(db, tdb, ddb):
     d.enable_routed_windows(False)
     with pytest.raises(ValueError, match="split"):
         convert.postings_device_tables(
-            tdb, 8, "cpu", split_bytes=_pairs_bytes(db) // 2 + 64).pairs
+            tdb, 8, "cpu", part_bytes=_pairs_bytes(db) // 2 + 64).pairs
     t.enable_pipeline()
     assert t._pp_enabled and not t._routed_windows
 
