@@ -23,6 +23,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from rappas_tpu_torch.utils import count, span
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "_build"
 SOURCES = ("accumulate.cu", "finalize.cu", "ambiguous.cu", "postings.cu",
@@ -79,6 +81,7 @@ def build() -> Path:
     tmp = BUILD / f"tmp_{out.stem}_{os.getpid()}"
     tmp.mkdir(exist_ok=True)
     nvcc = _nvcc()
+    count("kernels.builds")
     procs = []
     for name in SOURCES:
         obj = tmp / f"{name}.o"
@@ -114,45 +117,50 @@ def lib() -> ctypes.CDLL:
     global _LIB
     with _LOCK:
         if _LIB is None:
-            handle = ctypes.CDLL(str(build()))
-            p, i, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                            ctypes.c_float)
-            sigs = {
-                "rp_accumulate_packed": [p, i, i, i, p, i64, p, i, i, i, f,
-                                         p, p, i, i, i, i, i, p],
-                "rp_accumulate_codes": [p, i, i, i, p, i, i, i, i, f, p, p,
-                                        i, i, i, i, i, p],
-                "rp_accumulate_compact": [p, i, i, p, i, p, i, i, i, i, f,
-                                          p, p, i, i, i, i, i, p],
-                "rp_accumulate_rows": [p, i, i, i, p, i, i, f, p, i, i, i,
-                                       i, i, p],
-                "rp_accumulate_rows_range": [p, i, p, i, i, i, i, p, i, i, i,
-                                             i, i, p],
-                "rp_finalize_wire": [p, i, i, p, f, i, i, i, i, p, p],
-                "rp_ambiguous_pass": [p, i, i, f, p, p, p, p, p, i, p, i, i,
-                                      p],
-                "rp_dense_side": [p, i, p, p, i, p, p],
-                "rp_ambiguous_postings": [p, i, i, p, i, p, p, p, p, p, p,
-                                          i, i, p, p],
-                "rp_finalize_postings": [p, i, i, p, i, i, p, i, p, p, f, i,
-                                         i, i, i, p, p, p, p, i, i, i, i, p,
-                                         p],
-                "rp_merge_candidates": [p, i, i, i, i, i, i, i, p, p],
-                "rp_finalize_postings_split": [i, p, i, i, i, p, i, i, p, i,
-                                               p, p, f, i, i, i, i, p, p, p,
-                                               p, i, i, i, i, p, p],
-                "rp_gather_compact": [p, i, i, p, p, i, p, p],
-                "rp_routed_accumulate": [p, i, i, i, p, i, i, f, p, i, i, p],
-                "rp_ambiguous_pass_split": [p, i, i, i, f, p, p, p, p, p, i,
-                                            p, i, i, p],
-                "rp_ambiguous_postings_parts": [p, i, i, p, i, i, p, p, p, p,
-                                                p, p, i, p, p],
-            }
-            for name, argtypes in sigs.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            handle.rp_error_string.argtypes = [ctypes.c_int]
-            handle.rp_error_string.restype = ctypes.c_char_p
-            _LIB = handle
+            _LIB = _load()
         return _LIB
+
+
+def _load() -> ctypes.CDLL:
+    with span("kernels.load"):
+        handle = ctypes.CDLL(str(build()))
+        p, i, i64, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                        ctypes.c_float)
+        sigs = {
+            "rp_accumulate_packed": [p, i, i, i, p, i64, p, i, i, i, f,
+                                     p, p, i, i, i, i, i, p],
+            "rp_accumulate_codes": [p, i, i, i, p, i, i, i, i, f, p, p,
+                                    i, i, i, i, i, p],
+            "rp_accumulate_compact": [p, i, i, p, i, p, i, i, i, i, f,
+                                      p, p, i, i, i, i, i, p],
+            "rp_accumulate_rows": [p, i, i, i, p, i, i, f, p, i, i, i,
+                                   i, i, p],
+            "rp_accumulate_rows_range": [p, i, p, i, i, i, i, p, i, i, i,
+                                         i, i, p],
+            "rp_finalize_wire": [p, i, i, p, f, i, i, i, i, p, p],
+            "rp_ambiguous_pass": [p, i, i, f, p, p, p, p, p, i, p, i, i,
+                                  p],
+            "rp_dense_side": [p, i, p, p, i, p, p],
+            "rp_ambiguous_postings": [p, i, i, p, i, p, p, p, p, p, p,
+                                      i, i, p, p],
+            "rp_finalize_postings": [p, i, i, p, i, i, p, i, p, p, f, i,
+                                     i, i, i, p, p, p, p, i, i, i, i, p,
+                                     p],
+            "rp_merge_candidates": [p, i, i, i, i, i, i, i, p, p],
+            "rp_finalize_postings_split": [i, p, i, i, i, p, i, i, p, i,
+                                           p, p, f, i, i, i, i, p, p, p,
+                                           p, i, i, i, i, p, p],
+            "rp_gather_compact": [p, i, i, p, p, i, p, p],
+            "rp_routed_accumulate": [p, i, i, i, p, i, i, f, p, i, i, p],
+            "rp_ambiguous_pass_split": [p, i, i, i, f, p, p, p, p, p, i,
+                                        p, i, i, p],
+            "rp_ambiguous_postings_parts": [p, i, i, p, i, i, p, p, p, p,
+                                            p, p, i, p, p],
+        }
+        for name, argtypes in sigs.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.rp_error_string.argtypes = [ctypes.c_int]
+        handle.rp_error_string.restype = ctypes.c_char_p
+    return handle

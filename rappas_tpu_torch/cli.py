@@ -11,8 +11,10 @@ placement in every table layout (``--table auto``, ``direct``,
 ``--dp`` x ``--mp`` mesh of this host's devices (f32;
 :mod:`rappas_tpu_torch.parallel`), on one host or several
 (``--num-hosts``, ``--host-id``, ``--coordinator``).  ``--profile DIR``
-traces the placement with ``torch.profiler`` (the host, and the card on
-``--device cuda``) into a ``*.pt.trace.json`` under DIR.
+traces the placement with ``torch.profiler`` (the host with the
+program's spans, and the card on ``--device cuda``) into a
+``*.pt.trace.json`` under DIR; ``-v 1`` logs each query file's span
+totals and counters.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import sys
 from pathlib import Path
 
 from rappas_tpu_torch import __version__
-from rappas_tpu_torch.utils import log, set_verbosity
+from rappas_tpu_torch.utils import log, set_verbosity, tracing
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -152,7 +154,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "torch.distributed gloo group there)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the placement "
-                        "into DIR (TensorBoard / Perfetto *.pt.trace.json)")
+                        "into DIR (TensorBoard / Perfetto *.pt.trace.json), "
+                        "the program's place.* and engine.* spans in it")
     p.add_argument("--calibration", action="store_true",
                    help="calibrate a normalized-score lower bound from "
                         "random sequences at DB build (the reference's "
@@ -170,6 +173,8 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     set_verbosity(args.verbosity)
+    # the program's spans: in the profiler's trace, and in -v 1's lines
+    tracing(bool(args.profile) or args.verbosity >= 1)
     call_string = " ".join(argv if argv is not None else sys.argv[1:])
 
     if args.extree:

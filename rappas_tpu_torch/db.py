@@ -47,6 +47,7 @@ import numpy as np
 
 from rappas_tpu_torch.alphabet import Alphabet, get_alphabet
 from rappas_tpu_torch.tree import ArrayTree, Tree, parse_newick, write_newick
+from rappas_tpu_torch.utils import span
 
 FORMAT_VERSION = 1
 
@@ -163,7 +164,7 @@ class PhyloKmerDB:
 
     @classmethod
     def load(cls, path) -> "PhyloKmerDB":
-        with np.load(path) as z:
+        with span("db.load"), np.load(path) as z:
             header = json.loads(bytes(z["header"]).decode("utf-8"))
             if header["format_version"] > FORMAT_VERSION:
                 raise ValueError(

@@ -104,6 +104,7 @@ from rappas_tpu_torch.convert import (device_tables, direct_split_tables,
                                       postings_device_tables)
 from rappas_tpu_torch.db import PhyloKmerDB
 from rappas_tpu_torch.place import kernels
+from rappas_tpu_torch.utils import count, span
 
 PAD_CODE = -2     # beyond read end
 AMBIG_CODE = -1   # IUPAC ambiguity position
@@ -169,9 +170,11 @@ class PendingBatch:
     def result(self) -> BatchResult:
         if isinstance(self._out, BatchResult):
             return self._out
-        if self._event is not None:
-            self._event.synchronize()
-        return unpack_wire(self._out.numpy(), self._wire, self._wide)
+        with span("engine.sync"):
+            if self._event is not None:
+                self._event.synchronize()
+        with span("engine.unpack"):
+            return unpack_wire(self._out.numpy(), self._wire, self._wide)
 
 
 class SplitPending:
@@ -252,12 +255,14 @@ def fetch_wire(wire: torch.Tensor, stream, K: int,
     """Start the one D2H copy of a batch's wire words (pinned, on
     ``stream``, the current stream of the wire's device) and return its
     handle; on the CPU (``stream`` None) the wire itself."""
-    if stream is None:
-        return PendingBatch(wire, wire=K, wide=wide)
-    out = torch.empty(wire.shape, dtype=torch.int32, pin_memory=True)
-    out.copy_(wire, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(stream)
+    with span("engine.fetch"):
+        if stream is None:
+            return PendingBatch(wire, wire=K, wide=wide)
+        out = torch.empty(wire.shape, dtype=torch.int32, pin_memory=True)
+        out.copy_(wire, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(stream)
+    count("engine.d2h_bytes", out.numel() * out.element_size())
     return PendingBatch(out, wire=K, event=done, wide=wide)
 
 
@@ -265,19 +270,21 @@ def stage(arrays: dict, device: torch.device) -> dict:
     """Host arrays -> tensors of the same dtype and shape on ``device``.
     On the card: one pinned staging buffer (16-byte aligned slots) and ONE
     non-blocking H2D copy on the current stream."""
-    if device.type != "cuda":
-        return {n: torch.from_numpy(np.ascontiguousarray(a))
-                for n, a in arrays.items()}
-    offs, total = {}, 0
-    for n, a in arrays.items():
-        offs[n] = total
-        total += -(-a.nbytes // 16) * 16
-    pinned = torch.empty(total, dtype=torch.uint8, pin_memory=True)
-    buf = pinned.numpy()
-    for n, a in arrays.items():
-        buf[offs[n]:offs[n] + a.nbytes] = \
-            np.ascontiguousarray(a).reshape(-1).view(np.uint8)
-    dev = pinned.to(device, non_blocking=True)
+    with span("engine.stage"):
+        if device.type != "cuda":
+            return {n: torch.from_numpy(np.ascontiguousarray(a))
+                    for n, a in arrays.items()}
+        offs, total = {}, 0
+        for n, a in arrays.items():
+            offs[n] = total
+            total += -(-a.nbytes // 16) * 16
+        pinned = torch.empty(total, dtype=torch.uint8, pin_memory=True)
+        buf = pinned.numpy()
+        for n, a in arrays.items():
+            buf[offs[n]:offs[n] + a.nbytes] = \
+                np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        dev = pinned.to(device, non_blocking=True)
+    count("engine.h2d_bytes", total)
     return {n: dev[offs[n]:offs[n] + a.nbytes]
             .view(_TORCH_DTYPES[a.dtype]).view(a.shape)
             for n, a in arrays.items()}
@@ -545,82 +552,84 @@ class PlacementEngine:
                  ambiguities_with_max: bool = False,
                  device="cuda", precision: str = "f32",
                  table: str = "auto", postings_width: int = 8):
-        self.device = torch.device(device)
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"device must be cuda or cpu, got {device!r}")
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "PlacementEngine(device='cuda') needs a CUDA device and "
-                "none is available; pass device='cpu' to run the plain "
-                "PyTorch versions on the CPU")
-        if precision not in ("f32", "u16"):
-            raise ValueError(f"precision must be f32 or u16, got "
-                             f"{precision!r}")
-        table = self.resolve_table(db, table, precision,
-                                   self.table_budget(self.device),
-                                   postings_width)
-        if table not in ("direct", "compact", "postings"):
-            raise ValueError(f"table must be auto/direct/compact/"
-                             f"postings, got {table!r}")
-        if table == "postings" and precision == "u16":
-            raise ValueError(
-                "postings table mode is f32-only (the sort payload "
-                "carries exact deltas); use precision='f32'")
-        self._init_params(db, keep_at_most, treat_ambiguities,
-                          ambiguities_with_max, precision, table)
-        split = None
-        if table == "direct" and self.SINGLE_DEVICE:
-            split = direct_split_tables(
-                db, self.device, precision,
-                self.card_bytes(self.DIRECT_PART_BYTES, self.device),
-                self.DIRECT_SPLIT_MIN, self.MAX_DIRECT_PARTS)
-        if split is not None:
-            # a split direct table lives only as its parts
-            parts, cuts, scale = split
-            self.direct_parts = tuple(parts)
-            self._direct_cuts = cuts
-            self._direct = kernels.make_parts(parts, np.diff(cuts))
-            self.D, self.keys_dev = None, None
-            self.scale = float(scale)
-            self.n_rows = int(cuts[-1]) + 1
-        elif table != "postings":
-            tabs = device_tables(db, self.device, table, precision)
-            self.D, self.keys_dev = tabs.D, tabs.keys
-            self.scale = float(tabs.scale)
-            self.n_rows = self.D.shape[0]
-        else:
-            ps = postings_device_tables(
-                db, postings_width, self.device, self.DIRECT_INDEX_LIMIT,
-                self.card_bytes(self.LIGHT_PART_BYTES, self.device)
-                if self.SINGLE_DEVICE else None,
-                self.MAX_LIGHT_PARTS)
-            self.light_parts, self.heavy_dense = ps.light_parts, \
-                ps.heavy_dense
-            self._light_slow = ps.light_slow
-            #: the light table when it is one part
-            self.pairs = self.light_parts[0] \
-                if len(self.light_parts) == 1 else None
-            self._light = kernels.make_parts(
-                self.light_parts, [p.shape[0] for p in self.light_parts])
-            self._light_counts = ps.light_counts
-            self._light_keys_np = ps.light_keys
-            self._heavy_keys_np = ps.heavy_keys
-            self._rof_np = ps.rof
-            self._nl = ps.light_keys.shape[0]
-            # split light tables route windows to their parts by default
-            # (rappas_tpu/place/engine.py:1143-1152); enable_routed_windows
-            # (False) restores the two-stage path
-            self._routed_windows = (self.SINGLE_DEVICE and
-                                    len(self.light_parts) > 1)
-        self._init_host_codec()
-        self._stream = self._gather_stream = None
-        if self.device.type == "cuda":
-            self._stream = torch.cuda.Stream(self.device)
-            # G1 of the software pipeline's next batch runs on its own
-            # stream, beside P3 of this batch on the engine's
-            self._gather_stream = torch.cuda.Stream(self.device)
-            # the table upload ran on the current stream
-            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        with span("engine.init"):
+            self.device = torch.device(device)
+            if self.device.type not in ("cuda", "cpu"):
+                raise ValueError(f"device must be cuda or cpu, got {device!r}")
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(
+                    "PlacementEngine(device='cuda') needs a CUDA device and "
+                    "none is available; pass device='cpu' to run the plain "
+                    "PyTorch versions on the CPU")
+            if precision not in ("f32", "u16"):
+                raise ValueError(f"precision must be f32 or u16, got "
+                                 f"{precision!r}")
+            table = self.resolve_table(db, table, precision,
+                                       self.table_budget(self.device),
+                                       postings_width)
+            if table not in ("direct", "compact", "postings"):
+                raise ValueError(f"table must be auto/direct/compact/"
+                                 f"postings, got {table!r}")
+            if table == "postings" and precision == "u16":
+                raise ValueError(
+                    "postings table mode is f32-only (the sort payload "
+                    "carries exact deltas); use precision='f32'")
+            self._init_params(db, keep_at_most, treat_ambiguities,
+                              ambiguities_with_max, precision, table)
+            split = None
+            if table == "direct" and self.SINGLE_DEVICE:
+                split = direct_split_tables(
+                    db, self.device, precision,
+                    self.card_bytes(self.DIRECT_PART_BYTES, self.device),
+                    self.DIRECT_SPLIT_MIN, self.MAX_DIRECT_PARTS)
+            if split is not None:
+                # a split direct table lives only as its parts
+                parts, cuts, scale = split
+                self.direct_parts = tuple(parts)
+                self._direct_cuts = cuts
+                self._direct = kernels.make_parts(parts, np.diff(cuts))
+                self.D, self.keys_dev = None, None
+                self.scale = float(scale)
+                self.n_rows = int(cuts[-1]) + 1
+            elif table != "postings":
+                tabs = device_tables(db, self.device, table, precision)
+                self.D, self.keys_dev = tabs.D, tabs.keys
+                self.scale = float(tabs.scale)
+                self.n_rows = self.D.shape[0]
+            else:
+                ps = postings_device_tables(
+                    db, postings_width, self.device, self.DIRECT_INDEX_LIMIT,
+                    self.card_bytes(self.LIGHT_PART_BYTES, self.device)
+                    if self.SINGLE_DEVICE else None,
+                    self.MAX_LIGHT_PARTS)
+                self.light_parts, self.heavy_dense = ps.light_parts, \
+                    ps.heavy_dense
+                self._light_slow = ps.light_slow
+                #: the light table when it is one part
+                self.pairs = self.light_parts[0] \
+                    if len(self.light_parts) == 1 else None
+                self._light = kernels.make_parts(
+                    self.light_parts, [p.shape[0] for p in self.light_parts])
+                self._light_counts = ps.light_counts
+                self._light_keys_np = ps.light_keys
+                self._heavy_keys_np = ps.heavy_keys
+                self._rof_np = ps.rof
+                self._nl = ps.light_keys.shape[0]
+                # split light tables route windows to their parts by default
+                # (rappas_tpu/place/engine.py:1143-1152); enable_routed_windows
+                # (False) restores the two-stage path
+                self._routed_windows = (self.SINGLE_DEVICE and
+                                        len(self.light_parts) > 1)
+            self._init_host_codec()
+            self._stream = self._gather_stream = None
+            if self.device.type == "cuda":
+                self._stream = torch.cuda.Stream(self.device)
+                # G1 of the software pipeline's next batch runs on its own
+                # stream, beside P3 of this batch on the engine's
+                self._gather_stream = torch.cuda.Stream(self.device)
+                # the table upload ran on the current stream
+                self._stream.wait_stream(
+                    torch.cuda.current_stream(self.device))
 
     def _init_params(self, db: PhyloKmerDB, keep_at_most: int,
                      treat_ambiguities: bool, ambiguities_with_max: bool,
@@ -757,28 +766,35 @@ class PlacementEngine:
         returned handle.  Batches issued back to back queue on the
         engine's stream, so the host can prepare the next batch while
         the device scores this one."""
-        B, L = matrix.shape
-        if L < self.k:
-            # no window fits: every read is unplaced
-            K = self.wire_k
-            return PendingBatch(BatchResult(
-                np.full((B, K), -1, np.int32),
-                np.full((B, K), -np.inf, np.float32),
-                np.zeros((B, K), np.float32),
-                np.zeros(B, np.int32)))
-        lengths = np.ascontiguousarray(lengths, np.int32)
-        codes = self.encode_batch(matrix)
-        if self.table == "postings":
-            return self._score_postings(codes, matrix, lengths)
-        if self.direct_parts is not None:
-            return self._score_direct_split(codes, matrix, lengths)
-        host = self.dense_inputs(codes, matrix, lengths)
-        with self._on_stream():
-            dev = stage(host, self.device)
-            acc = self.dense_acc(dev, self.D, self.keys_dev, B, L)
-            wire = kernels.finalize_wire(acc, dev["lengths"], self.thr,
-                                         self.k, self.keep_at_most)
-            return fetch_wire(wire, self._stream, self.wire_k, self.wide)
+        count("engine.batches")
+        with span("engine.score_async"):
+            B, L = matrix.shape
+            if L < self.k:
+                # no window fits: every read is unplaced
+                K = self.wire_k
+                return PendingBatch(BatchResult(
+                    np.full((B, K), -1, np.int32),
+                    np.full((B, K), -np.inf, np.float32),
+                    np.zeros((B, K), np.float32),
+                    np.zeros(B, np.int32)))
+            lengths = np.ascontiguousarray(lengths, np.int32)
+            with span("engine.encode"):
+                codes = self.encode_batch(matrix)
+            if self.table == "postings":
+                return self._score_postings(codes, matrix, lengths)
+            if self.direct_parts is not None:
+                return self._score_direct_split(codes, matrix, lengths)
+            with span("engine.inputs"):
+                host = self.dense_inputs(codes, matrix, lengths)
+            with self._on_stream():
+                dev = stage(host, self.device)
+                with span("engine.launch"):
+                    acc = self.dense_acc(dev, self.D, self.keys_dev, B, L)
+                    wire = kernels.finalize_wire(
+                        acc, dev["lengths"], self.thr, self.k,
+                        self.keep_at_most)
+                return fetch_wire(wire, self._stream, self.wire_k,
+                                  self.wide)
 
     def dense_inputs(self, codes: np.ndarray, matrix: np.ndarray,
                      lengths: np.ndarray) -> dict:
@@ -827,22 +843,25 @@ class PlacementEngine:
     # windows, K3 finishes.  The 2-bit packed path does not apply.
     def _score_direct_split(self, codes: np.ndarray, matrix: np.ndarray,
                             lengths: np.ndarray) -> PendingBatch:
-        kidx = host_kmer_indices(codes, lengths, self.k,
-                                 self.alphabet.n_states)
-        rows = np.where(kidx >= 0, kidx, kidx.dtype.type(self.n_rows - 1))
-        host = {"lengths": lengths, "routed": self._route_direct(rows)}
-        self._ambiguity_inputs(codes, matrix, lengths, host)
+        with span("engine.inputs"):
+            kidx = host_kmer_indices(codes, lengths, self.k,
+                                     self.alphabet.n_states)
+            rows = np.where(kidx >= 0, kidx,
+                            kidx.dtype.type(self.n_rows - 1))
+            host = {"lengths": lengths, "routed": self._route_direct(rows)}
+            self._ambiguity_inputs(codes, matrix, lengths, host)
         with self._on_stream():
             dev = stage(host, self.device)
-            acc = kernels.routed_accumulate_(self._direct, dev["routed"],
-                                             self.scale)
-            if "win_off" in dev:
-                kernels.ambiguous_pass_split_(
-                    acc, self._direct, self.scale, dev["alt_rows"],
-                    dev["win_off"], dev["win_read"], dev["win_inv_w"],
-                    dev["win_is_mean"])
-            wire = kernels.finalize_wire(acc, dev["lengths"], self.thr,
-                                         self.k, self.keep_at_most)
+            with span("engine.launch"):
+                acc = kernels.routed_accumulate_(
+                    self._direct, dev["routed"], self.scale)
+                if "win_off" in dev:
+                    kernels.ambiguous_pass_split_(
+                        acc, self._direct, self.scale, dev["alt_rows"],
+                        dev["win_off"], dev["win_read"], dev["win_inv_w"],
+                        dev["win_is_mean"])
+                wire = kernels.finalize_wire(acc, dev["lengths"], self.thr,
+                                             self.k, self.keep_at_most)
             return fetch_wire(wire, self._stream, self.wire_k, self.wide)
 
     def _route_direct(self, rows: np.ndarray) -> np.ndarray:
@@ -1046,8 +1065,9 @@ class PlacementEngine:
     # left-packs the light hits; the device runs P1, P2 and P3
     def _score_postings(self, codes: np.ndarray, matrix: np.ndarray,
                         lengths: np.ndarray):
-        host, plan = self.postings_inputs(codes, matrix, lengths)
-        src = self._light_source(host)
+        with span("engine.inputs"):
+            host, plan = self.postings_inputs(codes, matrix, lengths)
+            src = self._light_source(host)
         if src is None:
             # too many batch-unique rows for one compact table: halve the
             # batch (rappas_tpu/place/engine.py:1527-1545)
@@ -1057,9 +1077,10 @@ class PlacementEngine:
                 self._score_postings(codes[h:], matrix[h:], lengths[h:]))
         with self._on_stream():
             dev, acc_c, plan = self._postings_dense(host, plan)
-            if src[0] == "compact" and self._pp_enabled:
-                return self._pp_submit(dev, acc_c, plan, src[1])
-            wire = self._postings_wire(src, dev, acc_c, plan)
+            with span("engine.launch"):
+                if src[0] == "compact" and self._pp_enabled:
+                    return self._pp_submit(dev, acc_c, plan, src[1])
+                wire = self._postings_wire(src, dev, acc_c, plan)
             return fetch_wire(wire, self._stream, self.wire_k, self.wide)
 
     def _postings_dense(self, host: dict, plan):
@@ -1068,17 +1089,19 @@ class PlacementEngine:
         windows.  Returns the staged inputs, ``acc_c`` and P3's plan."""
         dev = stage(host, self.device)
         plan = plan.staged(dev)          # P3's plan, staged with the batch
-        acc_c = kernels.dense_side(self.heavy_dense, dev["hrows"],
-                                   dev["hoff"])
-        if "win_off" in dev:
-            spec = (dev["alt_lrows"], dev["alt_hrows"], dev["win_off"],
-                    dev["win_slot"], dev["win_inv_w"], dev["win_is_mean"])
-            if len(self.light_parts) > 1:
-                kernels.ambiguous_postings_parts_(acc_c, self.heavy_dense,
-                                                  self._light, *spec)
-            else:
-                kernels.ambiguous_postings_(acc_c, self.heavy_dense,
-                                            self.pairs, *spec)
+        with span("engine.launch"):
+            acc_c = kernels.dense_side(self.heavy_dense, dev["hrows"],
+                                       dev["hoff"])
+            if "win_off" in dev:
+                spec = (dev["alt_lrows"], dev["alt_hrows"], dev["win_off"],
+                        dev["win_slot"], dev["win_inv_w"],
+                        dev["win_is_mean"])
+                if len(self.light_parts) > 1:
+                    kernels.ambiguous_postings_parts_(
+                        acc_c, self.heavy_dense, self._light, *spec)
+                else:
+                    kernels.ambiguous_postings_(acc_c, self.heavy_dense,
+                                                self.pairs, *spec)
         return dev, acc_c, plan
 
     def _postings_wire(self, src: tuple, dev: dict, acc_c, plan,

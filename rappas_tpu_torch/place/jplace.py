@@ -33,6 +33,7 @@ import json
 import numpy as np
 
 from rappas_tpu_torch.tree import Tree, write_newick
+from rappas_tpu_torch.utils import count
 
 
 def jplace_tree_string(tree: Tree) -> str:
@@ -357,12 +358,17 @@ class JplaceWriter:
             b = bl[j]
             if lines[j] is None:
                 ent = b.lines
-                if ent is not None and ent is not False and \
-                        ent[4] != b.extras_count():
-                    # extras arrived after the eager render: re-render
-                    # with them baked in, reusing the cached rows blob
-                    ent = self._batch_lines(b, reuse_rows=ent[2:4])
+                if ent is not None and ent is not False:
+                    if ent[4] == b.extras_count():
+                        count("jplace.lines_reused")
+                    else:
+                        # extras arrived after the eager render: re-render
+                        # with them baked in, reusing the cached rows blob
+                        count("jplace.lines_rerendered")
+                        ent = self._batch_lines(b, reuse_rows=ent[2:4])
                 if ent is None:
+                    # the formatter did not render it
+                    count("jplace.lines_late")
                     ent = self._batch_lines(b)
                 lines[j] = ent if ent is not None else False
             ent = lines[j]

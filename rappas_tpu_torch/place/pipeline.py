@@ -31,7 +31,8 @@ from rappas_tpu_torch.db import PhyloKmerDB
 from rappas_tpu_torch.place.engine import PlacementEngine
 from rappas_tpu_torch.place.jplace import JplaceWriter
 from rappas_tpu_torch.seqio import IndexBatcher, ingest_blocks
-from rappas_tpu_torch.utils import log
+from rappas_tpu_torch import utils
+from rappas_tpu_torch.utils import count, log, span, trace_totals
 
 #: per-order dedup state codes (see _OrderState)
 _IN_FLIGHT, _PLACED, _UNPLACED, _FILTERED = 0, 1, 2, 3
@@ -177,52 +178,88 @@ def _headers_blob(refs):
 def place_queries(db: PhyloKmerDB, query_path, workdir,
                   config: PlacementConfig | None = None,
                   engine: PlacementEngine | None = None) -> Path:
-    config = config or PlacementConfig()
-    workdir = Path(workdir)
-    logs = workdir / "logs"
-    logs.mkdir(parents=True, exist_ok=True)
-    qname = Path(query_path).name
+    before = trace_totals()
+    with span("place.call"):
+        out, n_placements, t0 = _place(db, query_path, workdir, config,
+                                       engine)
+    dt = time.time() - t0
+    after = trace_totals()
 
-    engine = engine or PlacementEngine(
-        db, keep_at_most=config.keep_at_most,
-        treat_ambiguities=config.treat_ambiguities,
-        ambiguities_with_max=config.ambiguities_with_max,
-        precision=config.precision, table=config.table,
-        device=config.device)
-    writer = JplaceWriter(db.tree, config.invocation,
-                          guppy_compatible=config.guppy_compatible,
-                          keep_factor=config.keep_factor)
-    arr = db.arrays
+    def delta(name):
+        return after["counters"].get(name, 0) - \
+            before["counters"].get(name, 0)
+    n = delta("place.reads")
+    log(f"{n} queries ({delta('place.unique')} unique, "
+        f"{delta('place.unplaced')} unplaced) in {dt:.2f}s "
+        f"({n / max(dt, 1e-9):.0f} reads/s)")
+    log(f"{n_placements} placements written to {out}")
+    if utils.VERBOSITY >= 1:
+        # this call's span totals (count, total ms / self ms) and counters
+        parts = []
+        for name, a in sorted(after["spans"].items()):
+            b = before["spans"].get(name, {"count": 0, "total_s": 0.0,
+                                           "self_s": 0.0})
+            if a["count"] > b["count"]:
+                parts.append(f"{name} {a['count'] - b['count']}x "
+                             f"{1e3 * (a['total_s'] - b['total_s']):.1f}/"
+                             f"{1e3 * (a['self_s'] - b['self_s']):.1f} ms")
+        parts += [f"{name}={delta(name)}" for name in sorted(
+            after["counters"]) if delta(name)]
+        log("trace: " + ", ".join(parts), level=1)
+    return out
 
-    dedup = _make_dedup()
-    reg = _OrderState()
-    batcher = IndexBatcher(batch_size=config.batch_size)
-    t0 = time.time()
-    counts = {"total": 0, "unique": 0, "unplaced": 0}
 
-    suffix = ("" if config.read_shard is None
-              else f".part{config.read_shard[0]}")
-    tsv = open(logs / f"placements_{qname}.tsv{suffix}", "wb") \
-        if config.write_tsv else None
-    if tsv:
-        tsv.write(b"Query\tARTree_NodeId\tARTree_NodeName\t"
-                  b"ExtendedTree_NodeId\tExtendedTree_NodeName\t"
-                  b"Original_NodeId\tOriginal_NodeName\tPP*\n")
-    # node-id-indexed label blob for the native TSV formatter
-    _lbl = [s.encode("utf-8") for s in arr.labels]
-    lbl_buf = b"".join(_lbl)
-    lbl_off = np.zeros(len(_lbl) + 1, np.int64)
-    np.cumsum(np.fromiter(map(len, _lbl), np.int64, len(_lbl)),
-              out=lbl_off[1:])
-    lbl_off = lbl_off.astype(np.int32)
-    # --original-nodes DBs: the best edge resolves to an adjacent ghost
-    # whose AR/extended mapping fills the TSV columns
-    # (PlacementProcess.java:856-962; precomputed at build, see
-    # orinodes_resolution_table of rappas_tpu's build); default DBs
-    # leave the four mapping columns empty exactly like the reference's
-    # onlyFakes branch (PlacementProcess.java:951-959)
-    resolution = db.meta.get("orinodes_resolution")
-    notplaced = open(logs / f"notplaced_{qname}.tsv{suffix}", "wb")
+def _place(db: PhyloKmerDB, query_path, workdir,
+           config: PlacementConfig | None,
+           engine: PlacementEngine | None):
+    """The body of :func:`place_queries`: the jplace path, the number of
+    placements written and the start of the placement clock."""
+    with span("place.start"):
+        config = config or PlacementConfig()
+        workdir = Path(workdir)
+        logs = workdir / "logs"
+        logs.mkdir(parents=True, exist_ok=True)
+        qname = Path(query_path).name
+
+        engine = engine or PlacementEngine(
+            db, keep_at_most=config.keep_at_most,
+            treat_ambiguities=config.treat_ambiguities,
+            ambiguities_with_max=config.ambiguities_with_max,
+            precision=config.precision, table=config.table,
+            device=config.device)
+        writer = JplaceWriter(db.tree, config.invocation,
+                              guppy_compatible=config.guppy_compatible,
+                              keep_factor=config.keep_factor)
+        arr = db.arrays
+
+        dedup = _make_dedup()
+        reg = _OrderState()
+        batcher = IndexBatcher(batch_size=config.batch_size)
+        t0 = time.time()
+
+        suffix = ("" if config.read_shard is None
+                  else f".part{config.read_shard[0]}")
+        tsv = open(logs / f"placements_{qname}.tsv{suffix}", "wb") \
+            if config.write_tsv else None
+        if tsv:
+            tsv.write(b"Query\tARTree_NodeId\tARTree_NodeName\t"
+                      b"ExtendedTree_NodeId\tExtendedTree_NodeName\t"
+                      b"Original_NodeId\tOriginal_NodeName\tPP*\n")
+        # node-id-indexed label blob for the native TSV formatter
+        _lbl = [s.encode("utf-8") for s in arr.labels]
+        lbl_buf = b"".join(_lbl)
+        lbl_off = np.zeros(len(_lbl) + 1, np.int64)
+        np.cumsum(np.fromiter(map(len, _lbl), np.int64, len(_lbl)),
+                  out=lbl_off[1:])
+        lbl_off = lbl_off.astype(np.int32)
+        # --original-nodes DBs: the best edge resolves to an adjacent ghost
+        # whose AR/extended mapping fills the TSV columns
+        # (PlacementProcess.java:856-962; precomputed at build, see
+        # orinodes_resolution_table of rappas_tpu's build); default DBs
+        # leave the four mapping columns empty exactly like the reference's
+        # onlyFakes branch (PlacementProcess.java:951-959)
+        resolution = db.meta.get("orinodes_resolution")
+        notplaced = open(logs / f"notplaced_{qname}.tsv{suffix}", "wb")
 
     # ZERO python loops over reads on the hot path: parse / md5 /
     # dedup-map / matrix fill run in native block calls
@@ -238,9 +275,11 @@ def place_queries(db: PhyloKmerDB, query_path, workdir,
         on an output edge case (unplaced, queued duplicates, the rare
         --original-nodes TSV branch)."""
         refs, orders = meta
-        res = in_flight_batch.result()
+        with span("place.result_wait"):
+            res = in_flight_batch.result()
         n = orders.shape[0]
-        counts["unique"] += n
+        count("place.unique", n)
+        count("place.batches")
         pre = writer.precompute_batch(res)
         placed = pre["n_keep"][:n] > 0
         filtered = np.zeros(n, bool)
@@ -258,9 +297,13 @@ def place_queries(db: PhyloKmerDB, query_path, workdir,
             return hdr_blob[hdr_off[i]:hdr_off[i + 1]].tobytes() \
                 .decode("utf-8", "replace")
 
-        # duplicates queued while this batch was in flight (rare):
-        # resolve BEFORE listing unplaced so a first occurrence and its
-        # early duplicates land together, like the serial reference
+        # duplicates queued while this batch was in flight: every
+        # duplicate whose first occurrence lies in its own input block
+        # (a block is deduped before any of its batches is scored, and a
+        # block holds 8 MB: a whole MiSeq sample of 7,113 x 240 bp reads,
+        # where pipeline.pending_dup_pct reads 100%).  Resolve BEFORE
+        # listing unplaced so a first occurrence and its early
+        # duplicates land together, like the serial reference
         pending_here = {}
         if reg.pending:
             oset = set(orders.tolist())
@@ -268,8 +311,8 @@ def place_queries(db: PhyloKmerDB, query_path, workdir,
                 pending_here[o] = reg.pending.pop(o)
         unplaced = ~placed & ~filtered
         if pending_here:
-            # rare interleaving path: queued duplicates must land right
-            # after their first occurrence
+            # queued duplicates must land right after their first
+            # occurrence
             unplaced_lines = []
             interesting = unplaced | np.isin(
                 orders, np.fromiter(pending_here, np.int64,
@@ -283,7 +326,7 @@ def place_queries(db: PhyloKmerDB, query_path, workdir,
                     unplaced_lines.append(hdr(i))
                     unplaced_lines.extend(dups or ())
             if unplaced_lines:
-                counts["unplaced"] += len(unplaced_lines)
+                count("place.unplaced", len(unplaced_lines))
                 notplaced.write(("\n".join(unplaced_lines) + "\n")
                                 .encode("utf-8"))
         elif unplaced.any():
@@ -298,7 +341,7 @@ def place_queries(db: PhyloKmerDB, query_path, workdir,
             out = np.full(ub.shape[0] + ui.size, 0x0A, np.uint8)
             out[np.arange(ub.shape[0]) +
                 np.repeat(np.arange(ui.size), lens_u)] = ub
-            counts["unplaced"] += int(ui.size)
+            count("place.unplaced", int(ui.size))
             notplaced.write(out.tobytes())
         if tsv and reads.size:
             best = res.top_edges[reads, 0]
@@ -343,7 +386,6 @@ def place_queries(db: PhyloKmerDB, query_path, workdir,
     # overlaps the main thread's dedup + writer work too (round 5);
     # one worker keeps engine calls serialized in submission order.
     from concurrent.futures import ThreadPoolExecutor
-    prep = ThreadPoolExecutor(max_workers=1)
     in_flight: list = []
 
     def submit(batch):
@@ -351,8 +393,13 @@ def place_queries(db: PhyloKmerDB, query_path, workdir,
         fut = prep.submit(engine.score_async, mat, lens)
         in_flight.append(((refs, orders), fut))
         if len(in_flight) > 3:
-            meta, f = in_flight.pop(0)
-            handle_batch(meta, f.result())
+            drain_one(*in_flight.pop(0))
+
+    def drain_one(meta, f):
+        with span("place.prep_wait"):
+            h = f.result()
+        with span("place.fold"):
+            handle_batch(meta, h)
 
     # round-5 host pipelining across cores: a reader thread runs file
     # IO + native block parse + md5 (ctypes releases the GIL), and a
@@ -369,7 +416,12 @@ def place_queries(db: PhyloKmerDB, query_path, workdir,
     def _reader():
         err = None
         try:
-            for blk in ingest_blocks(query_path):
+            blocks = ingest_blocks(query_path)
+            while True:
+                with span("place.read"):
+                    blk = next(blocks, None)
+                if blk is None:
+                    break
                 while not stop.is_set():
                     try:
                         blocks_q.put(blk, timeout=0.25)
@@ -400,19 +452,23 @@ def place_queries(db: PhyloKmerDB, query_path, workdir,
             if b is None:
                 return
             try:
-                b.lines = writer._batch_lines(b) or False
+                with span("place.format"):
+                    b.lines = writer._batch_lines(b) or False
             except BaseException as e:
                 fmt_err.append(e)
                 return
 
-    reader = threading.Thread(target=_reader, daemon=True)
-    reader.start()
-    formatter = threading.Thread(target=_formatter, daemon=True)
-    formatter.start()
+    with span("place.start"):
+        prep = ThreadPoolExecutor(max_workers=1)
+        reader = threading.Thread(target=_reader, daemon=True)
+        reader.start()
+        formatter = threading.Thread(target=_formatter, daemon=True)
+        formatter.start()
 
     def iter_blocks():
         while True:
-            blk = blocks_q.get()
+            with span("place.ingest_wait"):
+                blk = blocks_q.get()
             if blk is None:
                 return
             if isinstance(blk, BaseException):
@@ -425,83 +481,96 @@ def place_queries(db: PhyloKmerDB, query_path, workdir,
         #                as rappas_tpu's parallel.distributed.shard_reads)
         order = 0      # arrival rank within this shard (output ordering)
         for pb in iter_blocks():
-            # md5 keys come pre-computed per block (gap-stripped sequence,
-            # PlacementProcess.java:591-596 / Fasta.java:34-39); the
-            # digest -> first-order map lives in native code (_make_dedup)
-            if shard is None:
-                sel = np.arange(pb.n, dtype=np.int64)
-            else:
-                g = gidx + np.arange(pb.n, dtype=np.int64)
-                sel = np.flatnonzero(g % shard[1] == shard[0])
-                gidx += pb.n
-            counts["total"] += sel.shape[0]
-            orders_blk = order + np.arange(sel.shape[0], dtype=np.int64)
-            order += sel.shape[0]
-            first = dedup(pb.md5s[sel], orders_blk)
-            dup = np.flatnonzero(first >= 0)
-            if dup.size:
-                # duplicate occurrences: attach to the placed first,
-                # re-list unplaced per occurrence (the reference only
-                # dedups *placed* reads, PlacementProcess.java:591-629),
-                # queue while the first's batch is still in flight.
-                # Round 5: the common placed case is fully vectorized --
-                # sub-header tokens are extracted in one pass and attached
-                # per target batch as array chunks; python remains only
-                # for unplaced / in-flight firsts (rare).
-                js = sel[dup]
-                fo = first[dup]
-                cap = reg.status.shape[0]
-                st = np.where(fo < cap,
-                              reg.status[np.minimum(fo, cap - 1)],
-                              np.int8(_IN_FLIGHT))
-                pl = np.flatnonzero(st == _PLACED)
-                if pl.size:
-                    toks, toff = _first_tokens(pb, js[pl])
-                    bids = reg.bidx[fo[pl]]
-                    slots = reg.slot[fo[pl]]
-                    for bid in np.unique(bids).tolist():
-                        m = np.flatnonzero(bids == bid)
+            with span("place.dedup"):
+                # md5 keys come pre-computed per block (gap-stripped
+                # sequence, PlacementProcess.java:591-596 /
+                # Fasta.java:34-39); the digest -> first-order map lives
+                # in native code (_make_dedup)
+                if shard is None:
+                    sel = np.arange(pb.n, dtype=np.int64)
+                else:
+                    g = gidx + np.arange(pb.n, dtype=np.int64)
+                    sel = np.flatnonzero(g % shard[1] == shard[0])
+                    gidx += pb.n
+                count("place.blocks")
+                count("place.reads", sel.shape[0])
+                orders_blk = order + np.arange(sel.shape[0],
+                                               dtype=np.int64)
+                order += sel.shape[0]
+                first = dedup(pb.md5s[sel], orders_blk)
+                dup = np.flatnonzero(first >= 0)
+                if dup.size:
+                    # duplicate occurrences: attach to the placed first,
+                    # re-list unplaced per occurrence (the reference only
+                    # dedups *placed* reads,
+                    # PlacementProcess.java:591-629), queue while the
+                    # first's batch is still in flight.  A first placed
+                    # in an earlier block's folded batch takes the
+                    # vectorized path (round 5): sub-header tokens are
+                    # extracted in one pass and attached per target batch
+                    # as array chunks.  Python handles per read the
+                    # duplicates of unplaced firsts and of firsts still
+                    # in flight, which is every duplicate whose first
+                    # lies in its own block (see handle_batch)
+                    js = sel[dup]
+                    fo = first[dup]
+                    cap = reg.status.shape[0]
+                    st = np.where(fo < cap,
+                                  reg.status[np.minimum(fo, cap - 1)],
+                                  np.int8(_IN_FLIGHT))
+                    pl = np.flatnonzero(st == _PLACED)
+                    if pl.size:
                         from rappas_tpu_torch.native import gather_ranges
-                        tb, to = gather_ranges(toks, toff[m], toff[m + 1])
-                        reg.batches[bid].add_extras_chunk(
-                            slots[m].astype(np.int64), tb, to)
-                for d in np.flatnonzero(st == _UNPLACED).tolist():
-                    notplaced.write((pb.header(int(js[d])) + "\n")
-                                    .encode("utf-8"))
-                    counts["unplaced"] += 1
-                for d in np.flatnonzero(st == _IN_FLIGHT).tolist():
-                    reg.pending.setdefault(int(fo[d]), []).append(
-                        pb.header(int(js[d])))
-                # _FILTERED: nsbound-filtered reads re-filter silently
-            fresh = np.flatnonzero(first < 0)
-            for b in batcher.add_block(pb, sel[fresh], orders_blk[fresh]):
+                        toks, toff = _first_tokens(pb, js[pl])
+                        bids = reg.bidx[fo[pl]]
+                        slots = reg.slot[fo[pl]]
+                        for bid in np.unique(bids).tolist():
+                            m = np.flatnonzero(bids == bid)
+                            tb, to = gather_ranges(toks, toff[m],
+                                                   toff[m + 1])
+                            reg.batches[bid].add_extras_chunk(
+                                slots[m].astype(np.int64), tb, to)
+                    unpl = np.flatnonzero(st == _UNPLACED)
+                    for d in unpl.tolist():
+                        notplaced.write((pb.header(int(js[d])) + "\n")
+                                        .encode("utf-8"))
+                    flying = np.flatnonzero(st == _IN_FLIGHT)
+                    for d in flying.tolist():
+                        reg.pending.setdefault(int(fo[d]), []).append(
+                            pb.header(int(js[d])))
+                    # _FILTERED: nsbound-filtered reads re-filter silently
+                    count("place.dups_attached", int(pl.size))
+                    count("place.dups_unplaced", int(unpl.size))
+                    count("place.unplaced", int(unpl.size))
+                    count("place.dups_pending", int(flying.size))
+                fresh = np.flatnonzero(first < 0)
+                for b in batcher.add_block(pb, sel[fresh],
+                                           orders_blk[fresh]):
+                    submit(b)
+        # the batcher's last partial batches: dedup's end of stream
+        with span("place.dedup"):
+            for b in batcher.flush():
                 submit(b)
-        for b in batcher.flush():
-            submit(b)
         for meta, f in in_flight:
-            handle_batch(meta, f.result())
+            drain_one(meta, f)
     finally:
         # release the pipeline threads on EVERY exit path: an
         # exception mid-stream must not leak a reader blocked on
         # a full queue, a formatter blocked on get(), or the prep
         # executor (they pin parsed blocks / batches otherwise)
-        stop.set()
-        prep.shutdown(wait=False)
-        fmt_q.put(None)
-        reader.join(timeout=10)
-        formatter.join(timeout=60)
+        with span("place.finish"):
+            stop.set()
+            prep.shutdown(wait=False)
+            fmt_q.put(None)
+            reader.join(timeout=10)
+            formatter.join(timeout=60)
     if fmt_err:
         raise fmt_err[0]
 
-    if tsv:
-        tsv.close()
-    notplaced.close()
-
-    out = workdir / f"placements_{qname}.jplace{suffix}"
-    writer.write(out)
-    dt = time.time() - t0
-    log(f"{counts['total']} queries ({counts['unique']} unique, "
-        f"{counts['unplaced']} unplaced) in {dt:.2f}s "
-        f"({counts['total'] / max(dt, 1e-9):.0f} reads/s)")
-    log(f"{writer.n_placements} placements written to {out}")
-    return out
+    with span("place.finish"):
+        if tsv:
+            tsv.close()
+        notplaced.close()
+        out = workdir / f"placements_{qname}.jplace{suffix}"
+        writer.write(out)
+    return out, writer.n_placements, t0

@@ -1,16 +1,39 @@
-"""Logging / timing utilities.
+"""Logging and tracing utilities.
 
 Replaces the reference's verbosity-gated ``Infos.println``
 (``/root/reference/src/etc/Infos.java``): verbosity -1 silences
 everything, 0 prints progress, 1 prints debug detail.
+
+Tracing: :func:`span` marks a step of the program by a fixed name and
+:func:`count` adds to a named counter.  Spans cost one check of a
+module global while tracing is off (the default); :func:`tracing` turns
+them on, and each then enters ``torch.profiler.record_function`` (so a
+profiled run shows it on the card's clock) and adds its duration to the
+in-memory totals of its name: count, total seconds and self seconds
+(the duration less the spans opened inside it on the same thread).
+Counters are always on.  :func:`trace_totals` reads everything at once,
+the kernel launch and key-probe counts included; :func:`trace_reset`
+zeroes it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
+import threading
 import time
 
 VERBOSITY = 0
+
+_ON = False
+#: the context every span returns while tracing is off
+_OFF = contextlib.nullcontext()
+_record_function = None
+_LOCK = threading.Lock()
+#: name -> [count, total seconds, self seconds]
+_SPANS: dict = {}
+_COUNTERS: dict = {}
+_STACK = threading.local()
 
 
 def set_verbosity(v: int) -> None:
@@ -23,15 +46,91 @@ def log(msg: str, level: int = 0) -> None:
         print(msg, file=sys.stderr if level > 0 else sys.stdout)
 
 
-class Timer:
-    def __init__(self, label: str = ""):
-        self.label = label
+def tracing(on: bool) -> None:
+    """Turn spans on or off (counters are always on)."""
+    global _ON, _record_function
+    if on and _record_function is None:
+        from torch.profiler import record_function
+        _record_function = record_function
+    _ON = bool(on)
+
+
+class _Span:
+    __slots__ = ("name", "rf", "t0", "children")
+
+    def __init__(self, name: str):
+        self.name = name
 
     def __enter__(self):
-        self.t0 = time.time()
+        self.rf = _record_function(self.name)
+        self.rf.__enter__()
+        stack = getattr(_STACK, "s", None)
+        if stack is None:
+            stack = _STACK.s = []
+        stack.append(self)
+        self.children = 0.0
+        self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
-        self.elapsed = time.time() - self.t0
-        if self.label:
-            log(f"{self.label}: {self.elapsed * 1000:.1f} ms", level=1)
+        dt = time.perf_counter() - self.t0
+        stack = _STACK.s
+        stack.pop()
+        if stack:
+            stack[-1].children += dt
+        with _LOCK:
+            tot = _SPANS.get(self.name)
+            if tot is None:
+                tot = _SPANS[self.name] = [0, 0.0, 0.0]
+            tot[0] += 1
+            tot[1] += dt
+            tot[2] += dt - self.children
+        self.rf.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager that marks the step ``name`` (a fixed string)."""
+    if not _ON:
+        return _OFF
+    return _Span(name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    with _LOCK:
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + n
+
+
+def trace_totals() -> dict:
+    """``{"spans": {name: {"count", "total_s", "self_s"}}, "counters":
+    {name: n}}`` since the last :func:`trace_reset`; the counters hold
+    the non-zero ``kernels.LAUNCHES`` as ``kernel.launch.<name>`` and
+    ``native.PROBE_CALLS`` as ``native.probe_rows``."""
+    with _LOCK:
+        spans = {n: {"count": c, "total_s": t, "self_s": s}
+                 for n, (c, t, s) in _SPANS.items()}
+        counters = dict(_COUNTERS)
+    # read where they are kept; a module not imported counted nothing
+    kernels = sys.modules.get("rappas_tpu_torch.place.kernels")
+    if kernels is not None:
+        counters.update({"kernel.launch." + n: c
+                         for n, c in kernels.LAUNCHES.items() if c})
+    native = sys.modules.get("rappas_tpu_torch.native")
+    if native is not None and native.PROBE_CALLS["probe_rows"]:
+        counters["native.probe_rows"] = native.PROBE_CALLS["probe_rows"]
+    return {"spans": spans, "counters": counters}
+
+
+def trace_reset() -> None:
+    """Zero every span total and counter, the launch and probe counts
+    included."""
+    with _LOCK:
+        _SPANS.clear()
+        _COUNTERS.clear()
+    kernels = sys.modules.get("rappas_tpu_torch.place.kernels")
+    if kernels is not None:
+        kernels.reset_launches()
+    native = sys.modules.get("rappas_tpu_torch.native")
+    if native is not None:
+        native.PROBE_CALLS["probe_rows"] = 0
