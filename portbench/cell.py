@@ -104,10 +104,14 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, workdir: Path,
         engine_wrap=None) -> dict:
     """One run, at the configuration's precision unless ``precision``
     names another (a control's).  ``engine_wrap`` (tests) wraps the
-    engine the window drives."""
+    engine the window drives.
+
+    A traced run turns the program's spans on from set-up to the
+    window's close, where the program has them: ``setup_spans`` are
+    set-up's totals, ``spans`` and ``counters`` the window's."""
     import torch
 
-    from rappas_tpu_torch import cli
+    from rappas_tpu_torch import cli, utils
     from rappas_tpu_torch.db import PhyloKmerDB
     from rappas_tpu_torch.place.pipeline import PlacementConfig, place_queries
 
@@ -115,6 +119,9 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, workdir: Path,
     precision = precision or config["precision"]
     out: dict = {"seed": seed, "cell": cell["name"]}
     stages = out["setup_stages"] = {"imports": time.time() - t_start}
+    spans = trace and hasattr(utils, "trace_totals")
+    if spans:
+        utils.tracing(True)
 
     def stage(name):
         stages[name] = time.time() - t_start - sum(stages.values())
@@ -127,9 +134,7 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, workdir: Path,
     program_db(config, raw).save(db_path)
     gc.collect()
     stage("db_build_save")
-    t0 = time.perf_counter()
     db = PhyloKmerDB.load(db_path)
-    out["db_load_s"] = time.perf_counter() - t0
     stage("db_load")
 
     # the CLI's own flags and PlacementConfig (cli._place_all)
@@ -147,15 +152,13 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, workdir: Path,
         batch_size=args.batch_size, precision=args.precision,
         table=args.table, device=args.device,
         invocation="rappas-tpu-torch portbench", read_shard=None)
-    t0 = time.perf_counter()
     engine = cli._make_engine(db, args, cfg)
     _sync(torch, device)
-    out["engine_s"] = time.perf_counter() - t0
     stage("engine")
     out["table"] = engine.table
     if engine_wrap is not None:
         engine = engine_wrap(engine)
-    probe = EngineProbe(engine, spans=trace)
+    probe = EngineProbe(engine)
 
     pool = traffic.make_pool(mix, seed)
     files = []
@@ -165,7 +168,6 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, workdir: Path,
     stage("pool")
     place_queries(db, files[0], workdir / "warmup", cfg, engine=probe)
     _sync(torch, device)
-    probe.reset()
     stage("warmup")
 
     # the window
@@ -183,6 +185,9 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, workdir: Path,
     # the harness's set-up garbage is not the window's to collect
     gc.collect()
     gc.freeze()
+    if spans:
+        out["setup_spans"] = utils.trace_totals()["spans"]
+        utils.trace_reset()
     cpu0 = _cpu_times()
     t_w0 = time.perf_counter()
     with span("portbench.window") if trace else contextlib.nullcontext():
@@ -211,6 +216,9 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, workdir: Path,
             if t1 - t_w0 >= seconds:
                 break
     t_w1 = time.perf_counter()
+    if spans:
+        out.update(utils.trace_totals())
+        utils.tracing(False)
     out["cpu"] = {k: round(b - a, 3) for (k, a), b in
                   zip(cpu0.items(), _cpu_times().values())}
     gc.unfreeze()
@@ -220,9 +228,6 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, workdir: Path,
     out["failure"] = failed
     out["durations"] = [d for _, d, _ in calls]
     out["reads"] = sum(len(pool[s].seqs) for s, _, _ in calls)
-    out["batches"] = probe.batches
-    out["score_async_s"] = probe.score_s
-    out["wait_s"] = probe.wait_s
     n_dev = cell["chips"] if device == "cuda" else 1
     if device == "cuda":
         out["memory_peak_bytes"] = max(torch.cuda.max_memory_allocated(i)

@@ -7,7 +7,8 @@ With ``--trace 0`` the result's metrics are the cell's end-to-end
 metrics; with ``--trace 1`` the window is profiled and they are its
 per-layer metrics.  Standard output ends with one JSON line (``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
-``breakdown``, and last ``checks``: each number that decided ``correct``
+``breakdown`` (with ``idle_by_span`` beside the contract's two lists),
+and last ``checks``: each number that decided ``correct``
 with its limit); standard error ends with the same numbers.  No CUDA
 card, fewer cards than the cell asks for, or JAX or the JAX package
 loaded when the window has closed: a message, no result line, and a
@@ -114,18 +115,21 @@ def main(argv=None) -> int:
         result["device"]["window_s"] = tr["window_s"]
         result["breakdown"] = {
             "device_ops": [[n[:160], s] for n, s in tr["device_ops"]],
-            "idle_gaps": tr["idle_gaps"]}
+            "idle_gaps": tr["idle_gaps"],
+            "idle_by_span": tr["idle_by_span"]}
         print("trace: " + json.dumps({
+            "idle_s": tr["idle_s"],
             "lost_kernel_records": tr["lost_kernel_records"],
             "kernel_events": tr["kernel_events"],
             "kernel_s": tr["kernel_s"],
             "busy_s_per_device": tr["busy_s_per_device"]}))
+    if "spans" in run:
+        print("spans: " + json.dumps({k: run[k] for k in (
+            "setup_spans", "spans", "counters")}))
     print("run: " + json.dumps({
         k: run.get(k) for k in ("table", "setup_s", "setup_stages",
-                                "db_load_s", "engine_s",
-                                "window_s", "cpu", "reads", "batches",
-                                "failure",
-                                "work_bytes", "work_ops")}))
+                                "window_s", "cpu", "reads",
+                                "failure", "work_bytes", "work_ops")}))
     if run["durations"]:
         d = sorted(run["durations"])
         print("durations: " + json.dumps(

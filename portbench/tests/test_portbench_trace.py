@@ -9,19 +9,23 @@ import pytest
 from portbench import reference, roofline
 from portbench.probe import EngineProbe
 from portbench.tests import tiny
-from portbench.trace import read_trace
+from portbench.trace import innermost, read_trace
 
 
-def _x(name, cat, ts, dur, **args):
+def _x(name, cat, ts, dur, tid=0, **args):
     return {"ph": "X", "name": name, "cat": cat, "ts": ts, "dur": dur,
-            "args": args}
+            "tid": tid, "args": args}
 
 
 def test_read_trace_canned(tmp_path):
     events = [
-        _x("portbench.window", "user_annotation", 1000, 1000),
-        _x("portbench.place_queries", "user_annotation", 1000, 1000),
-        _x("portbench.result_wait", "user_annotation", 1300, 100),
+        _x("portbench.window", "user_annotation", 1000, 1000, tid=1),
+        _x("portbench.place_queries", "user_annotation", 1000, 1000, tid=1),
+        _x("place.call", "user_annotation", 1000, 900, tid=1),
+        _x("place.fold", "user_annotation", 1250, 200, tid=1),
+        _x("place.result_wait", "user_annotation", 1300, 120, tid=1),
+        # another thread's span names no idle time
+        _x("place.format", "user_annotation", 1500, 500, tid=2),
         _x("memset", "gpu_memset", 900, 200, device=0),
         _x("kernA", "kernel", 1100, 120, device=0, correlation=1),
         _x("kernB", "kernel", 1150, 100, device=0, correlation=2),
@@ -41,8 +45,23 @@ def test_read_trace_canned(tmp_path):
     assert t["kernel_s"] == pytest.approx(220e-6)
     assert t["lost_kernel_records"] == 1
     assert t["device_ops"][0] == ["kernA", pytest.approx(120e-6)]
-    assert t["idle_gaps"][0] == ["place_queries", pytest.approx(450e-6)]
-    assert t["idle_gaps"][1] == ["result_wait", pytest.approx(250e-6)]
+    # idle 1550-2000: place.call to 1900, then no program span; idle
+    # 1250-1500: fold 50 + 30, result_wait 120, place.call 50
+    assert t["idle_gaps"][0] == ["place.call", pytest.approx(450e-6)]
+    assert t["idle_gaps"][1] == ["place.result_wait", pytest.approx(250e-6)]
+    assert dict(t["idle_by_span"]) == {
+        "place.call": pytest.approx(400e-6),
+        "place.result_wait": pytest.approx(120e-6),
+        "harness": pytest.approx(100e-6),
+        "place.fold": pytest.approx(80e-6)}
+    assert t["idle_s"] == pytest.approx(700e-6)
+
+
+def test_innermost_cuts_a_child_at_its_parents_end():
+    pieces = innermost([(0, 10, "a"), (2, 4, "b"), (3, 4, "c"),
+                        (8, 11, "d"), (12, 13, "e")])
+    assert pieces == [(0, 2, "a"), (2, 3, "b"), (3, 4, "c"), (4, 8, "a"),
+                      (8, 10, "d"), (12, 13, "e")]
 
 
 def _hand_ref():
