@@ -93,6 +93,41 @@ def _cpu_times() -> dict:
     return {"proc_user": t.user, "proc_sys": t.system}
 
 
+def _host_stat() -> dict:
+    """The host's load averages and its CPU ticks (``/proc``), where it
+    has them: diagnostics of the run's line, not metrics."""
+    out: dict = {}
+    try:
+        with open("/proc/loadavg") as f:
+            out["loadavg"] = [float(x) for x in f.read().split()[:3]]
+        with open("/proc/stat") as f:
+            out["ticks"] = [int(x) for x in f.readline().split()[1:]]
+    except (OSError, ValueError):
+        pass
+    return out
+
+
+def _host_window(a: dict, b: dict) -> dict:
+    """Load averages as the window opens and closes, the host's CPU
+    ticks in the window, their busy, iowait and steal shares (None where
+    the host counts none), and the CPUs this process may run on."""
+    import os
+    out = {"loadavg_open": a.get("loadavg"),
+           "loadavg_close": b.get("loadavg"),
+           "cpus": len(os.sched_getaffinity(0))}
+    if "ticks" in a and "ticks" in b:
+        # user nice system idle iowait irq softirq steal (guest time is
+        # in user already)
+        d = [y - x for x, y in zip(a["ticks"], b["ticks"])][:8]
+        total = sum(d)
+        out["ticks"] = total
+        for name, n in (("busy_share", total - d[3] - d[4]),
+                        ("iowait_share", d[4]),
+                        ("steal_share", d[7] if len(d) > 7 else None)):
+            out[name] = n / total if total and n is not None else None
+    return out
+
+
 def _sync(torch, device: str) -> None:
     if device == "cuda":
         for i in range(torch.cuda.device_count()):
@@ -189,6 +224,7 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, workdir: Path,
         out["setup_spans"] = utils.trace_totals()["spans"]
         utils.trace_reset()
     cpu0 = _cpu_times()
+    host0 = _host_stat()
     t_w0 = time.perf_counter()
     with span("portbench.window") if trace else contextlib.nullcontext():
         while True:
@@ -216,6 +252,7 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, workdir: Path,
             if t1 - t_w0 >= seconds:
                 break
     t_w1 = time.perf_counter()
+    out["host"] = _host_window(host0, _host_stat())
     if spans:
         out.update(utils.trace_totals())
         utils.tracing(False)
@@ -227,7 +264,9 @@ def run(spec: dict, seed: int, seconds: float, trace: bool, workdir: Path,
     out["failed"] = int(failed is not None)
     out["failure"] = failed
     out["durations"] = [d for _, d, _ in calls]
-    out["reads"] = sum(len(pool[s].seqs) for s, _, _ in calls)
+    out["call_files"] = [s for s, _, _ in calls]
+    out["call_reads"] = [len(pool[s].seqs) for s, _, _ in calls]
+    out["reads"] = sum(out["call_reads"])
     n_dev = cell["chips"] if device == "cuda" else 1
     if device == "cuda":
         out["memory_peak_bytes"] = max(torch.cuda.max_memory_allocated(i)

@@ -64,7 +64,9 @@ def metrics_of(entries: list, run: dict) -> dict:
     return out
 
 
-def main(argv=None) -> int:
+def main(argv=None, engine_wrap=None) -> int:
+    """One run; ``engine_wrap`` (``spin.py``) wraps the engine the
+    window drives."""
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seed", type=int, required=True)
@@ -89,7 +91,7 @@ def main(argv=None) -> int:
     base = Path(os.environ.get("TMPDIR") or tempfile.gettempdir())
     with tempfile.TemporaryDirectory(prefix="portbench_", dir=base) as wd:
         run = cellmod.run(spec, args.seed, args.seconds, bool(args.trace),
-                          Path(wd), T_START)
+                          Path(wd), T_START, engine_wrap=engine_wrap)
     found = forbidden_modules()
     if found:
         print(f"portbench: the run loaded {', '.join(found)}",
@@ -128,13 +130,16 @@ def main(argv=None) -> int:
             "setup_spans", "spans", "counters")}))
     print("run: " + json.dumps({
         k: run.get(k) for k in ("table", "setup_s", "setup_stages",
-                                "window_s", "cpu", "reads",
+                                "window_s", "cpu", "host", "reads",
                                 "failure", "work_bytes", "work_ops")}))
     if run["durations"]:
         d = sorted(run["durations"])
         print("durations: " + json.dumps(
             {"n": len(d), "min": d[0], "p50": d[len(d) // 2],
              "p90": d[int(len(d) * 0.9)], "max": d[-1]}))
+        print("calls: " + json.dumps(
+            {"file": run["call_files"],
+             "d": [round(x, 6) for x in run["durations"]]}))
     print("numbers: " + json.dumps(run["numbers"]))
     result["checks"] = {name: {"value": v, "limit": lim}
                         for name, v, lim in rows}
