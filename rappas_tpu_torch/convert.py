@@ -51,6 +51,51 @@ class DeviceTables(NamedTuple):
     keys: torch.Tensor | None  # int32[n_kmers] sorted (compact, S^k < 2^31)
 
 
+#: an f32 table's build on the device (:func:`f32_table`) scatters its
+#: postings in steps of ``table bytes / TABLE_STEP_DIVISOR / 32``: their
+#: buffers (16 bytes a posting, about 24 a key) stay near this share of
+#: the table, so the build adds about a thousandth to the card's peak at
+#: most, and no more than the batches' buffers beside the table (a
+#: batch's [1024, E] sums alone are this share of a 1M-row table)
+TABLE_STEP_DIVISOR = 1024
+
+
+def f32_table(db: PhyloKmerDB, device, table: str) -> torch.Tensor:
+    """``db.dense_matrix(pad_rows=1)`` (``table="direct"``) or
+    ``db.compact_matrix(pad_rows=1)`` (``"compact"``), built on
+    ``device``: the zeroed table allocated there and the CSR's deltas
+    scattered in by steps (:data:`TABLE_STEP_DIVISOR`), so that no host
+    array of the table's shape exists.  A DB's (key, edge) pairs are
+    unique (``build_csr`` keeps each pair's max), so the scatter writes
+    what the host's assignment writes, bitwise."""
+    device = torch.device(device)
+    E = db.n_edge_slots
+    n = db.n_kmers
+    height = (db.alphabet.n_states ** db.k if table == "direct" else n) + 1
+    D = torch.zeros((height, E), dtype=torch.float32, device=device)
+    flat = D.view(-1)
+    offsets = db.offsets
+    step = max(D.numel() * 4 // (TABLE_STEP_DIVISOR * 32), 1)
+    lo = 0
+    while lo < n:
+        # the keys whose postings end within the step (at least one key)
+        hi = int(np.searchsorted(offsets, offsets[lo] + step,
+                                 side="right")) - 1
+        hi = min(max(hi, lo + 1), n)
+        p0, p1 = int(offsets[lo]), int(offsets[hi])
+        rows = (db.keys[lo:hi] if table == "direct"
+                else np.arange(lo, hi, dtype=np.int64))
+        idx = torch.repeat_interleave(
+            torch.from_numpy(rows).to(device),
+            torch.from_numpy(np.diff(offsets[lo:hi + 1])).to(device),
+            output_size=p1 - p0)
+        idx.mul_(E).add_(torch.from_numpy(db.edges[p0:p1]).to(device))
+        flat.index_put_((idx,), torch.from_numpy(db.deltas[p0:p1])
+                        .to(device))
+        lo = hi
+    return D
+
+
 def device_tables(db: PhyloKmerDB, device, table: str = "direct",
                   precision: str = "f32") -> DeviceTables:
     """The direct or compact table of ``db`` on ``device``
@@ -58,11 +103,12 @@ def device_tables(db: PhyloKmerDB, device, table: str = "direct",
 
     ``D`` is ``dense_matrix`` (``[S^k + 1, E]``, row = k-mer index) or
     ``compact_matrix`` (``[n_kmers + 1, E]``, row = position in the sorted
-    keys), f32 or, with ``precision="u16"``, their fixed-point ``_u16``
-    forms; the last row is all zero (the miss row).  ``scale`` is 1 for
-    f32 tables.  ``keys`` is set for the compact table when k-mer indices
-    fit int32 (``S^k <= 2^31 - 1``: the card searches the keys), else
-    None (the host searches them)."""
+    keys), f32 (built on the device by :func:`f32_table`) or, with
+    ``precision="u16"``, their fixed-point ``_u16`` forms (built on the
+    host and copied across); the last row is all zero (the miss row).
+    ``scale`` is 1 for f32 tables.  ``keys`` is set for the compact table
+    when k-mer indices fit int32 (``S^k <= 2^31 - 1``: the card searches
+    the keys), else None (the host searches them)."""
     if table not in ("direct", "compact"):
         raise ValueError(f"no dense table for layout {table!r}")
     if precision not in ("f32", "u16"):
@@ -70,14 +116,12 @@ def device_tables(db: PhyloKmerDB, device, table: str = "direct",
     if precision == "u16":
         D, scale = (db.dense_matrix_u16(pad_rows=1) if table == "direct"
                     else db.compact_matrix_u16(pad_rows=1))
+        D = torch.from_numpy(D).to(device)
     else:
-        D = (db.dense_matrix(pad_rows=1) if table == "direct"
-             else db.compact_matrix(pad_rows=1))
-        scale = np.float32(1.0)
-    D = torch.from_numpy(D).to(device)
+        D, scale = f32_table(db, device, table), np.float32(1.0)
     keys = None
     if table == "compact" and db.alphabet.n_states ** db.k <= 2 ** 31 - 1:
-        keys = torch.from_numpy(db.keys.astype(np.int32)).to(device)
+        keys = torch.from_numpy(db.keys).to(device).to(torch.int32)
     f32 = dict(dtype=torch.float32, device=device)
     return DeviceTables(D, torch.tensor(float(scale), **f32),
                         torch.tensor(float(db.thr_log10), **f32), keys)

@@ -354,26 +354,34 @@ def max_merge_tuples(codes: np.ndarray, edges: np.ndarray,
             int(codes.max()) < 1 << (63 - _EDGE_BITS) and
             int(edges.max()) < 1 << _EDGE_BITS and
             int(edges.min()) >= 0):
-        packed = (codes.astype(np.int64) << _EDGE_BITS) | \
-            edges.astype(np.int64)
+        # in place, and each array dropped once used: besides the inputs
+        # the merge holds about four int64 arrays of their length
+        packed = codes.astype(np.int64)
+        packed <<= _EDGE_BITS
+        packed |= edges
         try:
             import torch
-            t = torch.from_numpy(packed)
-            s_packed, order = torch.sort(t)
+            s_packed, order = torch.sort(torch.from_numpy(packed))
+            del packed
             s_packed = s_packed.numpy()
             order = order.numpy()
         except ImportError:  # pragma: no cover - torch is baked in
             order = np.argsort(packed, kind="stable")
             s_packed = packed[order]
+            del packed
         starts = np.empty(s_packed.shape[0], bool)
         starts[0] = True
         np.not_equal(s_packed[1:], s_packed[:-1], out=starts[1:])
         start_idx = np.flatnonzero(starts)
+        del starts
         smax = np.maximum.reduceat(scores[order], start_idx)
+        del order
         reps = s_packed[start_idx]
-        return (reps >> _EDGE_BITS).astype(codes.dtype), \
-            (reps & ((1 << _EDGE_BITS) - 1)).astype(edges.dtype), \
-            smax.astype(scores.dtype)
+        del s_packed, start_idx
+        code = reps >> _EDGE_BITS
+        reps &= (1 << _EDGE_BITS) - 1
+        return code.astype(codes.dtype, copy=False), \
+            reps.astype(edges.dtype), smax.astype(scores.dtype, copy=False)
     order = np.lexsort((-scores, edges, codes))
     c, e, s = codes[order], edges[order], scores[order]
     first = np.ones(c.shape[0], bool)
@@ -410,5 +418,6 @@ def build_csr(codes: np.ndarray, edges: np.ndarray,
     offsets = np.empty(keys.shape[0] + 1, np.int64)
     offsets[:-1] = key_start
     offsets[-1] = c.shape[0]
-    deltas = np.maximum(np.float32(s - thr_log10), DELTA_TINY)
-    return keys, offsets, e.astype(np.int32), deltas
+    deltas = np.asarray(s - thr_log10, np.float32)
+    np.maximum(deltas, DELTA_TINY, out=deltas)
+    return keys, offsets, e.astype(np.int32, copy=False), deltas

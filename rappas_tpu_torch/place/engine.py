@@ -28,7 +28,8 @@ are the same).
 
 Compact (``D[n_kmers + 1, E]``, row = position in the sorted keys; what
 ``table="auto"`` takes on the card for a DB whose keys fit int32 and
-whose compact table fits ``AUTO_COMPACT_BYTES``): when k-mer indices fit
+whose compact table fits ``AUTO_COMPACT_BYTES``, or a heavy-dominated
+one past it that fits one table's budget): when k-mer indices fit
 int32, every read goes as codes to C1 ``accumulate_compact``, which
 searches the keys on the card (the JAX engine packs only for direct);
 above 31 bits (amino k >= 8, DNA k >= 16) the host searches the keys
@@ -36,8 +37,11 @@ above 31 bits (amino k >= 8, DNA k >= 16) the host searches the keys
 alternatives take their rows from the host search in both cases, then
 K4 and K3 run as above.
 
+The f32 direct and compact tables are built on the device from the DB's
+postings (``convert.f32_table``); no host array of their shape exists.
 ``precision="u16"`` (direct or compact; postings is f32-only): the table
-holds fixed-point deltas (``db.dense_matrix_u16``), the kernels' u16
+holds fixed-point deltas (``db.dense_matrix_u16``, built on the host and
+copied across), the kernels' u16
 instances sum them in f32 and apply the scale once, and K4 scales each
 alternative's row before its ``exp2``.
 
@@ -104,7 +108,7 @@ from rappas_tpu_torch.convert import (device_tables, direct_split_tables,
                                       postings_device_tables)
 from rappas_tpu_torch.db import PhyloKmerDB
 from rappas_tpu_torch.place import kernels
-from rappas_tpu_torch.utils import count, span
+from rappas_tpu_torch.utils import count, span, tracing_on
 
 PAD_CODE = -2     # beyond read end
 AMBIG_CODE = -1   # IUPAC ambiguity position
@@ -159,13 +163,17 @@ def unpack_wire(words, K: int, wide: bool = False) -> BatchResult:
 class PendingBatch:
     """Handle for a scored batch: its wire words (a pinned host copy
     while the D2H copy may be in flight) and the CUDA event recorded after
-    that copy, or a finished :class:`BatchResult`."""
+    that copy, or a finished :class:`BatchResult`.  ``tally``, a counter's
+    ``(name, n, per)``, adds ``n * per`` to it once the event has passed
+    (``n`` a 0-d tensor that the device fills before the event)."""
 
-    def __init__(self, out, wire: int = 0, event=None, wide: bool = False):
+    def __init__(self, out, wire: int = 0, event=None, wide: bool = False,
+                 tally=None):
         self._out = out
         self._wire = wire
         self._event = event
         self._wide = wide
+        self.tally = tally
 
     def result(self) -> BatchResult:
         if isinstance(self._out, BatchResult):
@@ -173,6 +181,10 @@ class PendingBatch:
         with span("engine.sync"):
             if self._event is not None:
                 self._event.synchronize()
+        if self.tally is not None:
+            name, n, per = self.tally
+            count(name, int(n) * per)
+            self.tally = None
         with span("engine.unpack"):
             return unpack_wire(self._out.numpy(), self._wire, self._wide)
 
@@ -576,50 +588,14 @@ class PlacementEngine:
                     "carries exact deltas); use precision='f32'")
             self._init_params(db, keep_at_most, treat_ambiguities,
                               ambiguities_with_max, precision, table)
-            split = None
-            if table == "direct" and self.SINGLE_DEVICE:
-                split = direct_split_tables(
-                    db, self.device, precision,
-                    self.card_bytes(self.DIRECT_PART_BYTES, self.device),
-                    self.DIRECT_SPLIT_MIN, self.MAX_DIRECT_PARTS)
-            if split is not None:
-                # a split direct table lives only as its parts
-                parts, cuts, scale = split
-                self.direct_parts = tuple(parts)
-                self._direct_cuts = cuts
-                self._direct = kernels.make_parts(parts, np.diff(cuts))
-                self.D, self.keys_dev = None, None
-                self.scale = float(scale)
-                self.n_rows = int(cuts[-1]) + 1
-            elif table != "postings":
-                tabs = device_tables(db, self.device, table, precision)
-                self.D, self.keys_dev = tabs.D, tabs.keys
-                self.scale = float(tabs.scale)
-                self.n_rows = self.D.shape[0]
-            else:
-                ps = postings_device_tables(
-                    db, postings_width, self.device, self.DIRECT_INDEX_LIMIT,
-                    self.card_bytes(self.LIGHT_PART_BYTES, self.device)
-                    if self.SINGLE_DEVICE else None,
-                    self.MAX_LIGHT_PARTS)
-                self.light_parts, self.heavy_dense = ps.light_parts, \
-                    ps.heavy_dense
-                self._light_slow = ps.light_slow
-                #: the light table when it is one part
-                self.pairs = self.light_parts[0] \
-                    if len(self.light_parts) == 1 else None
-                self._light = kernels.make_parts(
-                    self.light_parts, [p.shape[0] for p in self.light_parts])
-                self._light_counts = ps.light_counts
-                self._light_keys_np = ps.light_keys
-                self._heavy_keys_np = ps.heavy_keys
-                self._rof_np = ps.rof
-                self._nl = ps.light_keys.shape[0]
-                # split light tables route windows to their parts by default
-                # (rappas_tpu/place/engine.py:1143-1152); enable_routed_windows
-                # (False) restores the two-stage path
-                self._routed_windows = (self.SINGLE_DEVICE and
-                                        len(self.light_parts) > 1)
+            with span("engine.table"):
+                held = self._init_tables(db, table, precision,
+                                         postings_width)
+                if self.device.type == "cuda":
+                    # the span's time is the build's on the device
+                    torch.cuda.synchronize(self.device)
+            count("engine.table_bytes",
+                  sum(t.numel() * t.element_size() for t in held))
             self._init_host_codec()
             self._stream = self._gather_stream = None
             if self.device.type == "cuda":
@@ -630,6 +606,57 @@ class PlacementEngine:
                 # the table upload ran on the current stream
                 self._stream.wait_stream(
                     torch.cuda.current_stream(self.device))
+
+    def _init_tables(self, db: PhyloKmerDB, table: str, precision: str,
+                     postings_width: int) -> tuple:
+        """The layout's tables on the device, and what the engine keeps
+        of their host lookups; returns the device tables."""
+        split = None
+        if table == "direct" and self.SINGLE_DEVICE:
+            split = direct_split_tables(
+                db, self.device, precision,
+                self.card_bytes(self.DIRECT_PART_BYTES, self.device),
+                self.DIRECT_SPLIT_MIN, self.MAX_DIRECT_PARTS)
+        if split is not None:
+            # a split direct table lives only as its parts
+            parts, cuts, scale = split
+            self.direct_parts = tuple(parts)
+            self._direct_cuts = cuts
+            self._direct = kernels.make_parts(parts, np.diff(cuts))
+            self.D, self.keys_dev = None, None
+            self.scale = float(scale)
+            self.n_rows = int(cuts[-1]) + 1
+            return self.direct_parts
+        if table != "postings":
+            tabs = device_tables(db, self.device, table, precision)
+            self.D, self.keys_dev = tabs.D, tabs.keys
+            self.scale = float(tabs.scale)
+            self.n_rows = self.D.shape[0]
+            return (self.D,)
+        ps = postings_device_tables(
+            db, postings_width, self.device, self.DIRECT_INDEX_LIMIT,
+            self.card_bytes(self.LIGHT_PART_BYTES, self.device)
+            if self.SINGLE_DEVICE else None,
+            self.MAX_LIGHT_PARTS)
+        self.light_parts, self.heavy_dense = ps.light_parts, \
+            ps.heavy_dense
+        self._light_slow = ps.light_slow
+        #: the light table when it is one part
+        self.pairs = self.light_parts[0] \
+            if len(self.light_parts) == 1 else None
+        self._light = kernels.make_parts(
+            self.light_parts, [p.shape[0] for p in self.light_parts])
+        self._light_counts = ps.light_counts
+        self._light_keys_np = ps.light_keys
+        self._heavy_keys_np = ps.heavy_keys
+        self._rof_np = ps.rof
+        self._nl = ps.light_keys.shape[0]
+        # split light tables route windows to their parts by default
+        # (rappas_tpu/place/engine.py:1143-1152); enable_routed_windows
+        # (False) restores the two-stage path
+        self._routed_windows = (self.SINGLE_DEVICE and
+                                len(self.light_parts) > 1)
+        return self.light_parts + (self.heavy_dense,)
 
     def _init_params(self, db: PhyloKmerDB, keep_at_most: int,
                      treat_ambiguities: bool, ambiguities_with_max: bool,
@@ -788,13 +815,37 @@ class PlacementEngine:
                 host = self.dense_inputs(codes, matrix, lengths)
             with self._on_stream():
                 dev = stage(host, self.device)
+                # a traced run counts the rows C1 reads
+                rows = (torch.empty((B, L - self.k + 1), dtype=torch.int32,
+                                    device=self.device)
+                        if tracing_on() and "codes" in dev and
+                        self.table == "compact" else None)
                 with span("engine.launch"):
-                    acc = self.dense_acc(dev, self.D, self.keys_dev, B, L)
+                    acc = self.dense_acc(dev, self.D, self.keys_dev, B, L,
+                                         rows)
                     wire = kernels.finalize_wire(
                         acc, dev["lengths"], self.thr, self.k,
                         self.keep_at_most)
-                return fetch_wire(wire, self._stream, self.wire_k,
-                                  self.wide)
+                tally = None if rows is None else self._row_tally(rows)
+                pending = fetch_wire(wire, self._stream, self.wire_k,
+                                     self.wide)
+                pending.tally = tally
+                return pending
+
+    def _row_tally(self, rows: torch.Tensor) -> tuple:
+        """The tally (:class:`PendingBatch`) of counter
+        ``engine.c1_row_bytes``: the distinct table rows that C1's
+        windows read (the miss row left out), counted on the device, times
+        a row's bytes."""
+        n = self.D.shape[0] - 1
+        seen = torch.zeros(n + 1, dtype=torch.bool, device=rows.device)
+        seen[rows.reshape(-1).long()] = True
+        distinct = seen[:n].sum()
+        if rows.device.type == "cuda":
+            host = torch.empty((), dtype=torch.int64, pin_memory=True)
+            distinct = host.copy_(distinct, non_blocking=True)
+        return ("engine.c1_row_bytes", distinct,
+                self.D.shape[1] * self.D.element_size())
 
     def dense_inputs(self, codes: np.ndarray, matrix: np.ndarray,
                      lengths: np.ndarray) -> dict:
@@ -872,15 +923,16 @@ class PlacementEngine:
         return route_rows(rows, self._direct_cuts)
 
     def dense_acc(self, dev: dict, D: torch.Tensor, keys, B: int,
-                  L: int) -> torch.Tensor:
+                  L: int, rows: torch.Tensor | None = None) -> torch.Tensor:
         """The [B, E] sums of one batch's staged :meth:`dense_inputs` over
         the table ``D`` (the whole table, or one column shard of it) and
         its int32 ``keys`` (compact with the keys on the card, else None):
-        K1/K2, C1 or C2, then K4 for the ambiguity windows."""
+        K1/K2, C1 (which writes the windows' rows into ``rows`` when it is
+        given) or C2, then K4 for the ambiguity windows."""
         S = self.alphabet.n_states
         if self.table == "compact":
             acc = (kernels.accumulate_compact(
-                D, keys, dev["codes"], self.k, S, self.scale)
+                D, keys, dev["codes"], self.k, S, self.scale, rows)
                 if "codes" in dev else
                 kernels.accumulate_rows(D, dev["rows"], self.scale))
         else:

@@ -746,17 +746,24 @@ def accumulate_codes(D: torch.Tensor, codes: torch.Tensor, k: int,
 
 def accumulate_compact(D: torch.Tensor, keys: torch.Tensor,
                        codes: torch.Tensor, k: int, n_states: int,
-                       scale: float = 1.0) -> torch.Tensor:
+                       scale: float = 1.0,
+                       rows: torch.Tensor | None = None) -> torch.Tensor:
     """C1 (``csrc/accumulate.cu``): ``accumulate(D, compact_rows(keys,
     kmer_indices64(codes, k, n_states)))`` times ``scale`` -> a new f32
     [B, E], for int8 state codes [B, L] against the compact table
     ``D[n + 1, E]`` (f32 or uint16) and its sorted int32 ``keys[n]``.
     Only for index spaces that fit int32 (``S^k <= 2^31 - 1``); above
-    that the host searches the keys and :func:`accumulate_rows` sums."""
+    that the host searches the keys and :func:`accumulate_rows` sums.
+    ``rows`` (int32 [B, L - k + 1]), when given, receives each window's
+    table row (``n`` for a miss): on the card the resolve pass then runs
+    whatever the slab plan, as it does anyway past one slab."""
     B, L = codes.shape
-    if not _on_card(D, keys, codes):
-        rows = compact_rows(keys, kmer_indices64(codes, k, n_states))
-        return accumulate(D, rows) * scale
+    opt = [t for t in (rows,) if t is not None]
+    if not _on_card(D, keys, codes, *opt):
+        found = compact_rows(keys, kmer_indices64(codes, k, n_states))
+        if rows is not None:
+            rows.copy_(found)
+        return accumulate(D, found) * scale
     n, E = keys.shape[0], D.shape[1]
     sfx = _table_type(D)
     _check(keys, "keys", torch.int32, (D.shape[0] - 1,))
@@ -769,8 +776,10 @@ def accumulate_compact(D: torch.Tensor, keys: torch.Tensor,
     plan = _slabs("accumulate_compact" + sfx, D, acc, B * Q)
     # more than one slab: resolve the rows once (int32 [B, Q]), so the
     # key search does not run per slab
-    rows = (torch.empty((B, Q), dtype=torch.int32, device=D.device)
-            if plan.n_slabs > 1 else None)
+    if rows is not None:
+        _check(rows, "rows", torch.int32, (B, Q))
+    elif plan.n_slabs > 1:
+        rows = torch.empty((B, Q), dtype=torch.int32, device=D.device)
     from rappas_tpu_torch._kernels import lib
     _launch("accumulate_compact" + sfx, lib().rp_accumulate_compact,
             D.data_ptr(), int(bool(sfx)), E, keys.data_ptr(), n,

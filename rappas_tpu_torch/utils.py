@@ -11,9 +11,10 @@ them on, and each then enters ``torch.profiler.record_function`` (so a
 profiled run shows it on the card's clock) and adds its duration to the
 in-memory totals of its name: count, total seconds and self seconds
 (the duration less the spans opened inside it on the same thread).
-Counters are always on.  :func:`trace_totals` reads everything at once,
-the kernel launch and key-probe counts included; :func:`trace_reset`
-zeroes it.
+Counters are always on, save those that cost work of their own, which
+are counted only under :func:`tracing_on`.  :func:`trace_totals` reads
+everything at once, the kernel launch and key-probe counts included;
+:func:`trace_reset` zeroes it.
 """
 
 from __future__ import annotations
@@ -53,6 +54,12 @@ def tracing(on: bool) -> None:
         from torch.profiler import record_function
         _record_function = record_function
     _ON = bool(on)
+
+
+def tracing_on() -> bool:
+    """Whether spans are on: a count that costs work of its own is made
+    only then."""
+    return _ON
 
 
 class _Span:

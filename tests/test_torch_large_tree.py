@@ -1,0 +1,256 @@
+"""The 4,000-taxon k=10 deployment (``portbench/configs/c5-4000taxa-k10.json``)
+at sizes a CPU holds: f32 tables built on the device (bitwise the host's
+``compact_matrix`` / ``dense_matrix``), ``resolve_table`` on the
+deployment's shape, ``place_queries`` through ``cli._make_engine`` against
+``portbench/reference.py``, and the table's span and the C1 row counter.
+
+The card test (``-m cuda``, skips without a card) runs C1 and K3 at the
+deployment's own widths, E = 8,000 on a 33.55 GB table, past 2^31
+elements, against their plain versions:
+
+    RAPPAS_TPU_DEVICE_TESTS=1 python -m pytest -m cuda \\
+        tests/test_torch_large_tree.py
+"""
+
+import time
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from portbench import cell
+from rappas_tpu_torch import convert, utils
+from rappas_tpu_torch.alphabet import DNA
+from rappas_tpu_torch.place import kernels as T
+from rappas_tpu_torch.place.engine import PlacementEngine
+
+CELL = "c5-4000taxa-k10.miseq240"
+#: the deployment's recipe at k=6 and 2,000 slots: heavy-dominated (45
+#: postings a key), every 6-mer a key
+SMALL = {"k": 6, "n_edge_slots": 2000}
+#: the mix cut to a CPU's size (portbench/tests/tiny.py's sizes)
+MIX = {"reads_per_sample": 200, "pool": 3, "check_calls": 2}
+
+
+def _spec():
+    s = cell.load_spec(CELL)
+    s["config"].update(SMALL)
+    s["mix"].update(MIX)
+    return s
+
+
+def _db(config, seed):
+    recipe = cell.load_module(cell.HERE / "recipes" /
+                              f"{config['recipe']}.py", "recipe")
+    return cell.program_db(config, recipe.make(config, seed))
+
+
+@pytest.fixture(scope="module")
+def small_db():
+    return _db(_spec()["config"], 21)
+
+
+def _bits(a) -> bytes:
+    a = a.numpy() if isinstance(a, torch.Tensor) else a
+    return np.ascontiguousarray(a).view(np.uint32).tobytes()
+
+
+@pytest.mark.parametrize("divisor", [1, 1024, 1 << 14, 1 << 20])
+@pytest.mark.parametrize("table", ["compact", "direct"])
+def test_device_built_f32_table_is_the_host_table(small_db, table, divisor,
+                                                  monkeypatch):
+    # steps of the whole DB, of about 22 keys (the default: 1,000 postings
+    # for this 33 MB table), of one or two keys, and of one key (a step
+    # smaller than a key's postings)
+    monkeypatch.setattr(convert, "TABLE_STEP_DIVISOR", divisor)
+    lens = np.diff(small_db.offsets)
+    assert int(lens[lens > 8].sum()) * 2 > small_db.nnz   # heavy-dominated
+    tabs = convert.device_tables(small_db, "cpu", table)
+    want = (small_db.compact_matrix(pad_rows=1) if table == "compact"
+            else small_db.dense_matrix(pad_rows=1))
+    assert tabs.D.dtype == torch.float32
+    assert tuple(tabs.D.shape) == want.shape
+    assert _bits(tabs.D) == _bits(want)
+    assert not tabs.D[-1].any()                           # the miss row
+    if table == "compact":
+        assert tabs.keys.dtype == torch.int32
+        assert np.array_equal(tabs.keys.numpy(), small_db.keys)
+    else:
+        assert tabs.keys is None
+
+
+def test_device_built_table_of_an_empty_db(small_db):
+    empty = SimpleNamespace(
+        k=small_db.k, alphabet=DNA, n_kmers=0, n_edge_slots=7,
+        keys=np.zeros(0, np.int64), offsets=np.zeros(1, np.int64),
+        edges=np.zeros(0, np.int32), deltas=np.zeros(0, np.float32))
+    D = convert.f32_table(empty, "cpu", "compact")
+    assert tuple(D.shape) == (1, 7) and not D.any()
+
+
+def _deployment(n_per_key=45, E=8000, k=10):
+    """A DB of the deployment's shape (every 10-mer a key, ``n_per_key``
+    postings each, ``E`` slots), as far as ``resolve_table`` reads it."""
+    n = 4 ** k
+    return SimpleNamespace(
+        k=k, alphabet=DNA, n_kmers=n, n_edge_slots=E, nnz=n * n_per_key,
+        offsets=np.arange(n + 1, dtype=np.int64) * n_per_key)
+
+
+def test_resolve_table_takes_compact_for_the_deployment():
+    db = _deployment()
+    assert (db.n_kmers + 1) * db.n_edge_slots * 4 == 33_554_464_000
+    budget = PlacementEngine.DIRECT_BYTE_LIMIT
+    assert 33_554_464_000 > PlacementEngine.AUTO_COMPACT_BYTES
+    assert PlacementEngine.resolve_table(db, "auto", "f32", budget) == \
+        "compact"
+    # past the card's budget: postings
+    assert PlacementEngine.resolve_table(
+        db, "auto", "f32", 33_554_464_000 - 1) == "postings"
+    # light-dominated at the same size: postings
+    assert PlacementEngine.resolve_table(
+        _deployment(n_per_key=8), "auto", "f32", budget) == "postings"
+
+
+def test_place_queries_agrees_with_the_reference(tmp_path):
+    s = _spec()
+    c1 = cell.load_spec("c1-16s-k8.miseq240")["limits"]
+    run = cell.run(s, 2 ** 31 + 2103, 0.5, False, tmp_path, time.time(),
+                   device="cpu")
+    assert run["table"] == "compact"
+    assert run["failure"] is None
+    correct, rows = cell.verdict(run["numbers"], c1, run["failure"])
+    assert correct, rows
+    assert run["numbers"]["calls_checked"] >= 1
+    assert run["numbers"]["placements"] > 0
+
+
+def _reads(rng, B, L=240):
+    m = rng.choice(np.frombuffer(b"ACGT", np.uint8), (B, L))
+    m[0, 17] = ord("N")                   # a window with an ambiguity
+    lens = np.full(B, L, np.int32)
+    lens[1] = 100
+    m[1, 100:] = 0xFF
+    return m.astype(np.uint8), lens
+
+
+def _distinct_rows(db, m, lens):
+    """The distinct compact rows of the reads' clean windows, by hand."""
+    k, rows = db.k, set()
+    for read, n in zip(m, lens):
+        s = bytes(read[:n])
+        for q in range(n - k + 1):
+            w = s[q:q + k]
+            if b"N" in w:
+                continue
+            idx = 0
+            for c in w:
+                idx = idx * 4 + b"ACGT".index(c)
+            pos = int(np.searchsorted(db.keys, idx))
+            if pos < db.n_kmers and db.keys[pos] == idx:
+                rows.add(pos)
+    return len(rows)
+
+
+@pytest.fixture
+def reset_trace():
+    utils.tracing(False)
+    utils.trace_reset()
+    yield
+    utils.tracing(False)
+    utils.trace_reset()
+
+
+def test_table_span_and_c1_rows_only_while_tracing(small_db, reset_trace):
+    rng = np.random.default_rng(5)
+    m, lens = _reads(rng, 40)
+    E = small_db.n_edge_slots
+    table_bytes = (small_db.n_kmers + 1) * E * 4
+    # off: the table's bytes (a counter of no cost) and nothing else
+    eng = PlacementEngine(small_db, device="cpu")
+    off = eng.score(m, lens)
+    tot = utils.trace_totals()
+    assert "engine.table" not in tot["spans"]
+    assert "engine.c1_row_bytes" not in tot["counters"]
+    assert tot["counters"]["engine.table_bytes"] == table_bytes
+    # on: the span and the rows C1 reads, each batch's distinct rows
+    utils.trace_reset()
+    utils.tracing(True)
+    eng = PlacementEngine(small_db, device="cpu")
+    assert eng.table == "compact"
+    on = eng.score(m, lens)
+    eng.score(m[:20], lens[:20])
+    tot = utils.trace_totals()
+    assert tot["spans"]["engine.table"]["count"] == 1
+    assert tot["counters"]["engine.table_bytes"] == table_bytes
+    want = (_distinct_rows(small_db, m, lens) +
+            _distinct_rows(small_db, m[:20], lens[:20])) * E * 4
+    assert tot["counters"]["engine.c1_row_bytes"] == want
+    # counting changes nothing placed
+    for a, b in zip(off, on):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_c1_hands_back_its_rows(small_db):
+    tabs = convert.device_tables(small_db, "cpu", "compact")
+    rng = np.random.default_rng(9)
+    codes = rng.integers(0, 4, (6, 50)).astype(np.int8)
+    codes[2, 7] = -1
+    c = torch.from_numpy(codes)
+    rows = torch.full((6, 50 - small_db.k + 1), -5, dtype=torch.int32)
+    acc = T.accumulate_compact(tabs.D, tabs.keys, c, small_db.k, 4,
+                               rows=rows)
+    want = T.compact_rows(tabs.keys, T.kmer_indices64(c, small_db.k, 4))
+    assert torch.equal(rows, want)
+    assert torch.equal(acc, T.accumulate(tabs.D, want))
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_c1_and_k3_at_the_deployment_widths_on_card(card):
+    """E = 8,000 on the deployment's 33.55 GB compact table (8.4e9
+    elements): the device-built table against the CSR on sampled rows
+    (the last ones past 2^31 elements), C1 within 1e-5 of its plain
+    version (summation order), its rows and K3's wire (keep 7 and the
+    scanning rounds of keep 20) bitwise."""
+    config = dict(cell.load_spec(CELL)["config"], postings_per_key=5)
+    db = _db(config, 2 ** 31 + 7)
+    E, n, k = db.n_edge_slots, db.n_kmers, db.k
+    tabs = convert.device_tables(db, card, "compact")
+    D = tabs.D
+    assert D.numel() > 2 ** 31 and tuple(D.shape) == (n + 1, E)
+    rng = np.random.default_rng(3)
+    rows = np.concatenate([rng.choice(n, 512, replace=False),
+                           np.arange(n - 8, n + 1)])
+    got = D[torch.from_numpy(rows).to(card)].cpu().numpy()
+    want = np.zeros((rows.size, E), np.float32)
+    for i, r in enumerate(rows[:-1]):
+        lo, hi = db.offsets[r], db.offsets[r + 1]
+        want[i, db.edges[lo:hi]] = db.deltas[lo:hi]
+    assert _bits(got) == _bits(want)
+
+    B, L = 64, 240
+    codes = torch.from_numpy(rng.integers(0, 4, (B, L)).astype(np.int8))
+    codes[3, 11] = -1
+    c = codes.to(card)
+    resolved = torch.empty((B, L - k + 1), dtype=torch.int32, device=card)
+    acc = T.accumulate_compact(D, tabs.keys, c, k, 4, rows=resolved)
+    plain_rows = T.compact_rows(tabs.keys, T.kmer_indices64(c, k, 4))
+    assert torch.equal(resolved, plain_rows)
+    assert int(plain_rows[plain_rows < n].max()) * E > 2 ** 31
+    assert torch.allclose(acc, T.accumulate(D, plain_rows), rtol=1e-5,
+                          atol=1e-5)
+    lens = torch.full((B,), L, dtype=torch.int32, device=card)
+    thr = float(db.thr_log10)
+    thr_t = torch.tensor(thr, dtype=torch.float32, device=card)
+    for keep in (7, 20):
+        wire = T.finalize_wire(acc, lens, thr, k, keep)
+        ref = T.pack_wire(*T.finalize(acc, lens, thr_t, k, keep))
+        assert torch.equal(wire, ref), keep
