@@ -126,12 +126,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--table",
                    choices=["auto", "direct", "compact", "postings"],
                    default="auto",
-                   help="device k-mer table layout (auto, the layout "
-                        "that placed such a DB fastest on an H100: the "
+                   help="device k-mer table layout (auto: the "
                         "compact table searched on the card while its "
-                        "keys fit int32 and it fits 7.3 GB, else "
-                        "light/heavy postings for a light-dominated f32 "
-                        "DB, else compact; direct only when asked for)")
+                        "keys fit int32 and it fits 7.3 GB, the layout "
+                        "that placed such a DB fastest on an H100; past "
+                        "that, for f32, light/heavy postings at width 8 "
+                        "for a light-dominated DB, or at the DB's own "
+                        "light width when that takes at most a quarter "
+                        "of the compact table's bytes, else compact "
+                        "(postings at that width when compact does not "
+                        "fit the card); "
+                        "direct only when asked for)")
     # multi-chip / multi-host placement (no reference analog: the
     # reference is single-threaded, PlacementProcess.java:1239-1241)
     p.add_argument("--dp", type=int, default=0,

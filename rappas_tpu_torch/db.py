@@ -297,9 +297,12 @@ class PhyloKmerDB:
         light_keys = self.keys[light]
         light_edges = np.full((nl + 1, width), LIGHT_PAD_EDGE, np.int32)
         light_deltas = np.zeros((nl + 1, width), np.float32)
-        row, col, src = flat_gather(np.flatnonzero(light))
-        light_edges[row, col] = self.edges[src]
-        light_deltas[row, col] = self.deltas[src]
+        # the light keys' postings, in CSR order, fill the first slots of
+        # their rows: boolean masks keep that order without index arrays
+        slots = np.arange(width) < lens[light][:, None]
+        src = np.repeat(light, lens) if nh else slice(None)
+        light_edges[:nl][slots] = self.edges[src]
+        light_deltas[:nl][slots] = self.deltas[src]
 
         heavy_keys = self.keys[heavy]
         heavy_dense = np.zeros((nh + 1, E), np.float32)

@@ -7,9 +7,10 @@ build (the reference's equivalents are its Java inner loops):
   fill and the md5 -> first-occurrence map;
 * ``jplacefmt.cpp`` -- jplace ``"p"`` rows, whole placement lines and
   TSV report lines, formatted per batch;
-* ``keyprobe.cpp`` -- fused rolling-hash k-mer indexing and bucketed
-  sorted-key probe (the postings layout's row lookup when the k-mer
-  space is too big for a direct index: protein k >= 8);
+* ``keyprobe.cpp`` -- fused rolling-hash k-mer indexing and the
+  postings layout's row lookup (a bucketed sorted-key probe when the
+  k-mer space is too big for a direct index, protein k >= 8, else the
+  direct index), packing each read's light rows in the same sweep;
 * ``wordexplorer.cpp`` -- exact branch-and-bound phylo-kmer enumeration
   incl. gap jumps (bit-identical f32 semantics to the reference
   recursion), used by the DB build where the vectorized numpy frontier
@@ -217,7 +218,8 @@ def format_placement_rows(nodes: np.ndarray, scores: np.ndarray,
 # fused k-mer index + key probe (protein big-key-space host path)
 # ------------------------------------------------------------------ #
 
-#: calls of :func:`probe_rows` (a run can show which row lookup it took)
+#: calls of the native row sweep, :func:`probe_rows` and
+#: :func:`probe_light_rows` (a run can show which row lookup it took)
 PROBE_CALLS = {"probe_rows": 0}
 
 
@@ -229,9 +231,47 @@ def _kp_lib() -> ctypes.CDLL:
         lib.kp_rows.argtypes = [
             c.c_void_p, c.c_void_p, c.c_longlong, c.c_longlong,
             c.c_int, c.c_int, c.c_void_p, c.c_void_p, c.c_longlong,
-            c.c_void_p, c.c_int, c.c_int, c.c_void_p, c.c_int]
+            c.c_void_p, c.c_int, c.c_int, c.c_void_p, c.c_int,
+            c.c_void_p, c.c_int, c.c_void_p, c.c_void_p, c.c_void_p,
+            c.c_void_p, c.c_void_p]
         lib._kp_configured = True
     return lib
+
+
+def _ptr(a) -> int | None:
+    return None if a is None else a.ctypes.data
+
+
+def _kp_rows(codes, lengths, k, n_states, miss, n_threads, keys=None,
+             vals=None, lo=None, shift=0, direct=None, light=None):
+    lib = _kp_lib()
+    codes = np.ascontiguousarray(codes, np.int8)
+    lengths = np.ascontiguousarray(lengths, np.int32)
+    if direct is None:
+        keys = np.ascontiguousarray(keys, np.int64)
+        vals = np.ascontiguousarray(vals, np.int32)
+        lo = np.ascontiguousarray(lo, np.int32)
+    else:
+        direct = np.ascontiguousarray(direct, np.int32)
+    B, L = codes.shape
+    Q = max(L - k + 1, 0)
+    out = np.empty((B, Q), np.int32)
+    nl, counts, packed = 0, None, (None, None, None, None)
+    if light is not None:
+        nl, counts = light
+        counts = np.ascontiguousarray(counts, np.int32)
+        packed = (np.empty((B, Q), np.int32), np.zeros(B, np.int32),
+                  np.zeros(B, np.int64), np.zeros(1, np.int64))
+    if Q:
+        if n_threads <= 0:
+            n_threads = min(4, os.cpu_count() or 1)
+        lib.kp_rows(codes.ctypes.data, lengths.ctypes.data, B, L, k,
+                    n_states, _ptr(keys), _ptr(vals),
+                    0 if keys is None else keys.shape[0], _ptr(lo), shift,
+                    miss, out.ctypes.data, n_threads, _ptr(direct), nl,
+                    _ptr(counts), *map(_ptr, packed))
+        PROBE_CALLS["probe_rows"] += 1
+    return (out,) + packed
 
 
 def probe_rows(codes: np.ndarray, lengths: np.ndarray, k: int,
@@ -243,25 +283,28 @@ def probe_rows(codes: np.ndarray, lengths: np.ndarray, k: int,
     ``keys``/``vals``/``lo``/``shift`` follow the HostKeyIndex layout;
     returns int32 [B, Q] encoded rows (``miss`` for absent/ambiguous/
     past-length windows)."""
-    lib = _kp_lib()
-    codes = np.ascontiguousarray(codes, np.int8)
-    lengths = np.ascontiguousarray(lengths, np.int32)
-    keys = np.ascontiguousarray(keys, np.int64)
-    vals = np.ascontiguousarray(vals, np.int32)
-    lo = np.ascontiguousarray(lo, np.int32)
-    B, L = codes.shape
-    Q = L - k + 1
-    out = np.empty((B, max(Q, 0)), np.int32)
-    if Q <= 0:
-        return out
-    if n_threads <= 0:
-        n_threads = min(4, os.cpu_count() or 1)
-    lib.kp_rows(codes.ctypes.data, lengths.ctypes.data, B, L, k,
-                n_states, keys.ctypes.data, vals.ctypes.data,
-                keys.shape[0], lo.ctypes.data, shift, miss,
-                out.ctypes.data, n_threads)
-    PROBE_CALLS["probe_rows"] += 1
-    return out
+    return _kp_rows(codes, lengths, k, n_states, miss, n_threads, keys,
+                    vals, lo, shift)[0]
+
+
+def probe_light_rows(codes: np.ndarray, lengths: np.ndarray, k: int,
+                     n_states: int, nl: int, light_counts: np.ndarray,
+                     keys=None, vals=None, lo=None, shift: int = 0,
+                     direct=None, n_threads: int = 0):
+    """The postings layout's rows of a batch in one native sweep (the
+    GIL released): :func:`probe_rows` over the keys, or ``direct[v]``
+    for a direct index table ``direct`` int32[S^k + 1] (its last entry
+    the miss), and each read's light rows (``r < nl``) with them.
+    Returns ``(rof, lrows, hits, pairs, n_heavy)``: the encoded rows
+    int32[B, Q]; the light rows left-packed in window order with ``nl``
+    pads, int32[B, Q]; their count per read, int32[B]; their real
+    postings per read (``light_counts[r]`` summed), int64[B]; and the
+    batch's windows on heavy rows (``r > nl``)."""
+    miss = nl if direct is None else int(direct[-1])
+    *rows, n_heavy = _kp_rows(codes, lengths, k, n_states, miss, n_threads,
+                              keys, vals, lo, shift, direct,
+                              (nl, light_counts))
+    return (*rows, int(n_heavy[0]))
 
 
 # ------------------------------------------------------------------ #

@@ -22,7 +22,9 @@ Sharded placement is f32-only (strict parity with the single-device
 default; the postings sort payload needs exact deltas), and the table
 auto-selection budget is the per-card budget
 (``PlacementEngine.table_budget``) times ``mp``: a DB too big for one
-device is exactly why the mp axis exists.
+device is exactly why the mp axis exists.  The layout and the postings
+layout's light width come from ``PlacementEngine.resolve_layout``, as on
+one device.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ class ShardedEngine(PlacementEngine):
         self.dp = mesh.shape["dp"]
         self.mp = mesh.shape["mp"]
         # the per-card budget of the mesh's first device, once per shard
-        table = self.resolve_table(
+        table, postings_width = self.resolve_layout(
             db, table, "f32",
             self.table_budget(mesh.devices.flat[0]) * self.mp,
             postings_width)
@@ -68,6 +70,7 @@ class ShardedEngine(PlacementEngine):
         self.keys_dev = None
         self._postings = None
         if table == "postings":
+            self.postings_width = postings_width
             self._postings = PostingsShardedPlacement(
                 db, mesh, keep_at_most=keep_at_most,
                 postings_width=postings_width)

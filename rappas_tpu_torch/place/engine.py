@@ -29,7 +29,8 @@ are the same).
 Compact (``D[n_kmers + 1, E]``, row = position in the sorted keys; what
 ``table="auto"`` takes on the card for a DB whose keys fit int32 and
 whose compact table fits ``AUTO_COMPACT_BYTES``, or a heavy-dominated
-one past it that fits one table's budget): when k-mer indices fit
+one past it that fits one table's budget and whose postings layout would
+not be a small share of it): when k-mer indices fit
 int32, every read goes as codes to C1 ``accumulate_compact``, which
 searches the keys on the card (the JAX engine packs only for direct);
 above 31 bits (amino k >= 8, DNA k >= 16) the host searches the keys
@@ -45,13 +46,17 @@ copied across), the kernels' u16
 instances sum them in f32 and apply the scale once, and K4 scales each
 alternative's row before its ``exp2``.
 
-Postings (large trees, protein; ``convert.postings_device_tables``):
+Postings (large trees, protein; ``convert.postings_device_tables``;
+``table="auto"`` past the compact line takes it at ``postings_width`` for
+a light-dominated DB, or at the DB's own light width, :func:`light_width`,
+when that makes it a small share of the compact table):
 k-mers with at most ``postings_width`` postings live in one light table
 ``pairs[nl + 1, 2P]`` (edge ids, then bit-cast deltas), the others in a
 dense ``heavy_dense[nh + 1, E]``.  The host maps every window to an
-encoded row (a direct index, or the native key probe for big k-mer
-spaces), gives each read with dense content (heavy hits, ambiguity
-windows) one slot, and left-packs each read's light hits.  Then:
+encoded row and left-packs each read's light hits in one native sweep
+(``native/keyprobe.cpp``: a direct index, or a key probe for big k-mer
+spaces; the numpy passes without a C++ toolchain), and gives each read
+with dense content (heavy hits, ambiguity windows) one slot.  Then:
 
 * P1 ``dense_side`` -- heavy hit rows summed per slot into ``acc_c``;
 * P2 ``ambiguous_postings_`` -- ambiguity windows added into ``acc_c``;
@@ -440,15 +445,22 @@ def make_key_lookup(keys: np.ndarray):
 
 
 def postings_batch(rof: np.ndarray, nl: int, light_counts: np.ndarray,
-                   lengths: np.ndarray, amb=None, alt_rows=None):
+                   lengths: np.ndarray, amb=None, alt_rows=None,
+                   packed=None):
     """:meth:`PlacementEngine.postings_inputs` from a batch's encoded rows
     ``rof`` int32[B, Q] (``r < nl`` light row, ``nl`` miss, ``nl + 1 + h``
     heavy row ``h``) of one light / heavy table pair with ``light_counts``
     real postings per light row; ``amb`` the host ambiguity expansion
     (``kidx`` unused here) and ``alt_rows`` its alternatives' (light,
-    heavy) rows in these tables, or both None."""
+    heavy) rows in these tables, or both None; ``packed`` the light rows
+    that :func:`rappas_tpu_torch.native.probe_light_rows` packed beside
+    ``rof`` (its ``lrows``, ``hits``, ``pairs``, ``n_heavy``), or None to
+    pack them here."""
     B = rof.shape[0]
-    hb, hq = np.nonzero(rof > nl)
+    # np.nonzero of the 2-D mask, in the same row-major order, at a
+    # tenth of its cost; no pass at all when the sweep counted no heavy hit
+    hb, hq = (np.zeros((2, 0), np.int64) if packed and not packed[3] else
+              np.divmod(np.flatnonzero(rof > nl), rof.shape[1]))
     win_read = amb[2] if amb is not None else np.zeros(0, np.int32)
     uniq_reads = np.unique(np.concatenate([hb, win_read]))
     slot_of = np.full(B, -1, np.int32)
@@ -471,21 +483,43 @@ def postings_batch(rof: np.ndarray, nl: int, light_counts: np.ndarray,
     # (rappas_tpu/place/engine.py:1460-1479), so that the two-stage path
     # sees the same rows; the dropped slots are misses, whose pad postings
     # never reach a sum
-    hit = rof < nl
-    counts = hit.sum(axis=1)
+    if packed is None:
+        hit = rof < nl
+        counts = hit.sum(axis=1)
+    else:
+        full, counts, pairs, _ = packed
     w_max = int(counts.max()) if counts.size else 0
     Q = rof.shape[1]
     W = next((c for c in (8, 16, 32, 48, 64, 96, 128, 192, 256)
               if w_max <= c < Q - 8), Q)
-    lrows = np.full((B, W), nl, np.int32)
-    if W:
-        bb, qq = np.nonzero(hit)
-        pos = np.cumsum(hit, axis=1) - 1
-        lrows[bb, pos[bb, qq]] = rof[bb, qq]
+    if packed is None:
+        # boolean masks take and fill in row-major order: each read's hits
+        # in window order into its first slots
+        lrows = np.full((B, W), nl, np.int32)
+        lrows[np.arange(W) < counts[:, None]] = rof[hit]
+        pairs = light_counts[lrows].sum(axis=1)
+    else:
+        lrows = np.ascontiguousarray(full[:, :W])
     host["lrows"] = lrows
-    plan = kernels.postings_plan(light_counts[lrows].sum(axis=1))
+    plan = kernels.postings_plan(pairs)
     host.update((n, t.numpy()) for n, t in plan.tensors().items())
     return host, plan
+
+
+def light_width(lens: np.ndarray, n_edges: int) -> tuple[int, int]:
+    """The postings layout's light width for keys of ``lens`` postings on
+    ``n_edges`` slots, and its device bytes there: the W that minimises
+    ``(nl(W) + 1) * 8W + (nh(W) + 1) * 4E``, where the ``nl(W)`` keys of
+    at most W postings are light rows of W (edge, delta) pairs and the
+    other ``nh(W)`` dense f32 rows, each table with its miss row.  Between
+    two key lengths the bytes only grow with W, so W is 0 or a key
+    length; a tie takes the smaller."""
+    counts = np.bincount(lens, minlength=1)
+    widths = np.flatnonzero(np.r_[1, counts[1:]])
+    nl = np.cumsum(counts)[widths]
+    nbytes = (nl + 1) * 8 * widths + (len(lens) - nl + 1) * 4 * n_edges
+    best = int(np.argmin(nbytes))
+    return int(widths[best]), int(nbytes[best])
 
 
 def alt_rows_of(rof: np.ndarray, nl: int, nh: int):
@@ -524,6 +558,17 @@ class PlacementEngine:
     #: every k-mer present at k=8, row k8_occ1.0), so auto never takes
     #: direct
     AUTO_COMPACT_BYTES = 7_300_000_000
+    #: past the compact line an f32 DB takes postings at its own light
+    #: width (:func:`light_width`) when that layout costs at most this
+    #: share of the compact table's bytes.  A quarter keeps compact for
+    #: the method's own dense builds (PERF.md §4: 44.5 postings a key on
+    #: 119 slots, 227.4 on 299, where postings saves under 1.5x) and
+    #: takes postings for the 4,000-taxon k=10 DB (45 a key on 8,000
+    #: slots: 0.38 GB against 33.55 GB).  The share weighs the tables
+    #: alone: P3's per-batch scratch, 12 B a sort slot for reads past
+    #: ``kernels.SMEM_PAIRS`` postings, also grows with the width (0.81
+    #: GB for 1,024 reads of 1,450 bp at width 45) and is not counted
+    AUTO_POSTINGS_SHARE = 0.25
     #: the light table's part size: a light table that fits one table's
     #: budget stays one table; one table outran the light table routed in
     #: two parts on every DB swept (row config 5: 71,606 against 47,196
@@ -576,9 +621,9 @@ class PlacementEngine:
             if precision not in ("f32", "u16"):
                 raise ValueError(f"precision must be f32 or u16, got "
                                  f"{precision!r}")
-            table = self.resolve_table(db, table, precision,
-                                       self.table_budget(self.device),
-                                       postings_width)
+            table, postings_width = self.resolve_layout(
+                db, table, precision, self.table_budget(self.device),
+                postings_width)
             if table not in ("direct", "compact", "postings"):
                 raise ValueError(f"table must be auto/direct/compact/"
                                  f"postings, got {table!r}")
@@ -596,6 +641,8 @@ class PlacementEngine:
                     torch.cuda.synchronize(self.device)
             count("engine.table_bytes",
                   sum(t.numel() * t.element_size() for t in held))
+            if table == "postings":
+                count("engine.postings_width", postings_width)
             self._init_host_codec()
             self._stream = self._gather_stream = None
             if self.device.type == "cuda":
@@ -640,6 +687,7 @@ class PlacementEngine:
             self.MAX_LIGHT_PARTS)
         self.light_parts, self.heavy_dense = ps.light_parts, \
             ps.heavy_dense
+        self.postings_width = postings_width
         self._light_slow = ps.light_slow
         #: the light table when it is one part
         self.pairs = self.light_parts[0] \
@@ -675,9 +723,10 @@ class PlacementEngine:
                                                         keep_at_most)
         self.thr = float(np.float32(db.thr_log10))
         #: the height-split direct table (None: whole), and the light
-        #: table's parts (set by the postings layout)
+        #: table's parts and width (set by the postings layout)
         self.direct_parts = None
         self.light_parts = ()
+        self.postings_width = None
         #: part-routed windows on a split light table; the software
         #: pipeline of the two-stage path, its tail and the lock that
         #: serialises the tail's hand-off between the issuing thread and a
@@ -709,35 +758,47 @@ class PlacementEngine:
     def resolve_table(cls, db: PhyloKmerDB, table: str, precision: str,
                       direct_byte_limit: int,
                       postings_width: int = 8) -> str:
+        """The layout of :meth:`resolve_layout`."""
+        return cls.resolve_layout(db, table, precision, direct_byte_limit,
+                                  postings_width)[0]
+
+    @classmethod
+    def resolve_layout(cls, db: PhyloKmerDB, table: str, precision: str,
+                       direct_byte_limit: int,
+                       postings_width: int = 8) -> tuple[str, int]:
         """'auto' -> the concrete device layout for this DB (the analog of
         the reference's direct-vs-hashed capacity choice,
         ``CustomHash_v4_FastUtil81.java:49-63``), among the layouts whose
-        table fits ``direct_byte_limit`` bytes, the one that placed such a
-        DB fastest on the H100 (CLI reads/s over 200k reads, set-up
-        included; PERF.md "Table layouts"):
+        table fits ``direct_byte_limit`` bytes, and the postings layout's
+        light width.  Below the compact line, the layout that placed such
+        a DB fastest on the H100 (CLI reads/s over 200k reads, set-up
+        included; PERF.md "Table layouts"); past it, the smaller:
 
         * **compact** while its keys fit int32 (the card searches them)
           and its table fits ``AUTO_COMPACT_BYTES``;
-        * else f32: **postings** for a light-dominated DB (most postings
-          in k-mers with at most ``postings_width`` entries) or one whose
-          compact table does not fit; **compact** otherwise;
+        * else f32: **postings** at ``postings_width`` for a
+          light-dominated DB (most postings in k-mers with at most
+          ``postings_width`` entries); **postings** at the DB's own
+          light width (:func:`light_width`) when that layout takes at
+          most ``AUTO_POSTINGS_SHARE`` of the compact table's bytes, or
+          when the compact table does not fit; **compact** otherwise;
         * else u16 (never postings): **compact** while it fits; a DB too
           large for it raises.
 
         Direct, never faster than compact on the card, is taken only when
-        asked for.
+        asked for, and an asked-for layout keeps ``postings_width``.
         """
         if table != "auto":
-            return table
+            return table, postings_width
         itemsize = 2 if precision == "u16" else 4
         compact_bytes = (db.n_kmers + 1) * db.n_edge_slots * itemsize
         if (db.alphabet.n_states ** db.k <= 2 ** 31 - 1 and
                 compact_bytes <= min(direct_byte_limit,
                                      cls.AUTO_COMPACT_BYTES)):
-            return "compact"
+            return "compact", postings_width
         if precision == "u16":
             if compact_bytes <= direct_byte_limit:
-                return "compact"
+                return "compact", postings_width
             raise ValueError(
                 f"DB too large for a u16 table: the compact table takes "
                 f"{compact_bytes} bytes, past the card's budget of "
@@ -746,10 +807,13 @@ class PlacementEngine:
         lens = np.diff(db.offsets)
         heavy_nnz = int(lens[lens > postings_width].sum()) \
             if lens.size else 0
-        light_dominated = heavy_nnz * 2 <= max(int(db.nnz), 1)
-        if light_dominated or compact_bytes > direct_byte_limit:
-            return "postings"
-        return "compact"
+        if heavy_nnz * 2 <= max(int(db.nnz), 1):
+            return "postings", postings_width
+        width, nbytes = light_width(lens, db.n_edge_slots)
+        if (nbytes <= cls.AUTO_POSTINGS_SHARE * compact_bytes or
+                compact_bytes > direct_byte_limit):
+            return "postings", width
+        return "compact", postings_width
 
     def _init_host_codec(self) -> None:
         # max ambiguities per k-mer: floor(k^(1/S))
@@ -1113,8 +1177,8 @@ class PlacementEngine:
 
     # -------------------------------------------------------------- #
     # postings layout (large trees, protein): the host maps every window
-    # to an encoded row once, gathers the dense sources into slots and
-    # left-packs the light hits; the device runs P1, P2 and P3
+    # to an encoded row and left-packs the light hits in one sweep, and
+    # gathers the dense sources into slots; the device runs P1, P2 and P3
     def _score_postings(self, codes: np.ndarray, matrix: np.ndarray,
                         lengths: np.ndarray):
         with span("engine.inputs"):
@@ -1373,12 +1437,12 @@ class PlacementEngine:
           int32 when a read's postings pass the warp path's region,
           ``scratch_off`` int64[B + 1] when they pass one block's shared
           memory."""
-        rof = self._rows_from_codes(codes, lengths)
+        rof, packed = self._rows_from_codes(codes, lengths)
         amb = (self._expand_ambiguities_host(codes, matrix, lengths)
                if self.treat_ambiguities else None)
         return postings_batch(
             rof, self._nl, self._light_counts, lengths, amb,
-            None if amb is None else self._map_alt_rows(amb[0]))
+            None if amb is None else self._map_alt_rows(amb[0]), packed)
 
     def _host_rows(self, kidx: np.ndarray) -> np.ndarray:
         """Encoded row per window: ``r < nl`` light row, ``nl`` miss,
@@ -1413,39 +1477,49 @@ class PlacementEngine:
 
     @functools.cached_property
     def _native_probe(self):
-        """Fused native rolling-hash + key-probe callable
-        ``(codes, lengths) -> rof`` for the big-key-space lookup, or None
-        (small key sets, or no C++ toolchain: the numpy passes give the
-        same rows)."""
+        """Fused native rolling-hash + row-lookup callable
+        ``(codes, lengths) -> (rof, lrows, hits, pairs, n_heavy)``
+        (:func:`rappas_tpu_torch.native.probe_light_rows`, which packs
+        each read's light rows in the same sweep): the direct index where
+        the engine has one, else the bucketed key probe; or None (a small
+        key set without a direct index, or no C++ toolchain: the numpy
+        passes give the same rows)."""
         try:
-            from rappas_tpu_torch.native import probe_rows
+            from rappas_tpu_torch.native import probe_light_rows
         except Exception:
             return None
-        hki = self._comb_lookup
-        if not isinstance(hki, HostKeyIndex):
-            return None     # small key set: numpy path is already fast
-        keys, vals = self._comb_lookup_arrays
+        if self._rof_np is not None:
+            lookup = {"direct": self._rof_np}
+        else:
+            hki = self._comb_lookup
+            if not isinstance(hki, HostKeyIndex):
+                return None     # small key set: numpy path is already fast
+            keys, vals = self._comb_lookup_arrays
+            lookup = {"keys": keys, "vals": vals, "lo": hki.lo,
+                      "shift": hki.shift}
         k, S, nl = self.k, self.alphabet.n_states, self._nl
-        lo, shift = hki.lo, hki.shift
+        light_counts = self._light_counts
 
         def run(codes, lengths):
-            return probe_rows(codes, lengths, k, S, keys, vals, lo,
-                              shift, nl)
+            return probe_light_rows(codes, lengths, k, S, nl, light_counts,
+                                    **lookup)
         try:        # force the g++ build now; fall back on failure
             run(np.zeros((1, k), np.int8), np.full(1, k, np.int32))
         except Exception:
             return None
         return run
 
-    def _rows_from_codes(self, codes: np.ndarray,
-                         lengths: np.ndarray) -> np.ndarray:
-        """Encoded row per window straight from state codes: direct
-        index, fused native probe, or the numpy two-pass lookup."""
-        probe = self._native_probe if self._rof_np is None else None
+    def _rows_from_codes(self, codes: np.ndarray, lengths: np.ndarray):
+        """Encoded row per window straight from state codes, and the light
+        rows packed (:func:`postings_batch`'s ``packed``): the fused native
+        sweep, or the numpy passes (direct index or two-pass lookup) with
+        ``packed`` None."""
+        probe = self._native_probe
         if probe is not None:
-            return probe(codes, lengths)
+            rof, *packed = probe(codes, lengths)
+            return rof, tuple(packed)
         return self._host_rows(host_kmer_indices(
-            codes, lengths, self.k, self.alphabet.n_states))
+            codes, lengths, self.k, self.alphabet.n_states)), None
 
     def _map_alt_rows(self, kidx: np.ndarray):
         """Raw alternative k-mer indices -> (light rows, heavy rows):

@@ -9,8 +9,13 @@ the process's peak resident set (``ru_maxrss``, in GiB) as each step of
 set-up ends: the recipe's raw postings drawn, the program's DB built from
 them (``build_csr``), the DB saved and loaded, the engine made (its
 tables built); and at the run's end, the judging included.  The step
-whose reading first reaches the peak is the step that set it.  On the
-card:
+whose reading first reaches the peak is the step that set it.  Then
+
+    setup_counters: {"engine.table_bytes": ..., "engine.postings_width": ...}
+
+the engine's counters as it is made (the harness's window starts its
+counters anew): its tables' device bytes and, on the postings layout,
+the light width it took.  On the card:
 
     python3 scripts/setup_rss.py --workload <cell> --seed <n> \\
         --seconds <s> --trace <0|1>
@@ -31,8 +36,8 @@ def peak_gib() -> float:
 
 def main() -> int:
     from portbench import cell, run
-    from rappas_tpu_torch import cli
-    peaks = {}
+    from rappas_tpu_torch import cli, utils
+    peaks, counters = {}, {}
     program_db, make_engine = cell.program_db, cli._make_engine
 
     def built(config, raw):
@@ -47,12 +52,16 @@ def main() -> int:
 
     def at_engine(eng):
         peaks["engine_gib"] = peak_gib()
+        counters.update((n, c) for n, c in
+                        utils.trace_totals()["counters"].items()
+                        if n.startswith("engine."))
         return eng
 
     cell.program_db, cli._make_engine = built, engine
     rc = run.main(sys.argv[1:], engine_wrap=at_engine)
     peaks["run_gib"] = peak_gib()
     print("setup_rss: " + json.dumps(peaks), flush=True)
+    print("setup_counters: " + json.dumps(counters), flush=True)
     return rc
 
 

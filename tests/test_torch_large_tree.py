@@ -2,11 +2,15 @@
 at sizes a CPU holds: f32 tables built on the device (bitwise the host's
 ``compact_matrix`` / ``dense_matrix``), ``resolve_table`` on the
 deployment's shape, ``place_queries`` through ``cli._make_engine`` against
-``portbench/reference.py``, and the table's span and the C1 row counter.
+``portbench/reference.py`` on the compact layout and, past a compact line
+patched under the table, on the postings layout at the DB's own width,
+P3's plan at width 45, and the table's span and the C1 row counter.
 
-The card test (``-m cuda``, skips without a card) runs C1 and K3 at the
+The card tests (``-m cuda``, skip without a card) run C1 and K3 at the
 deployment's own widths, E = 8,000 on a 33.55 GB table, past 2^31
-elements, against their plain versions:
+elements, and P3 on the postings layout ``table="auto"`` takes for it
+(45 postings a key, the block path in shared memory), against their
+plain versions:
 
     RAPPAS_TPU_DEVICE_TESTS=1 python -m pytest -m cuda \\
         tests/test_torch_large_tree.py
@@ -22,8 +26,11 @@ import torch
 from portbench import cell
 from rappas_tpu_torch import convert, utils
 from rappas_tpu_torch.alphabet import DNA
+from rappas_tpu_torch.db import LIGHT_PAD_EDGE
+from rappas_tpu_torch.parallel.engine import ShardedEngine
+from rappas_tpu_torch.parallel.mesh import make_mesh
 from rappas_tpu_torch.place import kernels as T
-from rappas_tpu_torch.place.engine import PlacementEngine
+from rappas_tpu_torch.place.engine import PlacementEngine, light_width
 
 CELL = "c5-4000taxa-k10.miseq240"
 #: the deployment's recipe at k=6 and 2,000 slots: heavy-dominated (45
@@ -98,19 +105,34 @@ def _deployment(n_per_key=45, E=8000, k=10):
         offsets=np.arange(n + 1, dtype=np.int64) * n_per_key)
 
 
-def test_resolve_table_takes_compact_for_the_deployment():
+def test_resolve_table_takes_postings_for_the_deployment(monkeypatch):
+    """Past the compact line the deployment takes postings at its own
+    light width, 45, with no heavy keys: 0.38 GB against the compact
+    table's 33.55 GB."""
     db = _deployment()
     assert (db.n_kmers + 1) * db.n_edge_slots * 4 == 33_554_464_000
     budget = PlacementEngine.DIRECT_BYTE_LIMIT
     assert 33_554_464_000 > PlacementEngine.AUTO_COMPACT_BYTES
+    assert light_width(np.diff(db.offsets), db.n_edge_slots) == \
+        (45, (4 ** 10 + 1) * 8 * 45 + 4 * 8000)
+    assert PlacementEngine.resolve_layout(db, "auto", "f32", budget) == \
+        ("postings", 45)
+    # past the card's budget: postings at the same width
+    assert PlacementEngine.resolve_layout(
+        db, "auto", "f32", 33_554_464_000 - 1) == ("postings", 45)
+    # light-dominated at the same size: postings at the default width
+    assert PlacementEngine.resolve_layout(
+        _deployment(n_per_key=8), "auto", "f32", budget) == ("postings", 8)
+    # an asked-for layout keeps the width it is given
+    assert PlacementEngine.resolve_layout(db, "postings", "f32", budget) \
+        == ("postings", 8)
+    # u16 never takes postings
+    assert PlacementEngine.resolve_table(db, "auto", "u16", budget) == \
+        "compact"
+    # a share under the deployment's 1.13% keeps compact
+    monkeypatch.setattr(PlacementEngine, "AUTO_POSTINGS_SHARE", 0.011)
     assert PlacementEngine.resolve_table(db, "auto", "f32", budget) == \
         "compact"
-    # past the card's budget: postings
-    assert PlacementEngine.resolve_table(
-        db, "auto", "f32", 33_554_464_000 - 1) == "postings"
-    # light-dominated at the same size: postings
-    assert PlacementEngine.resolve_table(
-        _deployment(n_per_key=8), "auto", "f32", budget) == "postings"
 
 
 def test_place_queries_agrees_with_the_reference(tmp_path):
@@ -124,6 +146,59 @@ def test_place_queries_agrees_with_the_reference(tmp_path):
     assert correct, rows
     assert run["numbers"]["calls_checked"] >= 1
     assert run["numbers"]["placements"] > 0
+
+
+def _same_placements(a, b):
+    """``|L|`` and each read's edge set identical, scores within 2e-4 and
+    LWR within 1e-4 (``tests/test_engine.py``'s gate)."""
+    np.testing.assert_array_equal(a.n_matched, b.n_matched)
+    for i in range(a.n_matched.shape[0]):
+        va, vb = a.top_edges[i] >= 0, b.top_edges[i] >= 0
+        assert sorted(a.top_edges[i][va]) == sorted(b.top_edges[i][vb]), i
+        for x, y, tol in ((a.top_scores, b.top_scores, 2e-4),
+                          (a.top_lwr, b.top_lwr, 1e-4)):
+            np.testing.assert_allclose(sorted(x[i][va]), sorted(y[i][vb]),
+                                       rtol=0, atol=tol)
+
+
+def test_place_queries_takes_postings_past_the_line(tmp_path, monkeypatch,
+                                                    reset_trace):
+    """The deployment's recipe at the CPU size, its table past a compact
+    line patched under it: ``auto`` takes postings at the DB's own width
+    (45, no heavy keys) through ``cli._make_engine``, the cell is correct
+    against the reference within c1's limits, and the engine places as a
+    compact engine on the same DB, and as a mesh engine, which takes the
+    same width."""
+    s = _spec()
+    E, n = SMALL["n_edge_slots"], 4 ** SMALL["k"]
+    monkeypatch.setattr(PlacementEngine, "AUTO_COMPACT_BYTES",
+                        (n + 1) * E * 4 - 1)
+    engines = []
+    run = cell.run(s, 2 ** 31 + 2203, 0.5, False, tmp_path, time.time(),
+                   device="cpu",
+                   engine_wrap=lambda e: engines.append(e) or e)
+    assert run["table"] == "postings"
+    eng = engines[0]
+    assert eng.postings_width == 45 and eng.heavy_dense.shape[0] == 1
+    tot = utils.trace_totals()["counters"]
+    assert tot["engine.postings_width"] == 45
+    lens = np.diff(eng.db.offsets)
+    assert tot["engine.table_bytes"] == light_width(lens, E)[1] == \
+        (n + 1) * 8 * 45 + 4 * E
+    assert run["failure"] is None
+    c1 = cell.load_spec("c1-16s-k8.miseq240")["limits"]
+    correct, rows = cell.verdict(run["numbers"], c1, run["failure"])
+    assert correct, rows
+    assert run["numbers"]["calls_checked"] >= 1
+    m, lens = _reads(np.random.default_rng(11), 48)
+    compact = PlacementEngine(eng.db, device="cpu", table="compact")
+    got, want = eng.score(m, lens), compact.score(m, lens)
+    assert (got.n_matched > 0).all()
+    _same_placements(got, want)
+    # a mesh takes the same layout and width: two edge-range shards
+    sharded = ShardedEngine(eng.db, make_mesh(["cpu"] * 2, dp=1, mp=2))
+    assert (sharded.table, sharded.postings_width) == ("postings", 45)
+    _same_placements(sharded.score(m, lens), got)
 
 
 def _reads(rng, B, L=240):
@@ -206,6 +281,43 @@ def test_c1_hands_back_its_rows(small_db):
     assert torch.equal(acc, T.accumulate(tabs.D, want))
 
 
+def _p3_c5_inputs(rng, B, L=240, W=45, E=8000, n_rows=1 << 14):
+    """P3's inputs at the deployment's widths: a light table of rows of
+    ``W`` real postings (distinct edges, quarter deltas: every sum exact in
+    f32), the all-pad miss row last; ``B`` reads of ``L`` bases whose every
+    window hits a row; no heavy rows and no ambiguity windows, so no
+    read has a dense slot."""
+    start = rng.integers(0, E - 1, (n_rows, 1))
+    stride = rng.integers(1, (E - 1) // W, (n_rows, 1))
+    edges = 1 + (start + np.arange(W) * stride) % (E - 1)
+    deltas = (rng.integers(1, 12, (n_rows, W)) * 0.25).astype(np.float32)
+    pairs = np.concatenate([
+        np.concatenate([edges.astype(np.int32), deltas.view(np.int32)], 1),
+        np.concatenate([np.full((1, W), LIGHT_PAD_EDGE, np.int32),
+                        np.zeros((1, W), np.int32)], 1)])
+    lrows = rng.integers(0, n_rows, (B, L - 10 + 1)).astype(np.int32)
+    return pairs, lrows, n_rows
+
+
+def test_postings_plan_at_the_deployment_widths():
+    """P3's plan at width 45: a 240 bp read's 231 x 45 postings sort in
+    one block's shared memory (no scratch); a 1,024-read batch of 1,450 bp
+    reads (1,441 x 45 = 64,845 postings, a 65,536-slot region each) sorts
+    in a global scratch of 12 bytes a slot, 0.81 GB, far under the
+    33.55 GB compact table the layout replaces."""
+    pairs, lrows, _ = _p3_c5_inputs(np.random.default_rng(3), 16)
+    counts = (pairs[lrows, :45] != LIGHT_PAD_EDGE).sum(axis=(1, 2))
+    assert (counts == 231 * 45).all()
+    plan = T.postings_plan(counts)
+    assert plan.paths(16) == {"warp": 0, "block": 16, "scratch": 0}
+    assert plan.smem_pairs == 16384 == T.SMEM_PAIRS and plan.n_scratch == 0
+    long = T.postings_plan(np.full(1024, (1450 - 10 + 1) * 45))
+    assert long.paths(1024) == {"warp": 0, "block": 0, "scratch": 1024}
+    assert long.n_scratch == 1024 * 65536
+    # the scratch P3's wrapper allocates: an int64 key and an f32 total
+    assert long.n_scratch * (8 + 4) == 805_306_368
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -254,3 +366,31 @@ def test_c1_and_k3_at_the_deployment_widths_on_card(card):
         wire = T.finalize_wire(acc, lens, thr, k, keep)
         ref = T.pack_wire(*T.finalize(acc, lens, thr_t, k, keep))
         assert torch.equal(wire, ref), keep
+
+
+@pytest.mark.cuda
+def test_p3_at_the_deployment_widths_on_card(card):
+    """P3 on a 1,024-read batch at the deployment's widths (231 windows x
+    45 postings a read, E = 8,000): every read on the block path in shared
+    memory, the wire bitwise the plain version's (quarter deltas: every
+    sum exact)."""
+    from rappas_tpu_torch.place.engine import unpack_wire
+    rng = np.random.default_rng(45)
+    pairs, lrows, miss = _p3_c5_inputs(rng, 1024)
+    B, E, k, keep, thr = 1024, 8000, 10, 7, -4.25
+    counts = (pairs[lrows, :45] != LIGHT_PAD_EDGE).sum(axis=(1, 2))
+    plan = T.postings_plan(counts)
+    assert plan.paths(B) == {"warp": 0, "block": B, "scratch": 0}
+    acc_c = np.zeros((0, E), np.float32)
+    slot_of = np.full(B, -1, np.int32)
+    lens = np.full(B, 240, np.int32)
+    cpu = [torch.from_numpy(a) for a in (pairs, lrows, acc_c, slot_of, lens)]
+    want = T.finalize_postings_wire(*cpu, thr, k, keep, plan, 0, E, miss)
+    dev = [t.to(card) for t in cpu]
+    got = T.finalize_postings_wire(*dev, thr, k, keep, plan.to(card), 0, E,
+                                   miss)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    K, wide, _ = T.wire_format(E, keep)
+    res = unpack_wire(want.numpy(), K, wide)
+    assert (res.n_matched > 0).all() and (res.top_edges >= 0).all()

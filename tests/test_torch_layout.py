@@ -25,7 +25,7 @@ from rappas_tpu.db import build_csr
 from rappas_tpu.place.engine import PlacementEngine as JaxEngine
 from rappas_tpu.tree import parse_newick
 from rappas_tpu_torch.alphabet import AA, DNA
-from rappas_tpu_torch.place.engine import PlacementEngine
+from rappas_tpu_torch.place.engine import PlacementEngine, light_width
 from test_engine import batch_of, compare, synthetic_db
 from test_torch_engine import port_db, same_as_jax
 from test_torch_postings import random_reads, skewed_db, with_db_kmers
@@ -34,30 +34,38 @@ GiB = 1 << 30
 
 
 def shape(alphabet, k: int, E: int, n_kmers: int,
-          light_share: float = 1.0):
+          light_share: float = 1.0, light_len: int = 4):
     """What ``resolve_table`` reads of a DB, without its tables:
-    ``n_kmers`` k-mers, light ones with 4 postings and heavy ones with 40,
-    as many heavy ones as make ``light_share`` of the postings light."""
+    ``n_kmers`` k-mers, light ones with ``light_len`` postings and heavy
+    ones with 40, as many heavy ones as make ``light_share`` of the
+    postings light (light and heavy at the default width of 8)."""
     n_heavy = round(n_kmers * (1 - light_share) /
                     (1 - light_share + 10 * light_share))
-    lens = np.full(n_kmers, 4, np.int64)
+    lens = np.full(n_kmers, light_len, np.int64)
     lens[:n_heavy] = 40
+    return of_lengths(alphabet, k, E, lens)
+
+
+def of_lengths(alphabet, k: int, E: int, lens: np.ndarray):
+    """A DB shape whose keys hold ``lens`` postings each."""
     offsets = np.concatenate([[0], np.cumsum(lens)])
     return SimpleNamespace(alphabet=alphabet, k=k, n_edge_slots=E,
-                           n_kmers=n_kmers, offsets=offsets,
+                           n_kmers=lens.size, offsets=offsets,
                            nnz=int(offsets[-1]))
 
 
-def resolve(db, precision="f32", **consts):
+def resolve(db, precision="f32", layout=False, **consts):
     cls = type("Patched", (PlacementEngine,), consts)
-    return cls.resolve_table(db, "auto", precision, cls.table_budget("cpu"))
+    got = cls.resolve_layout(db, "auto", precision, cls.table_budget("cpu"))
+    return got if layout else got[0]
 
 
 #: (name, DB shape, precision, layout, the constants that decide it and
 #: values of them alone that move the layout, the layout it moves to).
 #: The configs and sparse12, k12_E1000 and k8_full are the sweep's DBs
 #: (PERF.md "Table layouts"); config 4's keys pass int32, so no budget
-#: gives it compact (its heavy-dominated variant takes compact).
+#: gives it compact (its heavy-dominated variant takes compact under an
+#: ``AUTO_POSTINGS_SHARE`` below its 23%).
 GRID = [
     ("config1", (DNA, 8, 300, 39_321), "f32", "compact",
      {"AUTO_COMPACT_BYTES": 1 << 20}, "postings"),
@@ -78,16 +86,20 @@ GRID = [
      {"DIRECT_BYTE_LIMIT": 16 * GiB}, "raises"),
     ("config4", (AA, 8, 150, 500_000), "f32", "postings",
      {"AUTO_COMPACT_BYTES": 1 << 62}, "postings"),
-    ("config4_heavy", (AA, 8, 150, 500_000, 0.3), "f32", "compact",
-     {"DIRECT_BYTE_LIMIT": 1 << 20}, "postings"),
+    # heavy-dominated past the line (keys past int32): postings at width
+    # 4 takes 23% of the compact table's bytes
+    ("config4_heavy", (AA, 8, 150, 500_000, 0.3), "f32", "postings",
+     {"AUTO_POSTINGS_SHARE": 0.2}, "compact"),
     ("config4_u16", (AA, 8, 150, 500_000), "u16", "compact",
      {"DIRECT_BYTE_LIMIT": 1 << 20}, "raises"),
     ("sparse12", (DNA, 12, 300, 100_000), "f32", "compact",
      {"AUTO_COMPACT_BYTES": 1 << 20}, "postings"),
     ("k12_E1000", (DNA, 12, 1000, 2_010_000, 0.88), "f32", "postings",
      {"AUTO_COMPACT_BYTES": 9 * GiB}, "compact"),
-    ("k12_E1000_heavy", (DNA, 12, 1000, 2_010_000, 0.3), "f32", "compact",
-     {"DIRECT_BYTE_LIMIT": 7 * GiB}, "postings"),
+    # heavy-dominated past the line: postings at width 40 takes 8% of
+    # the compact table's bytes
+    ("k12_E1000_heavy", (DNA, 12, 1000, 2_010_000, 0.3), "f32",
+     "postings", {"AUTO_POSTINGS_SHARE": 0.05}, "compact"),
     ("k12_E1000_u16", (DNA, 12, 1000, 2_010_000, 0.88), "u16", "compact",
      {"DIRECT_BYTE_LIMIT": 3 * GiB}, "raises"),
     # every k-mer present: compact all the same (direct only tied it)
@@ -96,6 +108,16 @@ GRID = [
     # protein keys within int32 (the card searches them)
     ("aa6", (AA, 6, 150, 2_000_000), "f32", "compact",
      {"AUTO_COMPACT_BYTES": GiB}, "postings"),
+    # the 4,000-taxon k=10 deployment (c5): every 10-mer a key with 45
+    # postings on 8,000 slots, postings at width 45 1.13% of compact
+    ("c5", (DNA, 10, 8000, 4 ** 10, 1.0, 45), "f32", "postings",
+     {"AUTO_POSTINGS_SHARE": 0.01}, "compact"),
+    # heavy-dominated and dense (21% of compact at its own width): past
+    # the line with no share, only a compact table past the card's
+    # budget gives postings
+    ("dense_past_budget", (DNA, 12, 300, 2_010_000, 0.3), "f32", "compact",
+     {"AUTO_COMPACT_BYTES": 0, "AUTO_POSTINGS_SHARE": 0,
+      "DIRECT_BYTE_LIMIT": 1 << 20}, "postings"),
 ]
 
 
@@ -113,12 +135,94 @@ def test_rule_on_a_grid(name, dims, precision, want, consts, moved):
 
 def test_light_share_moves_only_past_the_compact_line():
     """Below the compact line a heavy-dominated DB takes compact as a
-    light-dominated one does; past it only the light-dominated one takes
-    postings."""
+    light-dominated one does; past it the light-dominated one takes
+    postings at the default width, and the heavy-dominated one (40
+    postings a key on 1,000 slots) postings at its own width, 40."""
     for share in (1.0, 0.5, 0.1):
         assert resolve(shape(DNA, 12, 300, 2_010_000, share)) == "compact"
-    assert resolve(shape(DNA, 12, 1000, 2_010_000, 0.6)) == "postings"
-    assert resolve(shape(DNA, 12, 1000, 2_010_000, 0.4)) == "compact"
+    assert resolve(shape(DNA, 12, 1000, 2_010_000, 0.6), layout=True) == \
+        ("postings", 8)
+    assert resolve(shape(DNA, 12, 1000, 2_010_000, 0.4), layout=True) == \
+        ("postings", 40)
+
+
+def _lengths(name):
+    """Key lengths of 4,096 keys and the DB's slots: PERF.md §4's
+    densities of the method's own builds (60 taxa: 44.5 postings a key,
+    median 42, on 119 slots; 150 taxa: 227.4, median 228, on 299), the
+    4,000-taxon deployment (45 on 8,000), and a long tail (97% of keys
+    with 10-30 postings, 3% with 500-3,000, on 8,000)."""
+    rng = np.random.default_rng(13)
+    n = 4096
+    if name == "taxa60":
+        lens = rng.negative_binomial(20, 20 / (20 + 44.5), n)
+        return np.clip(lens, 1, 119), 119
+    if name == "taxa150":
+        return np.maximum(rng.binomial(299, 227.4 / 299, n), 1), 299
+    if name == "c5":
+        return np.full(n, 45, np.int64), 8000
+    lens = rng.integers(10, 31, n)
+    tail = rng.random(n) < 0.03
+    lens[tail] = rng.integers(500, 3001, int(tail.sum()))
+    return lens, 8000
+
+
+def _brute_width(lens, E):
+    """The postings layout's least bytes over every width 0 .. max."""
+    ws = np.arange(int(lens.max()) + 1)
+    nl = (lens[None, :] <= ws[:, None]).sum(axis=1)
+    return int(((nl + 1) * 8 * ws + (lens.size - nl + 1) * 4 * E).min())
+
+
+#: (name, layout past the line, the light width, heavy keys left)
+SHARE = [("c5", "postings", 45, False), ("taxa60", "compact", None, None),
+         ("taxa150", "compact", None, None),
+         ("long_tail", "postings", 30, True)]
+
+
+@pytest.mark.parametrize("name, want, width, heavy", SHARE,
+                         ids=[row[0] for row in SHARE])
+def test_own_width_past_the_compact_line(name, want, width, heavy):
+    """Past the compact line (patched to 0) a heavy-dominated DB takes
+    postings at its own light width when that layout takes at most
+    ``AUTO_POSTINGS_SHARE`` of the compact table's bytes: the
+    deployment's 45 a key on 8,000 slots does, the method's dense builds
+    do not; the width is the bytes' least over every width."""
+    lens, E = _lengths(name)
+    db = of_lengths(DNA, 10, E, lens)
+    assert int(lens[lens > 8].sum()) * 2 > db.nnz      # heavy-dominated
+    w, nbytes = light_width(lens, E)
+    assert nbytes == _brute_width(lens, E)
+    share = nbytes / ((db.n_kmers + 1) * E * 4)
+    got = resolve(db, layout=True, AUTO_COMPACT_BYTES=0)
+    if want == "compact":
+        assert got[0] == "compact" and share > 0.6
+        # the share alone moves it
+        assert resolve(db, AUTO_COMPACT_BYTES=0,
+                       AUTO_POSTINGS_SHARE=share) == "postings"
+        return
+    assert got == ("postings", w) and w == width
+    assert bool((lens > w).any()) == heavy
+    assert resolve(db, AUTO_COMPACT_BYTES=0,
+                   AUTO_POSTINGS_SHARE=share * 0.99) == "compact"
+
+
+@pytest.mark.parametrize("name", [row[0] for row in SHARE])
+def test_past_the_budget_takes_the_own_width(name):
+    """A DB whose compact table passes the card's budget takes postings
+    at its own light width, whatever its share: the width that makes the
+    layout least, dense builds included."""
+    lens, E = _lengths(name)
+    db = of_lengths(DNA, 10, E, lens)
+    consts = {"AUTO_COMPACT_BYTES": 0, "AUTO_POSTINGS_SHARE": 0}
+    assert resolve(db, **consts) == "compact"
+    assert resolve(db, layout=True, DIRECT_BYTE_LIMIT=1 << 20, **consts) \
+        == ("postings", light_width(lens, E)[0])
+
+
+def test_light_width_of_no_keys():
+    # W = 0: one miss row of each table, the light one of no slots
+    assert light_width(np.zeros(0, np.int64), 50) == (0, 200)
 
 
 def test_u16_never_postings():

@@ -222,6 +222,50 @@ def test_probe_rows_matches_jax():
                                         -7))
 
 
+@pytest.mark.parametrize("lookup", ["direct", "keys"])
+@pytest.mark.parametrize("nh", [40, 0])
+def test_light_sweep_matches_numpy(lookup, nh):
+    """The native sweep's rows and light pack (direct index or key probe)
+    give ``postings_batch`` the arrays its numpy passes give, bitwise:
+    heavy hits (or none), ambiguous codes and short reads included."""
+    rng = np.random.default_rng(11)
+    k, S, B, L = 6, 4, 96, 50
+    space = S ** k
+    order = rng.permutation(space)
+    nl = space // 3
+    direct = np.full(space + 1, nl, np.int32)
+    direct[order[:nl]] = np.arange(nl, dtype=np.int32)
+    direct[order[nl:nl + nh]] = nl + 1 + np.arange(nh, dtype=np.int32)
+    light_counts = rng.integers(1, 9, nl + 1).astype(np.int32)
+    light_counts[nl] = 0
+    codes = rng.integers(0, S, (B, L)).astype(np.int8)
+    codes[rng.random((B, L)) < 0.03] = -1
+    lens = rng.integers(k - 1, L + 1, B).astype(np.int32)
+    if lookup == "direct":
+        got = native.probe_light_rows(codes, lens, k, S, nl, light_counts,
+                                      direct=direct)
+    else:
+        keys = np.flatnonzero(direct[:space] != nl).astype(np.int64)
+        hki = port_engine.HostKeyIndex(keys)
+        got = native.probe_light_rows(codes, lens, k, S, nl, light_counts,
+                                      keys=keys, vals=direct[keys],
+                                      lo=hki.lo, shift=hki.shift)
+    kidx = port_engine.host_kmer_indices(codes, lens, k, S)
+    rof = direct[np.where(kidx >= 0, kidx, space)]
+    assert np.array_equal(got[0], rof)
+    assert (rof < nl).any() and got[4] == (rof > nl).sum() and \
+        bool(got[4]) == bool(nh)
+    want, want_plan = port_engine.postings_batch(rof, nl, light_counts,
+                                                 lens)
+    host, plan = port_engine.postings_batch(rof, nl, light_counts, lens,
+                                            packed=tuple(got[1:]))
+    assert host.keys() == want.keys()
+    for name in want:
+        assert host[name].dtype == want[name].dtype, name
+        assert np.array_equal(host[name], want[name]), name
+    assert plan[:2] + plan[3:4] == want_plan[:2] + want_plan[3:4]
+
+
 def test_host_key_index_matches_searchsorted():
     rng = np.random.default_rng(10)
     keys = np.unique(rng.integers(0, 1 << 40, 100000, dtype=np.int64))
