@@ -214,6 +214,13 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
+def launches(names) -> dict:
+    """The kernel launches counted since the last ``utils.trace_reset()``
+    (counters ``kernel.launch.<name>``), by name."""
+    from rappas_tpu_torch import utils
+    return {n: utils.counter("kernel.launch." + n) for n in names}
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
@@ -1572,6 +1579,7 @@ def kmer_sharded_phase(db, mesh, seed: int, ref, n_batches: int = 10,
     import numpy as np
     import torch
 
+    from rappas_tpu_torch import utils
     from rappas_tpu_torch.parallel.kmer_sharded import KmerShardedPlacement
     from rappas_tpu_torch.place import kernels as K
     from rappas_tpu_torch.place.engine import (PlacementEngine,
@@ -1616,14 +1624,13 @@ def kmer_sharded_phase(db, mesh, seed: int, ref, n_batches: int = 10,
     # the main path: batches back to back ------------------------------ #
     ksp.score(*coded[0])
     torch.cuda.synchronize()
-    K.reset_launches()
+    utils.trace_reset()
     t0 = time.perf_counter()
     results = [ksp.score(c, ln) for c, ln in coded]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {n: K.LAUNCHES[n] for n in ("accumulate_rows_range",
-                                           "finalize_wire")}
-    for name, n in launches.items():
+    for name, n in launches(("accumulate_rows_range",
+                             "finalize_wire")).items():
         check(n > 0, f"k-mer-sharded phase: kernel {name} was never "
               "launched")
     codes, lens = coded[1]
@@ -1665,8 +1672,8 @@ def sharded_place_phase(db, mesh, work: Path, n_reads: int, seed: int,
     within 2e-4, LWR within 1e-4)."""
     import numpy as np
 
+    from rappas_tpu_torch import utils
     from rappas_tpu_torch.parallel.engine import ShardedEngine
-    from rappas_tpu_torch.place import kernels as K
     from rappas_tpu_torch.place.engine import PlacementEngine
     from rappas_tpu_torch.place.pipeline import (PlacementConfig,
                                                  place_queries)
@@ -1683,13 +1690,13 @@ def sharded_place_phase(db, mesh, work: Path, n_reads: int, seed: int,
                       ("single", lambda: PlacementEngine(db, device=device,
                                                          table=table))):
         eng = make()
-        K.reset_launches()
+        utils.trace_reset()
         t0 = time.perf_counter()
         path = place_queries(db, fasta, work / f"place_{tag}",
                              PlacementConfig(batch_size=1024), engine=eng)
         out[tag] = {"seconds": time.perf_counter() - t0,
                     "reads_per_s": n_reads / (time.perf_counter() - t0),
-                    "launches": {n: K.LAUNCHES[n] for n in names},
+                    "launches": launches(names),
                     "jplace": json.loads(path.read_text())}
         del eng
     for name, n in out["sharded"]["launches"].items():
@@ -1737,9 +1744,8 @@ def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
     import numpy as np
     import torch
 
-    from rappas_tpu_torch import native
+    from rappas_tpu_torch import utils
     from rappas_tpu_torch.parallel.engine import ShardedEngine
-    from rappas_tpu_torch.place import kernels as K
     from rappas_tpu_torch.place.engine import PlacementEngine
 
     kw = engine_kw or {}
@@ -1760,8 +1766,7 @@ def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
     card_mb = (torch.cuda.memory_allocated() - base) / 1e6
     eng.score(*batches[0])                    # warm-up
     torch.cuda.synchronize()
-    K.reset_launches()
-    native.PROBE_CALLS["probe_rows"] = 0
+    utils.trace_reset()
     t0 = time.perf_counter()
     pend, results, handles = [], [], set()
     issue_s = 0.0      # host time inside score_async: encode, lookups,
@@ -1775,14 +1780,14 @@ def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
     results.extend(p.result() for p in pend)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {n: K.LAUNCHES[n] for n in names + tuple(absent)}
-    probes = native.PROBE_CALLS["probe_rows"]
+    counted = launches(names + tuple(absent))
+    probes = utils.counter("native.probe_rows")
     for name in names:
-        check(launches[name] > 0,
+        check(counted[name] > 0,
               f"engine phase: kernel {name} was never launched")
     for name in absent:
-        check(launches[name] == 0, f"engine phase: kernel {name} was "
-              f"launched {launches[name]} times off this path")
+        check(counted[name] == 0, f"engine phase: kernel {name} was "
+              f"launched {counted[name]} times off this path")
     path = inspect(eng, handles) if inspect is not None else None
     steps = {}
     if eng.table == "postings" and mesh is None:
@@ -1844,7 +1849,7 @@ def engine_phase(db, seed: int, names, batch: int = B_KERNEL,
             "reads_per_s": n_batches * batch / dt,
             "seconds": dt, "score_async_s": issue_s, "setup_s": setup_s,
             "card_mb": card_mb,
-            "batches": n_batches, "batch_size": batch, "launches": launches,
+            "batches": n_batches, "batch_size": batch, "launches": counted,
             "handles": sorted(handles), "path": path,
             "bitwise_vs_against": same_bits,
             "probe_rows_calls": probes, "host_steps_s": steps}
@@ -1964,10 +1969,9 @@ def host_steps(db, seed: int) -> dict:
 
 #: the CLI in a process of its own, its launch counts on the last line
 CLI_PROCESS = ("import json, sys\n"
-               "from rappas_tpu_torch import cli\n"
-               "from rappas_tpu_torch.place import kernels\n"
+               "from rappas_tpu_torch import cli, utils\n"
                "rc = cli.main(sys.argv[1:])\n"
-               "print(json.dumps(kernels.LAUNCHES))\n"
+               "print(json.dumps(utils.trace_totals()['counters']))\n"
                "sys.exit(rc)\n")
 
 
@@ -1989,8 +1993,7 @@ def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
     :func:`card_tolerance`."""
     import numpy as np
 
-    from rappas_tpu_torch import cli
-    from rappas_tpu_torch.place import kernels as K
+    from rappas_tpu_torch import cli, utils
     from rappas_tpu_torch.place.engine import PlacementEngine
     from rappas_tpu_torch.place.oracle import exact_scores
 
@@ -2008,7 +2011,7 @@ def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
     argv = ["-p", "p", "-d", str(db_path), "-q", str(fasta), "-w", str(wd),
             "--table", "auto", "--precision", precision, "--device", device,
             *extra]
-    K.reset_launches()
+    utils.trace_reset()
     t0 = time.perf_counter()
     if fresh:
         run = subprocess.run([sys.executable, "-c", CLI_PROCESS, *argv],
@@ -2019,11 +2022,11 @@ def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
         counts = json.loads(run.stdout.strip().splitlines()[-1])
     else:
         rc = cli.main(argv)
-        counts = K.LAUNCHES
+        counts = utils.trace_totals()["counters"]
     dt = time.perf_counter() - t0
-    launches = {n: counts[n] for n in names}
+    launched = {n: counts.get("kernel.launch." + n, 0) for n in names}
     check(rc == 0, f"CLI exited with {rc}")
-    for name, n in launches.items():
+    for name, n in launched.items():
         check(n > 0, f"CLI phase: kernel {name} was never launched")
 
     jp = json.loads((wd / "placements_reads.fasta.jplace").read_text())
@@ -2039,7 +2042,7 @@ def cli_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
           "distinct reads")
     out = {"reads_per_s": n_reads / dt, "seconds": dt, "reads": n_reads,
            "placements": len(jp["placements"]), "unplaced": n_unplaced,
-           "launches": launches}
+           "launches": launched}
     # the first 512 placements, read by read
     arr = db.arrays
     first = jp["placements"][:512]
@@ -2100,10 +2103,9 @@ def build_phase(work: Path, seed: int) -> tuple:
 
     import numpy as np
 
-    from rappas_tpu_torch import cli
+    from rappas_tpu_torch import cli, utils
     from rappas_tpu_torch.build import calibration, pipeline
     from rappas_tpu_torch.db import PhyloKmerDB
-    from rappas_tpu_torch.place import kernels as K
     from rappas_tpu_torch.place.engine import PlacementEngine
 
     repo = Path(__file__).resolve().parent
@@ -2140,18 +2142,19 @@ def build_phase(work: Path, seed: int) -> tuple:
                                       seed)
     gen_s = time.perf_counter() - t0
     wd = work / "synthetic_db"
-    K.reset_launches()
+    utils.trace_reset()
     t0 = time.perf_counter()
     rc = cli.main(["-p", "b", "-r", str(align), "-t", str(tree),
                    "-b", "/fake/raxml-ng", "--ardir", str(ar), "-w", str(wd),
                    "--calibration"])
     cli_s = time.perf_counter() - t0
-    launches = {n: K.LAUNCHES[n] for n in BUILD}
+    launched = launches(BUILD)
     check(rc == 0, f"-p b exited with {rc}")
-    for name, n in launches.items():
+    for name, n in launched.items():
         check(n > 0, f"build phase: kernel {name} was never launched")
-    check(K.LAUNCHES["accumulate_codes"] == K.LAUNCHES["accumulate_packed"]
-          == 0, "build phase: a calibration read left the compact table")
+    check(launches(("accumulate_codes", "accumulate_packed")) ==
+          {"accumulate_codes": 0, "accumulate_packed": 0},
+          "build phase: a calibration read left the compact table")
     stats, cal = dict(pipeline.LAST_BUILD), dict(calibration.LAST_RUN)
     path = wd / "DB_k8_o1.5.rptpu"
     db = PhyloKmerDB.load(path)
@@ -2172,14 +2175,14 @@ def build_phase(work: Path, seed: int) -> tuple:
                                                 "kmers_s", "save_s")},
         "calibration_s": cal["seconds"],
         "calibration_reads_per_s": cal["reads"] / cal["seconds"],
-        "cli_s": cli_s, "bound": bound, "launches": launches}
+        "cli_s": cli_s, "bound": bound, "launches": launched}
 
     # the same reads' bound on the card and on the CPU
     n = 65_536
-    K.reset_launches()
+    utils.trace_reset()
     on_card = calibration.calibrate(db, n_samples=n, device="cuda")
     card_s = calibration.LAST_RUN["seconds"]
-    moved = {name: K.LAUNCHES[name] for name in BUILD}
+    moved = launches(BUILD)
     for name, m in moved.items():
         check(m > 0, f"calibrate on cuda: kernel {name} was never launched")
     on_cpu = calibration.calibrate(db, n_samples=n, device="cpu")
@@ -2437,7 +2440,7 @@ def profile_phase(db, db_path: Path, work: Path, n_reads: int, seed: int,
     """The CLI on ``n_reads`` reads in processes of its own, as a user runs
     it, without and with ``--profile DIR`` (``torch.profiler``, CPU and
     CUDA activity): the trace must account for every launch the profiled
-    run counted (``kernels.LAUNCHES``) of each wrapper in ``names``, by
+    run counted (``kernel.launch.<name>``) of each wrapper in ``names``, by
     its kernel record or, where the profiler lost that record, by its
     runtime launch record (the trace then holds exactly as many launch
     records without a kernel record as the wrappers' kernel records fall
@@ -2518,11 +2521,11 @@ def rank_main(rank: int, port: int, work: Path, devices: list,
     import torch
     import torch.distributed as dist
 
+    from rappas_tpu_torch import utils
     from rappas_tpu_torch.db import PhyloKmerDB
     from rappas_tpu_torch.parallel.engine import ShardedEngine
     from rappas_tpu_torch.parallel.kmer_sharded import KmerShardedPlacement
     from rappas_tpu_torch.parallel.mesh import ShardedPlacement, make_mesh
-    from rappas_tpu_torch.place import kernels as K
 
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=2, rank=rank,
@@ -2533,7 +2536,7 @@ def rank_main(rank: int, port: int, work: Path, devices: list,
     ref = config5_reference(seed)
     out, report = {}, {"rank": rank, "devices": [str(d) for d in devices],
                        "backends": [g[1] for g in mesh._groups.values()]}
-    K.reset_launches()
+    utils.trace_reset()
     for cfg, n in (("config1", 3), ("config6", 10), ("config5", 3)):
         db = PhyloKmerDB.load(work / f"{cfg}.rptpu")
         t0 = time.perf_counter()
@@ -2562,7 +2565,7 @@ def rank_main(rank: int, port: int, work: Path, devices: list,
         for name, x in zip(res[0]._fields, zip(*res)):
             out[f"{cfg}/{name}"] = np.concatenate(x)
         del eng, db
-    report["launches"] = {n: K.LAUNCHES[n] for n in CROSS_PROCESS}
+    report["launches"] = launches(CROSS_PROCESS)
     np.savez(work / f"rank{rank}.npz", **out)
     (work / f"rank{rank}.json").write_text(json.dumps(report))
     dist.destroy_process_group()

@@ -51,20 +51,19 @@ class DeviceTables(NamedTuple):
     keys: torch.Tensor | None  # int32[n_kmers] sorted (compact, S^k < 2^31)
 
 
-#: an f32 table's build on the device (:func:`f32_table`) scatters its
-#: postings in steps of ``table bytes / TABLE_STEP_DIVISOR / 32``: their
-#: buffers (16 bytes a posting, about 24 a key) stay near this share of
-#: the table, so the build adds about a thousandth to the card's peak at
-#: most, and no more than the batches' buffers beside the table (a
-#: batch's [1024, E] sums alone are this share of a 1M-row table)
-TABLE_STEP_DIVISOR = 1024
+#: an f32 table's build on the device (:func:`f32_table`) scatters at
+#: most this many postings a step, so that its buffers on the device (an
+#: int64 index and an f32 delta a posting) stay under 0.8 MB whatever the
+#: table's size; a key's postings are never cut, so a key wider than this
+#: takes a step of its own
+TABLE_STEP_POSTINGS = 1 << 16
 
 
 def f32_table(db: PhyloKmerDB, device, table: str) -> torch.Tensor:
     """``db.dense_matrix(pad_rows=1)`` (``table="direct"``) or
     ``db.compact_matrix(pad_rows=1)`` (``"compact"``), built on
     ``device``: the zeroed table allocated there and the CSR's deltas
-    scattered in by steps (:data:`TABLE_STEP_DIVISOR`), so that no host
+    scattered in by steps (:data:`TABLE_STEP_POSTINGS`), so that no host
     array of the table's shape exists.  A DB's (key, edge) pairs are
     unique (``build_csr`` keeps each pair's max), so the scatter writes
     what the host's assignment writes, bitwise."""
@@ -75,23 +74,19 @@ def f32_table(db: PhyloKmerDB, device, table: str) -> torch.Tensor:
     D = torch.zeros((height, E), dtype=torch.float32, device=device)
     flat = D.view(-1)
     offsets = db.offsets
-    step = max(D.numel() * 4 // (TABLE_STEP_DIVISOR * 32), 1)
     lo = 0
     while lo < n:
         # the keys whose postings end within the step (at least one key)
-        hi = int(np.searchsorted(offsets, offsets[lo] + step,
-                                 side="right")) - 1
+        hi = int(np.searchsorted(
+            offsets, offsets[lo] + TABLE_STEP_POSTINGS, side="right")) - 1
         hi = min(max(hi, lo + 1), n)
         p0, p1 = int(offsets[lo]), int(offsets[hi])
         rows = (db.keys[lo:hi] if table == "direct"
                 else np.arange(lo, hi, dtype=np.int64))
-        idx = torch.repeat_interleave(
-            torch.from_numpy(rows).to(device),
-            torch.from_numpy(np.diff(offsets[lo:hi + 1])).to(device),
-            output_size=p1 - p0)
-        idx.mul_(E).add_(torch.from_numpy(db.edges[p0:p1]).to(device))
-        flat.index_put_((idx,), torch.from_numpy(db.deltas[p0:p1])
-                        .to(device))
+        idx = np.repeat(rows * E, np.diff(offsets[lo:hi + 1]))
+        idx += db.edges[p0:p1]
+        flat.index_put_((torch.from_numpy(idx).to(device),),
+                        torch.from_numpy(db.deltas[p0:p1]).to(device))
         lo = hi
     return D
 

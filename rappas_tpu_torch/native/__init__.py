@@ -19,7 +19,9 @@ build (the reference's equivalents are its Java inner loops):
 
 Each library is built at first use into ``rappas_tpu_torch/_build/``
 (listed in ``.gitignore``), keyed by the hash of its source; no network
-or pip involved.
+or pip involved.  g++ is required: the placement path and the DB build
+call these libraries with no Python fallback, and a host that cannot
+build one gets :class:`NativeUnavailable` from :func:`load`.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ from pathlib import Path
 
 import numpy as np
 
+from rappas_tpu_torch.utils import count
+
 _DIR = Path(__file__).parent
 _BUILD = _DIR.parent / "_build"
 _LOCK = threading.Lock()
@@ -40,7 +44,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 class NativeUnavailable(RuntimeError):
-    pass
+    """A native library could not be built (no g++, or a compile error)."""
 
 
 def _build(name: str) -> Path:
@@ -59,10 +63,13 @@ def _build(name: str) -> Path:
            str(src), "-o", str(tmp)]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
-    except (subprocess.CalledProcessError, FileNotFoundError) as e:
-        detail = getattr(e, "stderr", b"")
+    except subprocess.CalledProcessError as e:
         raise NativeUnavailable(
-            f"could not build {name}: {detail!r}") from e
+            f"could not build {src} with g++: "
+            f"{e.stderr.decode(errors='replace')}") from e
+    except FileNotFoundError as e:
+        raise NativeUnavailable(
+            f"could not build {src}: g++ is required ({e})") from e
     os.replace(tmp, out)
     return out
 
@@ -187,9 +194,7 @@ def format_placement_rows(nodes: np.ndarray, scores: np.ndarray,
     """Format a batch of jplace ``"p"`` row lists in one native call.
 
     Returns ``(text bytes, out_off int64[n+1])`` where placement ``i``'s
-    rows are ``text[out_off[i]:out_off[i+1]]``.  Raises
-    :class:`NativeUnavailable` when the toolchain is missing (callers
-    fall back to the python formatter).
+    rows are ``text[out_off[i]:out_off[i+1]]``.
     """
     lib = _jp_lib()
     n = row_off.shape[0] - 1
@@ -217,11 +222,6 @@ def format_placement_rows(nodes: np.ndarray, scores: np.ndarray,
 # ------------------------------------------------------------------ #
 # fused k-mer index + key probe (protein big-key-space host path)
 # ------------------------------------------------------------------ #
-
-#: calls of the native row sweep, :func:`probe_rows` and
-#: :func:`probe_light_rows` (a run can show which row lookup it took)
-PROBE_CALLS = {"probe_rows": 0}
-
 
 def _kp_lib() -> ctypes.CDLL:
     lib = load("keyprobe")
@@ -270,7 +270,9 @@ def _kp_rows(codes, lengths, k, n_states, miss, n_threads, keys=None,
                     0 if keys is None else keys.shape[0], _ptr(lo), shift,
                     miss, out.ctypes.data, n_threads, _ptr(direct), nl,
                     _ptr(counts), *map(_ptr, packed))
-        PROBE_CALLS["probe_rows"] += 1
+        # calls of the native row sweep (a run can show which row lookup
+        # it took)
+        count("native.probe_rows")
     return (out,) + packed
 
 
@@ -371,8 +373,7 @@ class ParsedBlock:
 
 def parse_fasta_block(data: bytes) -> ParsedBlock:
     """Parse one byte block of complete FASTA records and compute the
-    md5 dedup keys, all in native code.  Raises
-    :class:`NativeUnavailable` when the toolchain is missing."""
+    md5 dedup keys, all in native code."""
     lib = _ig_lib()
     n = len(data)
     nrec = lib.ig_count(data, n)

@@ -54,8 +54,8 @@ k-mers with at most ``postings_width`` postings live in one light table
 ``pairs[nl + 1, 2P]`` (edge ids, then bit-cast deltas), the others in a
 dense ``heavy_dense[nh + 1, E]``.  The host maps every window to an
 encoded row and left-packs each read's light hits in one native sweep
-(``native/keyprobe.cpp``: a direct index, or a key probe for big k-mer
-spaces; the numpy passes without a C++ toolchain), and gives each read
+(``native/keyprobe.cpp``, built with g++ at first use: a direct index,
+or a key probe for big k-mer spaces), and gives each read
 with dense content (heavy hits, ambiguity windows) one slot.  Then:
 
 * P1 ``dense_side`` -- heavy hit rows summed per slot into ``acc_c``;
@@ -109,6 +109,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from rappas_tpu_torch import native
 from rappas_tpu_torch.convert import (device_tables, direct_split_tables,
                                       postings_device_tables)
 from rappas_tpu_torch.db import PhyloKmerDB
@@ -1481,13 +1482,9 @@ class PlacementEngine:
         ``(codes, lengths) -> (rof, lrows, hits, pairs, n_heavy)``
         (:func:`rappas_tpu_torch.native.probe_light_rows`, which packs
         each read's light rows in the same sweep): the direct index where
-        the engine has one, else the bucketed key probe; or None (a small
-        key set without a direct index, or no C++ toolchain: the numpy
-        passes give the same rows)."""
-        try:
-            from rappas_tpu_torch.native import probe_light_rows
-        except Exception:
-            return None
+        the engine has one, else the bucketed key probe; or None for a
+        small key set without a direct index (the numpy passes give the
+        same rows)."""
         if self._rof_np is not None:
             lookup = {"direct": self._rof_np}
         else:
@@ -1497,23 +1494,16 @@ class PlacementEngine:
             keys, vals = self._comb_lookup_arrays
             lookup = {"keys": keys, "vals": vals, "lo": hki.lo,
                       "shift": hki.shift}
-        k, S, nl = self.k, self.alphabet.n_states, self._nl
-        light_counts = self._light_counts
-
-        def run(codes, lengths):
-            return probe_light_rows(codes, lengths, k, S, nl, light_counts,
-                                    **lookup)
-        try:        # force the g++ build now; fall back on failure
-            run(np.zeros((1, k), np.int8), np.full(1, k, np.int32))
-        except Exception:
-            return None
-        return run
+        return functools.partial(
+            native.probe_light_rows, k=self.k,
+            n_states=self.alphabet.n_states, nl=self._nl,
+            light_counts=self._light_counts, **lookup)
 
     def _rows_from_codes(self, codes: np.ndarray, lengths: np.ndarray):
         """Encoded row per window straight from state codes, and the light
         rows packed (:func:`postings_batch`'s ``packed``): the fused native
-        sweep, or the numpy passes (direct index or two-pass lookup) with
-        ``packed`` None."""
+        sweep, or for a small key set without a direct index the numpy
+        passes with ``packed`` None."""
         probe = self._native_probe
         if probe is not None:
             rof, *packed = probe(codes, lengths)

@@ -23,7 +23,7 @@ value at ~500 reads/s; here placements are stored as per-batch ARRAY
 records (zero per-read python objects on the hot path) and the ``"p"``
 rows of a whole batch are formatted by one native call
 (``rappas_tpu_torch/native/jplacefmt.cpp``, shortest-round-trip doubles via
-``std::to_chars``) with a pure-python fallback.
+``std::to_chars``), which is built with g++ at first use.
 """
 
 from __future__ import annotations
@@ -32,6 +32,8 @@ import json
 
 import numpy as np
 
+from rappas_tpu_torch.native import (format_placement_lines,
+                                     format_placement_rows, gather_ranges)
 from rappas_tpu_torch.tree import Tree, write_newick
 from rappas_tpu_torch.utils import count
 
@@ -39,13 +41,6 @@ from rappas_tpu_torch.utils import count
 def jplace_tree_string(tree: Tree) -> str:
     return write_newick(tree, branch_lengths=True, internal_labels=True,
                         jplace_labels=True, id_prefix=False)
-
-
-def _json_str(h: str) -> str:
-    """JSON string literal; fast path for the typical clean header."""
-    if h.isascii() and h.isprintable() and '"' not in h and "\\" not in h:
-        return '"%s"' % h
-    return json.dumps(h)
 
 
 class BatchPlacements:
@@ -79,20 +74,6 @@ class BatchPlacements:
         #: tuple element records the extras count it was rendered with)
         self.lines = None
 
-    def header(self, i: int) -> str:
-        return self.hdr_blob[self.hdr_off[i]:self.hdr_off[i + 1]] \
-            .tobytes().decode("utf-8", "replace")
-
-    def extras_for(self, i: int) -> list:
-        """Duplicate sub-headers of in-batch read ``i`` (chronological);
-        python-fallback rendering only."""
-        out = list(self.extra.get(i, ()))
-        for slots, blob, off in self.extra_chunks:
-            for m in np.flatnonzero(slots == i).tolist():
-                out.append(blob[off[m]:off[m + 1]].tobytes()
-                           .decode("utf-8", "replace"))
-        return out
-
     def extras_count(self) -> int:
         return (sum(len(v) for v in self.extra.values()) +
                 sum(int(c[0].shape[0]) for c in self.extra_chunks))
@@ -118,24 +99,18 @@ class JplaceWriter:
         self.keep_factor = keep_factor
         self._batches: list[BatchPlacements] = []
         arr = tree.to_arrays()
-        self._jplace_ids = arr.jplace_edge_id
-        self._branch_len = arr.branch_len
-        # per-node cached decimal fragments: edge_num and distal_length
-        # depend only on the node id, so the per-row work left is two
-        # float prints (likelihood, lwr)
-        self._edge_str = [str(int(j)) for j in self._jplace_ids]
-        self._distal_str = [repr(float(np.float32(b / np.float32(2.0))))
-                            for b in self._branch_len]
-        # flat buffers for the native formatter
-        self._estr_buf = "".join(self._edge_str).encode("ascii")
-        self._estr_off = np.zeros(len(self._edge_str) + 1, np.int32)
-        np.cumsum([len(s) for s in self._edge_str],
-                  out=self._estr_off[1:])
-        self._dstr_buf = "".join(self._distal_str).encode("ascii")
-        self._dstr_off = np.zeros(len(self._distal_str) + 1, np.int32)
-        np.cumsum([len(s) for s in self._distal_str],
-                  out=self._dstr_off[1:])
-        self._native_fmt = True
+        # per-node decimal fragments for the native formatter: edge_num
+        # and distal_length depend only on the node id, so the per-row
+        # work left is two float prints (likelihood, lwr)
+        edge_str = [str(int(j)) for j in arr.jplace_edge_id]
+        distal_str = [repr(float(np.float32(b / np.float32(2.0))))
+                      for b in arr.branch_len]
+        self._estr_buf = "".join(edge_str).encode("ascii")
+        self._estr_off = np.zeros(len(edge_str) + 1, np.int32)
+        np.cumsum([len(s) for s in edge_str], out=self._estr_off[1:])
+        self._dstr_buf = "".join(distal_str).encode("ascii")
+        self._dstr_off = np.zeros(len(distal_str) + 1, np.int32)
+        np.cumsum([len(s) for s in distal_str], out=self._dstr_off[1:])
 
     # -------------------------------------------------------------- #
     @property
@@ -184,63 +159,22 @@ class JplaceWriter:
         batch.extra.setdefault(i, []).append(header.split(" ")[0])
 
     # -------------------------------------------------------------- #
-    def _batch_rows(self, b: BatchPlacements):
-        """Masked row arrays + offsets for one batch's placements."""
+    def _batch_rows_native(self, b: BatchPlacements):
+        """``(rows_blob bytes, rows_off)``: the ``"p"`` row lists of one
+        batch's placements, masked to each read's kept rows and formatted
+        in one native call."""
         pre = b.pre
         reads = b.reads
         n_keep = pre["n_keep"][reads]
         K = pre["node"].shape[1]
         mask = np.arange(K)[None, :] < n_keep[:, None]
-        nodes = pre["node"][reads][mask]
-        scores = pre["scores"][reads][mask]
-        lwrs = pre["lwr"][reads][mask]
         row_off = np.zeros(reads.shape[0] + 1, np.int64)
         np.cumsum(n_keep, out=row_off[1:])
-        return nodes, scores, lwrs, row_off
-
-    def _batch_rows_native(self, b: BatchPlacements):
-        """``(rows_blob bytes, rows_off)`` via the native formatter, or
-        None when the toolchain is missing."""
-        if not self._native_fmt:
-            return None
-        nodes, scores, lwrs, row_off = self._batch_rows(b)
-        try:
-            from rappas_tpu_torch.native import format_placement_rows
-            return format_placement_rows(
-                nodes, scores, lwrs, row_off,
-                self._estr_buf, self._estr_off,
-                self._dstr_buf, self._dstr_off, self.guppy)
-        except Exception:          # toolchain missing: python fallback
-            self._native_fmt = False
-            return None
-
-    def _batch_row_texts(self, b: BatchPlacements) -> list[str]:
-        """jplace ``"p"`` row-list text per placement of one batch."""
-        nat = self._batch_rows_native(b)
-        if nat is not None:
-            s = nat[0].decode("ascii")
-            off = nat[1].tolist()
-            return [s[off[i]:off[i + 1]]
-                    for i in range(b.reads.shape[0])]
-        nodes, scores, lwrs, row_off = self._batch_rows(b)
-        es, ds = self._edge_str, self._distal_str
-        nl = nodes.tolist()
-        sl = scores.tolist()
-        wl = lwrs.tolist()
-        out = []
-        for i in range(b.reads.shape[0]):
-            lo, hi = int(row_off[i]), int(row_off[i + 1])
-            if self.guppy:
-                out.append(",".join(
-                    "[%s,%s,%r,%r,0.0]" % (ds[nl[r]], es[nl[r]],
-                                           wl[r], sl[r])
-                    for r in range(lo, hi)))
-            else:
-                out.append(",".join(
-                    "[%s,%r,%r,%s,0.0]" % (es[nl[r]], sl[r],
-                                           wl[r], ds[nl[r]])
-                    for r in range(lo, hi)))
-        return out
+        return format_placement_rows(
+            pre["node"][reads][mask], pre["scores"][reads][mask],
+            pre["lwr"][reads][mask], row_off,
+            self._estr_buf, self._estr_off,
+            self._dstr_buf, self._dstr_off, self.guppy)
 
     def _extras_arrays(self, b: BatchPlacements):
         """Duplicate "nm" sub-headers flattened in placement order
@@ -274,7 +208,6 @@ class JplaceWriter:
             base += int(blob.shape[0])
         if not pos_parts:
             return None
-        from rappas_tpu_torch.native import gather_ranges
         pos = np.concatenate(pos_parts)
         blob_all = np.concatenate(blob_parts)
         starts = np.concatenate(start_parts)
@@ -288,28 +221,16 @@ class JplaceWriter:
     def _batch_lines(self, b: BatchPlacements, reuse_rows=None):
         """Fully-assembled ``{"p":..,"nm":..},\\n`` lines of one batch
         (native, duplicate sub-headers included): ``(blob, line_off,
-        rows_blob, rows_off, n_extras)``.  None when the toolchain is
-        missing."""
-        if reuse_rows is not None:
-            nat = reuse_rows
-        else:
-            nat = self._batch_rows_native(b)
-            if nat is None:
-                return None
-        rows_blob, rows_off = nat
-        from rappas_tpu_torch.native import (format_placement_lines,
-                                       gather_ranges)
+        rows_blob, rows_off, n_extras)``."""
+        rows_blob, rows_off = (reuse_rows if reuse_rows is not None
+                               else self._batch_rows_native(b))
         hb, hdr_off = gather_ranges(b.hdr_blob, b.hdr_off[b.reads],
                                     b.hdr_off[b.reads + 1])
         ex = self._extras_arrays(b)
         n_extras = int(ex[0].sum()) if ex is not None else 0
-        try:
-            blob, off = format_placement_lines(
-                rows_blob, rows_off, hb.tobytes(), hdr_off,
-                *(ex if ex is not None else (None, b"", None)))
-        except Exception:              # toolchain missing
-            self._native_fmt = False
-            return None
+        blob, off = format_placement_lines(
+            rows_blob, rows_off, hb.tobytes(), hdr_off,
+            *(ex if ex is not None else (None, b"", None)))
         return blob, off, rows_blob, rows_off, n_extras
 
     def _ordered_chunks(self):
@@ -321,8 +242,7 @@ class JplaceWriter:
         sub-headers are baked into the blob by the native formatter
         (round 5); an eagerly-formatted blob is reused when its extras
         count still matches, else the batch re-renders from its cached
-        rows blob.  Per-placement python remains only on the
-        no-toolchain fallback."""
+        rows blob."""
         if not self._batches:
             return
         bl = self._batches
@@ -341,24 +261,12 @@ class JplaceWriter:
                                                                  np.int64)
         run_ends = np.append(run_starts[1:], n)
         lines = [None] * len(bl)
-        texts = [None] * len(bl)
-
-        def py_line(b, j, p):
-            i = int(b.reads[p])
-            header = b.header(i)
-            nm = ",".join("[%s,1]" % _json_str(h)
-                          for h in [header] + b.extras_for(i))
-            if texts[j] is None:
-                texts[j] = self._batch_row_texts(b)
-            rows = texts[j][p]
-            return ('{"p":[%s],"nm":[%s]}' % (rows, nm)).encode("utf-8")
-
         for s, e in zip(run_starts.tolist(), run_ends.tolist()):
             j = int(bid_s[s])
             b = bl[j]
             if lines[j] is None:
                 ent = b.lines
-                if ent is not None and ent is not False:
+                if ent is not None:
                     if ent[4] == b.extras_count():
                         count("jplace.lines_reused")
                     else:
@@ -370,14 +278,9 @@ class JplaceWriter:
                     # the formatter did not render it
                     count("jplace.lines_late")
                     ent = self._batch_lines(b)
-                lines[j] = ent if ent is not None else False
-            ent = lines[j]
+                lines[j] = ent
             p0, p1 = int(pos_s[s]), int(pos_s[e - 1])
-            if ent is False:
-                for p in range(p0, p1 + 1):
-                    yield py_line(b, j, p)
-                continue
-            blob, off = ent[0], ent[1]
+            blob, off = lines[j][0], lines[j][1]
             yield blob[off[p0]:off[p1 + 1] - 2]       # strip last ",\n"
 
     # -------------------------------------------------------------- #

@@ -33,9 +33,9 @@ Two parts:
   A wrapper
   given CPU tensors computes its plain composition; given CUDA tensors it
   launches its kernel on the current stream or raises -- it never falls
-  back.  Each launch adds one
-  to :data:`LAUNCHES`, under the kernel's name, with ``_u16`` appended
-  for the instance that reads a uint16 table.
+  back.  Each launch adds one to the counter ``kernel.launch.<name>``
+  (:func:`rappas_tpu_torch.utils.count`), ``<name>`` the kernel's name
+  with ``_u16`` appended for the instance that reads a uint16 table.
 
 The direct and compact tables come in f32 or uint16 (fixed point,
 ``delta = D * scale``): the sums run in f32 over the raw table values
@@ -51,35 +51,14 @@ import numpy as np
 import torch
 
 from rappas_tpu_torch.db import DELTA_TINY, LIGHT_PAD_EDGE
+from rappas_tpu_torch.utils import count
 
 LOG2_10 = float(np.float32(np.log2(10.0)))
 INV_LOG2_10 = float(np.float32(1.0 / np.log2(10.0)))
 
-#: kernel launches, one count per kernel and table type, added where the
-#: wrapper launches it (plain-version calls on CPU tensors do not count)
-LAUNCHES = {name + sfx: 0
-            for name in ("accumulate_packed", "accumulate_codes",
-                         "accumulate_compact", "accumulate_rows",
-                         "ambiguous_pass")
-            for sfx in ("", "_u16")}
-LAUNCHES.update({"finalize_wire": 0, "dense_side": 0,
-                 "ambiguous_postings": 0, "finalize_postings_wire": 0,
-                 "accumulate_rows_range": 0, "merge_candidates_wire": 0,
-                 "finalize_postings_wire_routed": 0,
-                 "finalize_postings_wire_parts": 0, "gather_compact": 0,
-                 "ambiguous_postings_parts": 0})
-LAUNCHES.update({name + sfx: 0
-                 for name in ("routed_accumulate", "ambiguous_pass_split")
-                 for sfx in ("", "_u16")})
-
 #: wire rows carry edge ids as u16 below this many edge slots, as int32
 #: at or above it (65535 is the u16 "no edge" mark)
 WIDE_EDGES = 65535
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 # ====================================================================== #
@@ -575,7 +554,7 @@ def _launch(name: str, fn, *args) -> None:
     if err:
         raise RuntimeError(f"{name}: CUDA error {err} "
                            f"({lib().rp_error_string(err).decode()})")
-    LAUNCHES[name] += 1
+    count("kernel.launch." + name)
 
 
 def _stream(t: torch.Tensor) -> int:

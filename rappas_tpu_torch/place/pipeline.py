@@ -28,6 +28,8 @@ from pathlib import Path
 import numpy as np
 
 from rappas_tpu_torch.db import PhyloKmerDB
+from rappas_tpu_torch.native import (NativeDedup, format_tsv_rows,
+                                     gather_ranges)
 from rappas_tpu_torch.place.engine import PlacementEngine
 from rappas_tpu_torch.place.jplace import JplaceWriter
 from rappas_tpu_torch.seqio import IndexBatcher, ingest_blocks
@@ -36,33 +38,6 @@ from rappas_tpu_torch.utils import count, log, span, trace_totals
 
 #: per-order dedup state codes (see _OrderState)
 _IN_FLIGHT, _PLACED, _UNPLACED, _FILTERED = 0, 1, 2, 3
-
-
-class _PyDedup:
-    """Python fallback for :class:`rappas_tpu_torch.native.NativeDedup`
-    (identical contract: first occurrence -> -1 and registers the
-    order; duplicate -> the registered first order)."""
-
-    def __init__(self):
-        self._m: dict[bytes, int] = {}
-
-    def __call__(self, md5s: np.ndarray, orders: np.ndarray) -> np.ndarray:
-        blob = np.ascontiguousarray(md5s, np.uint8).tobytes()
-        ol = orders.tolist()
-        out = np.empty(len(ol), np.int64)
-        m = self._m
-        for i, o in enumerate(ol):
-            v = m.setdefault(blob[16 * i:16 * i + 16], o)
-            out[i] = -1 if v == o else v
-        return out
-
-
-def _make_dedup():
-    try:
-        from rappas_tpu_torch.native import NativeDedup
-        return NativeDedup()
-    except Exception:
-        return _PyDedup()
 
 
 class _OrderState:
@@ -136,7 +111,6 @@ def _first_tokens(pb, idx):
     """Sub-headers (header up to the first space,
     ``PlacementProcess.java:598-612``) of block records ``idx`` as a
     byte blob + offsets -- fully vectorized for native blocks."""
-    from rappas_tpu_torch.native import gather_ranges
     blob, off = _headers_blob([(pb, np.asarray(idx, np.int64))])
     sp = np.flatnonzero(blob == 0x20)
     if sp.size:
@@ -153,8 +127,7 @@ def _headers_blob(refs):
     """Concatenated utf-8 header bytes + int64 offsets for one batch's
     reads (``refs`` = list of (block, index-array) chunks in batch row
     order).  Native blocks take the vectorized range gather; PyBlock
-    (FASTQ/gz/no-toolchain) encodes its python strings."""
-    from rappas_tpu_torch.native import gather_ranges
+    (FASTQ/gz) encodes its python strings."""
     blobs = []
     offs = [np.zeros(1, np.int64)]
     base = 0
@@ -232,7 +205,7 @@ def _place(db: PhyloKmerDB, query_path, workdir,
                               keep_factor=config.keep_factor)
         arr = db.arrays
 
-        dedup = _make_dedup()
+        dedup = NativeDedup()
         reg = _OrderState()
         batcher = IndexBatcher(batch_size=config.batch_size)
         t0 = time.time()
@@ -333,7 +306,6 @@ def _place(db: PhyloKmerDB, query_path, workdir,
             # bulk unplaced listing with one range gather + newline
             # scatter (a high-miss workload -- e.g. protein screens --
             # can have ~every read here; the python loop was its wall)
-            from rappas_tpu_torch.native import gather_ranges
             ui = np.flatnonzero(unplaced)
             ub, uo = gather_ranges(hdr_blob, hdr_off[ui],
                                    hdr_off[ui + 1])
@@ -347,23 +319,12 @@ def _place(db: PhyloKmerDB, query_path, workdir,
             best = res.top_edges[reads, 0]
             score0 = res.top_scores[reads, 0]
             if resolution is None:
-                # default DBs: one native call formats the whole batch.
-                # Only the toolchain-dependent calls sit in the try --
-                # a real I/O error from tsv.write must propagate, not
-                # be mistaken for a missing compiler
-                from rappas_tpu_torch.native import (format_tsv_rows,
-                                               gather_ranges)
-                buf = None
-                try:
-                    hb, ho = gather_ranges(hdr_blob, hdr_off[reads],
-                                           hdr_off[reads + 1])
-                    buf = format_tsv_rows(hb, ho, best, score0,
-                                          lbl_buf, lbl_off)
-                except Exception:
-                    pass       # toolchain missing: python fallback
-                if buf is not None:
-                    tsv.write(buf)
-                    return
+                # default DBs: one native call formats the whole batch
+                hb, ho = gather_ranges(hdr_blob, hdr_off[reads],
+                                       hdr_off[reads + 1])
+                tsv.write(format_tsv_rows(hb, ho, best, score0, lbl_buf,
+                                          lbl_off))
+                return
             lines = []
             for i, b, score in zip(reads.tolist(), best.tolist(),
                                    score0.tolist()):
@@ -444,16 +405,15 @@ def _place(db: PhyloKmerDB, query_path, workdir,
     fmt_err: list = []
 
     def _formatter():
-        # _batch_lines already returns None when the native toolchain is
-        # missing; anything it raises is a formatting bug, re-raised in
-        # the main thread after the join below
+        # anything _batch_lines raises is re-raised in the main thread
+        # after the join below
         while True:
             b = fmt_q.get()
             if b is None:
                 return
             try:
                 with span("place.format"):
-                    b.lines = writer._batch_lines(b) or False
+                    b.lines = writer._batch_lines(b)
             except BaseException as e:
                 fmt_err.append(e)
                 return
@@ -485,7 +445,7 @@ def _place(db: PhyloKmerDB, query_path, workdir,
                 # md5 keys come pre-computed per block (gap-stripped
                 # sequence, PlacementProcess.java:591-596 /
                 # Fasta.java:34-39); the digest -> first-order map lives
-                # in native code (_make_dedup)
+                # in native code (NativeDedup)
                 if shard is None:
                     sel = np.arange(pb.n, dtype=np.int64)
                 else:
@@ -520,7 +480,6 @@ def _place(db: PhyloKmerDB, query_path, workdir,
                                   np.int8(_IN_FLIGHT))
                     pl = np.flatnonzero(st == _PLACED)
                     if pl.size:
-                        from rappas_tpu_torch.native import gather_ranges
                         toks, toff = _first_tokens(pb, js[pl])
                         bids = reg.bidx[fo[pl]]
                         slots = reg.slot[fo[pl]]

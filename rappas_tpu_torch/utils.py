@@ -12,9 +12,10 @@ profiled run shows it on the card's clock) and adds its duration to the
 in-memory totals of its name: count, total seconds and self seconds
 (the duration less the spans opened inside it on the same thread).
 Counters are always on, save those that cost work of their own, which
-are counted only under :func:`tracing_on`.  :func:`trace_totals` reads
-everything at once, the kernel launch and key-probe counts included;
-:func:`trace_reset` zeroes it.
+are counted only under :func:`tracing_on`; the kernel launches count
+as ``kernel.launch.<name>`` and the native key probe's sweeps as
+``native.probe_rows``.  :func:`counter` reads one counter,
+:func:`trace_totals` everything at once; :func:`trace_reset` zeroes it.
 """
 
 from __future__ import annotations
@@ -109,35 +110,23 @@ def count(name: str, n: int = 1) -> None:
         _COUNTERS[name] = _COUNTERS.get(name, 0) + n
 
 
+def counter(name: str) -> int:
+    """The counter ``name`` since the last :func:`trace_reset`."""
+    with _LOCK:
+        return _COUNTERS.get(name, 0)
+
+
 def trace_totals() -> dict:
     """``{"spans": {name: {"count", "total_s", "self_s"}}, "counters":
-    {name: n}}`` since the last :func:`trace_reset`; the counters hold
-    the non-zero ``kernels.LAUNCHES`` as ``kernel.launch.<name>`` and
-    ``native.PROBE_CALLS`` as ``native.probe_rows``."""
+    {name: n}}`` since the last :func:`trace_reset`."""
     with _LOCK:
         spans = {n: {"count": c, "total_s": t, "self_s": s}
                  for n, (c, t, s) in _SPANS.items()}
-        counters = dict(_COUNTERS)
-    # read where they are kept; a module not imported counted nothing
-    kernels = sys.modules.get("rappas_tpu_torch.place.kernels")
-    if kernels is not None:
-        counters.update({"kernel.launch." + n: c
-                         for n, c in kernels.LAUNCHES.items() if c})
-    native = sys.modules.get("rappas_tpu_torch.native")
-    if native is not None and native.PROBE_CALLS["probe_rows"]:
-        counters["native.probe_rows"] = native.PROBE_CALLS["probe_rows"]
-    return {"spans": spans, "counters": counters}
+        return {"spans": spans, "counters": dict(_COUNTERS)}
 
 
 def trace_reset() -> None:
-    """Zero every span total and counter, the launch and probe counts
-    included."""
+    """Zero every span total and counter."""
     with _LOCK:
         _SPANS.clear()
         _COUNTERS.clear()
-    kernels = sys.modules.get("rappas_tpu_torch.place.kernels")
-    if kernels is not None:
-        kernels.reset_launches()
-    native = sys.modules.get("rappas_tpu_torch.native")
-    if native is not None:
-        native.PROBE_CALLS["probe_rows"] = 0

@@ -85,15 +85,16 @@ CLI = ("import json, os, sys, threading, time\n"
        "from rappas_tpu_torch.place.engine import PlacementEngine\n"
        "for k, v in json.loads(sys.argv[1]).items():\n"
        "    setattr(PlacementEngine, k, v)\n"
-       "from rappas_tpu_torch import cli\n"
-       "from rappas_tpu_torch.place import kernels\n"
+       "from rappas_tpu_torch import cli, utils\n"
        "t0 = time.perf_counter()\n"
        "rc = cli.main(sys.argv[2:])\n"
        "dt = time.perf_counter() - t0\n"
        "peak = max(PEAK[0], rss())\n"
+       "counters = utils.trace_totals()['counters']\n"
+       "launches = {n[14:]: c for n, c in counters.items()\n"
+       "            if n.startswith('kernel.launch.')}\n"
        "print(json.dumps({'seconds': dt, 'peak_rss_mb': peak / 1e6,\n"
-       "                  'launches': {n: c for n, c in\n"
-       "                               kernels.LAUNCHES.items() if c}}))\n"
+       "                  'launches': launches}))\n"
        "sys.exit(rc)\n")
 
 

@@ -28,12 +28,17 @@ import torch
 from torch_cases import k3_rows, shard_wires
 
 from chip_smoke import inorder_slot_sums
+from rappas_tpu_torch import utils
 from rappas_tpu_torch.alphabet import DNA
 from rappas_tpu_torch.db import PhyloKmerDB, build_csr
 from rappas_tpu_torch.place import kernels as T
 from rappas_tpu_torch.place.engine import (PlacementEngine, pack_reads,
                                            unpack_wire, window_offsets)
 from rappas_tpu_torch.tree import parse_newick
+
+
+def _launches(name: str) -> int:
+    return utils.counter("kernel.launch." + name)
 
 
 def _codes(rng, B, L, k, amb=0.0):
@@ -138,8 +143,8 @@ def test_u16_kernels_match_plain_on_card(card):
     torch.cuda.synchronize()
     assert torch.allclose(acc, want, atol=2e-4, rtol=0)
     assert torch.equal(acc > 0, want > 0)
-    assert T.LAUNCHES["accumulate_codes_u16"] > 0
-    assert T.LAUNCHES["ambiguous_pass_u16"] > 0
+    assert _launches("accumulate_codes_u16") > 0
+    assert _launches("ambiguous_pass_u16") > 0
 
 
 @pytest.mark.cuda
@@ -367,7 +372,7 @@ def test_accumulate_rows_range_matches_plain_on_card(card):
         torch.cuda.synchronize()
         assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
         assert torch.equal(got > 0, want > 0)
-    assert T.LAUNCHES["accumulate_rows_range"] >= mp
+    assert _launches("accumulate_rows_range") >= mp
 
 
 @pytest.mark.cuda
@@ -439,15 +444,16 @@ def test_postings_shards_match_plain_on_card(card, dp, mp):
     codes = host.encode_batch(mat)
     amb = host._expand_ambiguities_host(codes, mat, lens)
     runs = {}
+    names = ("dense_side", "ambiguous_postings", "finalize_postings_wire",
+             "merge_candidates_wire")
     for dev in ("cpu", "cuda"):
         sp = PostingsShardedPlacement(
             db, make_mesh([dev] * (dp * mp), dp=dp, mp=mp))
-        before = dict(T.LAUNCHES)
+        before = {name: _launches(name) for name in names}
         runs[dev] = sp.score(codes, lens, amb)
         torch.cuda.synchronize()
-    for name in ("dense_side", "ambiguous_postings",
-                 "finalize_postings_wire", "merge_candidates_wire"):
-        assert T.LAUNCHES[name] > before[name], name
+    for name in names:
+        assert _launches(name) > before[name], name
     _same_placements(runs["cuda"], runs["cpu"])
 
 
@@ -550,7 +556,7 @@ def test_split_postings_kernels_match_plain_on_card(card):
     for name in ("finalize_postings_wire_routed",
                  "finalize_postings_wire_parts", "gather_compact",
                  "ambiguous_postings_parts"):
-        assert T.LAUNCHES[name] > 0, name
+        assert _launches(name) > 0, name
 
 
 @pytest.mark.cuda
@@ -596,8 +602,8 @@ def test_direct_split_kernels_match_plain_on_card(card, u16):
     assert torch.allclose(acc, want, atol=2e-4, rtol=0)
     assert torch.equal(acc > 0, want > 0)
     sfx = "_u16" if u16 else ""
-    assert T.LAUNCHES["routed_accumulate" + sfx] > 0
-    assert T.LAUNCHES["ambiguous_pass_split" + sfx] > 0
+    assert _launches("routed_accumulate" + sfx) > 0
+    assert _launches("ambiguous_pass_split" + sfx) > 0
 
 
 @pytest.mark.cuda
@@ -1157,9 +1163,9 @@ def test_calibrate_on_card_matches_cpu(card):
                            ("direct", "accumulate_packed")):
         engine = PlacementEngine(db, device="cuda", table=table,
                                  treat_ambiguities=False)
-        T.reset_launches()
+        utils.trace_reset()
         on_card = calibrate(db, engine=engine, device="cuda", **kw)
-        launched = {n: T.LAUNCHES[n] for n in (row_sum, "finalize_wire")}
+        launched = {n: _launches(n) for n in (row_sum, "finalize_wire")}
         assert launched == {row_sum: 5, "finalize_wire": 5}
-        assert T.LAUNCHES["accumulate_codes"] == 0
+        assert _launches("accumulate_codes") == 0
         assert np.isfinite(on_card) and abs(on_card - on_cpu) <= 2e-4

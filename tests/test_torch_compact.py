@@ -19,6 +19,7 @@ from rappas_tpu.db import PhyloKmerDB, build_csr
 from rappas_tpu.place import engine as J
 from rappas_tpu.place.engine import PlacementEngine as JaxEngine
 from rappas_tpu.tree import parse_newick
+from rappas_tpu_torch import utils
 from rappas_tpu_torch.convert import device_tables
 from rappas_tpu_torch.place import kernels as T
 from rappas_tpu_torch.place.engine import HostKeyIndex, PlacementEngine
@@ -126,7 +127,8 @@ def test_compact_wrappers_compose_plain_versions(u16):
     got = T.accumulate_compact(D, torch.from_numpy(keys), c, k, 4, 0.25)
     assert torch.equal(got, want)
     assert torch.equal(T.accumulate_rows(D, rows, 0.25), want)
-    assert all(v == 0 for v in T.LAUNCHES.values())
+    assert not any(n.startswith("kernel.launch.")
+                   for n in utils.trace_totals()["counters"])
 
 
 def test_device_tables_compact_and_u16(db, tdb):

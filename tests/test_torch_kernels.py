@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from rappas_tpu.place import engine as J
+from rappas_tpu_torch import utils
 from rappas_tpu_torch.db import DELTA_TINY
 from rappas_tpu_torch.place import kernels as T
 from rappas_tpu_torch.place.engine import pack_reads, window_offsets
@@ -197,7 +198,8 @@ def test_accumulate_wrappers_cpu_match_plain():
     T.accumulate_packed(D, p, pl, L, k, acc=acc, dest=dest_p)
     T.accumulate_codes(D, c, k, 4, acc=acc, dest=dest_c)
     assert torch.equal(acc[0::2], want_p) and torch.equal(acc[1::2], want)
-    assert T.LAUNCHES == {name: 0 for name in T.LAUNCHES}
+    assert not any(n.startswith("kernel.launch.")
+                   for n in utils.trace_totals()["counters"])
 
 
 @pytest.mark.parametrize("keep", [4, 7])
@@ -488,7 +490,7 @@ def test_finalize_postings_wire_cpu_round_trip(E):
                           top[1].view(np.uint32))
     assert np.array_equal(res.n_matched, top[3])
     assert np.allclose(res.top_lwr, top[2], atol=1e-6)
-    assert T.LAUNCHES["finalize_postings_wire"] == 0
+    assert utils.counter("kernel.launch.finalize_postings_wire") == 0
     bad = wire.numpy().copy()
     bad[2, -1] = -1                     # a read P3 could not sort
     with pytest.raises(RuntimeError, match="read 2"):

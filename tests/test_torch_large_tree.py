@@ -63,14 +63,26 @@ def _bits(a) -> bytes:
     return np.ascontiguousarray(a).view(np.uint32).tobytes()
 
 
-@pytest.mark.parametrize("divisor", [1, 1024, 1 << 14, 1 << 20])
+def _counted_steps(monkeypatch) -> list:
+    """One entry per scatter step of the f32 table build from now on."""
+    steps = []
+    scatter = torch.Tensor.index_put_
+
+    def counted(self, *args, **kwargs):
+        steps.append(1)
+        return scatter(self, *args, **kwargs)
+    monkeypatch.setattr(torch.Tensor, "index_put_", counted)
+    return steps
+
+
+@pytest.mark.parametrize("budget", [1, 1024, 1 << 14, 1 << 20])
 @pytest.mark.parametrize("table", ["compact", "direct"])
-def test_device_built_f32_table_is_the_host_table(small_db, table, divisor,
+def test_device_built_f32_table_is_the_host_table(small_db, table, budget,
                                                   monkeypatch):
-    # steps of the whole DB, of about 22 keys (the default: 1,000 postings
-    # for this 33 MB table), of one or two keys, and of one key (a step
-    # smaller than a key's postings)
-    monkeypatch.setattr(convert, "TABLE_STEP_DIVISOR", divisor)
+    # steps of one key (a step smaller than a key's postings), of about 22
+    # keys, of about 360 keys, and of the whole DB
+    monkeypatch.setattr(convert, "TABLE_STEP_POSTINGS", budget)
+    steps = _counted_steps(monkeypatch)
     lens = np.diff(small_db.offsets)
     assert int(lens[lens > 8].sum()) * 2 > small_db.nnz   # heavy-dominated
     tabs = convert.device_tables(small_db, "cpu", table)
@@ -80,11 +92,28 @@ def test_device_built_f32_table_is_the_host_table(small_db, table, divisor,
     assert tuple(tabs.D.shape) == want.shape
     assert _bits(tabs.D) == _bits(want)
     assert not tabs.D[-1].any()                           # the miss row
+    if budget == 1:
+        assert len(steps) == small_db.n_kmers
+    if budget >= small_db.nnz:
+        assert len(steps) == 1
     if table == "compact":
         assert tabs.keys.dtype == torch.int32
         assert np.array_equal(tabs.keys.numpy(), small_db.keys)
     else:
         assert tabs.keys is None
+
+
+@pytest.mark.parametrize("table", ["compact", "direct"])
+def test_f32_table_steps_by_a_fixed_posting_budget(small_db, table,
+                                                   monkeypatch):
+    """At the default budget the build takes at most ``ceil(nnz /
+    TABLE_STEP_POSTINGS)`` steps plus one for each key wider than a step:
+    a budget of postings, not a share of the table."""
+    steps = _counted_steps(monkeypatch)
+    convert.f32_table(small_db, "cpu", table)
+    budget = convert.TABLE_STEP_POSTINGS
+    wide = int((np.diff(small_db.offsets) > budget).sum())
+    assert 1 < len(steps) <= -(-small_db.nnz // budget) + wide
 
 
 def test_device_built_table_of_an_empty_db(small_db):

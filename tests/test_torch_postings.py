@@ -14,7 +14,7 @@ from rappas_tpu.db import DELTA_TINY, PhyloKmerDB, build_csr
 from rappas_tpu.place import oracle
 from rappas_tpu.place.engine import PlacementEngine as JaxEngine
 from rappas_tpu.tree import parse_newick
-from rappas_tpu_torch import native
+from rappas_tpu_torch import native, utils
 from rappas_tpu_torch.convert import postings_device_tables
 from rappas_tpu_torch.place import engine as port_engine
 from rappas_tpu_torch.place.engine import PlacementEngine
@@ -185,9 +185,9 @@ def test_postings_protein_mode(monkeypatch, native_probe):
         monkeypatch.setattr(port_engine, "_KEY_INDEX_MIN", 1)
     engine = PlacementEngine(port_db(db), device="cpu")
     assert engine.table == "postings" and engine._rof_np is None
-    calls = native.PROBE_CALLS["probe_rows"]
+    calls = utils.counter("native.probe_rows")
     compare(db, engine, reads)
-    assert (native.PROBE_CALLS["probe_rows"] > calls) == native_probe
+    assert (utils.counter("native.probe_rows") > calls) == native_probe
     mat, lens = batch_of(reads)
     same_as_jax(engine.score(mat, lens),
                 JaxEngine(db, table="postings").score(mat, lens))

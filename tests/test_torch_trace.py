@@ -96,19 +96,24 @@ def test_counters_and_the_counts_kept_elsewhere():
     utils.trace_reset()
     utils.count("place.reads", 5)
     utils.count("place.reads")
-    kernels.LAUNCHES["finalize_wire"] += 2
+    # a kernel launch and a native row sweep count where they run
+    for _ in range(2):
+        kernels._launch("finalize_wire", lambda: 0)
     from rappas_tpu_torch import native
-    native.PROBE_CALLS["probe_rows"] += 1
+    native.probe_light_rows(np.zeros((1, 4), np.int8), np.full(1, 4, np.int32),
+                            2, 4, 16, np.ones(17, np.int32),
+                            direct=np.arange(17, dtype=np.int32))
     c = utils.trace_totals()["counters"]
     assert c["place.reads"] == 6
     assert c["kernel.launch.finalize_wire"] == 2
     assert c["native.probe_rows"] == 1
     assert not any(n.startswith("kernel.launch.") and not v
                    for n, v in c.items())
+    assert utils.counter("kernel.launch.finalize_wire") == 2
     utils.trace_reset()
     assert utils.trace_totals()["counters"] == {}
-    assert kernels.LAUNCHES["finalize_wire"] == 0
-    assert native.PROBE_CALLS["probe_rows"] == 0
+    assert utils.counter("kernel.launch.finalize_wire") == 0
+    assert utils.counter("native.probe_rows") == 0
 
 
 # ---------------------------------------------------------------------
