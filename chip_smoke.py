@@ -1040,8 +1040,8 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
     plan = plan.to(dev)
     d = {n: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
          for n, a in host.items()}
-    H, pairs = eng.heavy_dense, eng.pairs
-    E, P = H.shape[1], pairs.shape[1] // 2
+    H, pairs, lay = eng.heavy_dense, eng.pairs, eng.light_layout
+    E, P = H.shape[1], lay.P
     miss = pairs.shape[0] - 1
     out = {}
 
@@ -1088,9 +1088,11 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
     errs = []
     for mean in (1, 0):
         spec[5] = torch.full_like(d["win_is_mean"], mean)
-        got = K.ambiguous_postings_(acc_c.clone(), H, pairs, *spec)
+        got = K.ambiguous_postings_(acc_c.clone(), H, pairs, *spec,
+                                    layout=lay)
         want = K.ambiguous_pass(
-            K.alt_delta_rows_postings(pairs, H, spec[0], spec[1]), alt_win,
+            K.alt_delta_rows_postings(pairs, H, spec[0], spec[1],
+                                      layout=lay), alt_win,
             spec[3], spec[4], spec[5], acc_c)
         torch.cuda.synchronize()
         errs.append(float((got - want).abs().max()))
@@ -1109,7 +1111,7 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
     # kernel's scan of every posting per column is its own cost, not work
     # the function needs
     b, why = bound(torch.unique(hr).numel() * E * 4 +
-                   torch.unique(lr).numel() * 2 * P * 4 + n_alt * 8 +
+                   torch.unique(lr).numel() * lay.words * 4 + n_alt * 8 +
                    n_w * 13 + 4 +
                    2 * torch.unique(spec[3]).numel() * E * 4,
                    (n_alt * 3 + 3 * n_w) * E + n_alt * P)
@@ -1118,9 +1120,11 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
         max_abs_err=max(errs), bound_ms=b, bound_by=why, windows=n_w,
         alternatives=n_alt,
         **window_stats(spec[2], spec[1], H.shape[0] - 1, P),
-        **timed(lambda: K.ambiguous_postings_(scratch, H, pairs, *spec)),
+        **timed(lambda: K.ambiguous_postings_(scratch, H, pairs, *spec,
+                                              layout=lay)),
         plain_ms=cuda_ms(lambda: K.ambiguous_pass(
-            K.alt_delta_rows_postings(pairs, H, spec[0], spec[1]), alt_win,
+            K.alt_delta_rows_postings(pairs, H, spec[0], spec[1],
+                                      layout=lay), alt_win,
             spec[3], spec[4], spec[5], acc_c)),
         library_ms=None)
 
@@ -1128,8 +1132,8 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
     args = (pairs, d["lrows"], acc_amb, d["slot_of"], d["lengths"])
     thr_t = torch.tensor(np.float32(eng.thr), device=dev)
     Kk = min(K_KEEP, E)
-    want = K.pack_wire(*K.finalize_postings(*args, thr_t, eng.k, K_KEEP),
-                       wide=eng.wide)
+    want = K.pack_wire(*K.finalize_postings(*args, thr_t, eng.k, K_KEEP,
+                                            layout=lay), wide=eng.wide)
     ref = unpack_wire(want.cpu().numpy(), Kk, eng.wide)
     counts = eng._light_counts[host["lrows"]].sum(axis=1)
     block_plan = K.postings_plan(counts, warp_pairs=0).to(dev)
@@ -1137,7 +1141,8 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
     for name, pl in (("plan", plan), ("block path", block_plan),
                      ("global scratch",
                       K.postings_plan(counts, 0, 0).to(dev))):
-        got = K.finalize_postings_wire(*args, eng.thr, eng.k, K_KEEP, pl)
+        got = K.finalize_postings_wire(*args, eng.thr, eng.k, K_KEEP, pl,
+                                       layout=lay)
         torch.cuda.synchronize()
         res = unpack_wire(got.cpu().numpy(), Kk, eng.wide)
         diff = same_placements(res, ref)
@@ -1148,7 +1153,7 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
                     if fin.any() else 0.0)
     lrows_real = d["lrows"][d["lrows"] != miss]
     n_b = counts[counts > 1].astype(np.float64)
-    b, why = bound(torch.unique(lrows_real).numel() * 2 * P * 4 +
+    b, why = bound(torch.unique(lrows_real).numel() * lay.words * 4 +
                    d["lrows"].numel() * 4 + B_POSTINGS * 8 +
                    n_slots * E * 4 + got.numel() * 4,
                    float((n_b * np.ceil(np.log2(n_b))).sum()) +
@@ -1158,12 +1163,13 @@ def postings_kernel_phase(eng, seed: int, ref, device: str = "cuda") -> dict:
         window_columns=int(host["lrows"].shape[1]),
         **p3_paths(plan, counts, n_slots), smem_pairs=plan.smem_pairs,
         **timed(lambda: K.finalize_postings_wire(
-            *args, eng.thr, eng.k, K_KEEP, plan)),
+            *args, eng.thr, eng.k, K_KEEP, plan, layout=lay)),
         # every read on the block path (the earlier design), this run
         block_path_ms=device_ms(lambda: K.finalize_postings_wire(
-            *args, eng.thr, eng.k, K_KEEP, block_plan)),
+            *args, eng.thr, eng.k, K_KEEP, block_plan, layout=lay)),
         plain_ms=cuda_ms(lambda: K.pack_wire(*K.finalize_postings(
-            *args, thr_t, eng.k, K_KEEP), wide=eng.wide), reps=5),
+            *args, thr_t, eng.k, K_KEEP, layout=lay), wide=eng.wide),
+            reps=5),
         library_ms=None)
     return out
 
@@ -1204,8 +1210,9 @@ def sharded_postings_kernel_phase(sp, eng, seed: int, ref) -> dict:
         plan = plan.to(dev)
         d = {n: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
              for n, a in host.items()}
-        H, pairs = sh["heavy_dense"][dev], sh["pairs"][dev]
-        E, P, off = H.shape[1], pairs.shape[1] // 2, sh["offset"]
+        H, pairs, lay = sh["heavy_dense"][dev], sh["pairs"][dev], \
+            sp.light_layout
+        E, P, off = H.shape[1], lay.P, sh["offset"]
         acc_c = K.dense_side(H, d["hrows"], d["hoff"])
         check(torch.equal(acc_c, inorder_slot_sums(H, d["hrows"],
                                                    d["hoff"])),
@@ -1218,12 +1225,13 @@ def sharded_postings_kernel_phase(sp, eng, seed: int, ref) -> dict:
             (spec[2][1:] - spec[2][:-1]).long())
 
         def p2(acc):
-            return K.ambiguous_postings_(acc, H, pairs, *spec, off)
+            return K.ambiguous_postings_(acc, H, pairs, *spec, off,
+                                         layout=lay)
 
         def p2_plain():
             return K.ambiguous_pass(K.alt_delta_rows_postings(
-                pairs, H, spec[0], spec[1], off), alt_win, *spec[3:],
-                acc_c)
+                pairs, H, spec[0], spec[1], off, layout=lay), alt_win,
+                *spec[3:], acc_c)
         got, want = p2(acc_c.clone()), p2_plain()
         torch.cuda.synchronize()
         err2 = float((got - want).abs().max()) if got.numel() else 0.0
@@ -1235,11 +1243,11 @@ def sharded_postings_kernel_phase(sp, eng, seed: int, ref) -> dict:
 
         def p3():
             return K.finalize_postings_wire(*args, sp.thr, k, K_KEEP, plan,
-                                            off, sp.n_edges)
+                                            off, sp.n_edges, layout=lay)
 
         def p3_plain():
             return K.pack_wire(*K.finalize_postings(
-                *args, thr_t, k, K_KEEP, off), wide=sp.wide)
+                *args, thr_t, k, K_KEEP, off, layout=lay), wide=sp.wide)
         wire, want = p3(), p3_plain()
         torch.cuda.synchronize()
         res = unpack_wire(wire.cpu().numpy(), sp._k_shard, sp.wide)
@@ -1258,8 +1266,8 @@ def sharded_postings_kernel_phase(sp, eng, seed: int, ref) -> dict:
         miss = pairs.shape[0] - 1
         lr, hr = spec[0][spec[0] != miss], spec[1][spec[1] != H.shape[0] - 1]
         b, why = bound(torch.unique(hr).numel() * E * 4 +
-                       torch.unique(lr).numel() * 2 * P * 4 + n_alt * 8 +
-                       n_w * 13 + 4 +
+                       torch.unique(lr).numel() * lay.words * 4 +
+                       n_alt * 8 + n_w * 13 + 4 +
                        2 * torch.unique(spec[3]).numel() * E * 4,
                        (n_alt * 3 + 3 * n_w) * E + n_alt * P)
         scratch = acc_c.clone()
@@ -1273,7 +1281,7 @@ def sharded_postings_kernel_phase(sp, eng, seed: int, ref) -> dict:
         n_b = counts[counts > 1].astype(np.float64)
         n_slots = d["hoff"].numel() - 1
         lrows_real = d["lrows"][d["lrows"] != miss]
-        b, why = bound(torch.unique(lrows_real).numel() * 2 * P * 4 +
+        b, why = bound(torch.unique(lrows_real).numel() * lay.words * 4 +
                        d["lrows"].numel() * 4 + Bl * 8 +
                        n_slots * E * 4 + wire.numel() * 4,
                        float((n_b * np.ceil(np.log2(n_b))).sum()) +
@@ -1343,7 +1351,8 @@ def split_postings_kernel_phase(eng, one, seed: int, ref,
          for n, a in host.items()}
     routed = torch.from_numpy(routed_np).to(dev)
     H, parts, tables = eng.heavy_dense, eng._light, eng.light_parts
-    E, P = H.shape[1], tables[0].shape[1] // 2
+    lay = eng.light_layout
+    E, P = H.shape[1], lay.P
     nl = eng._nl
     out = {}
 
@@ -1356,11 +1365,12 @@ def split_postings_kernel_phase(eng, one, seed: int, ref,
         (spec[2][1:] - spec[2][:-1]).long())
 
     def a1(acc):
-        return K.ambiguous_postings_parts_(acc, H, parts, *spec)
+        return K.ambiguous_postings_parts_(acc, H, parts, *spec, layout=lay)
 
     def a1_plain():
         return K.ambiguous_pass(K.alt_delta_rows_postings(
-            tables, H, spec[0], spec[1]), alt_win, *spec[3:], acc_c)
+            tables, H, spec[0], spec[1], layout=lay), alt_win, *spec[3:],
+            acc_c)
     got, want = a1(acc_c.clone()), a1_plain()
     torch.cuda.synchronize()
     err = float((got - want).abs().max()) if got.numel() else 0.0
@@ -1370,7 +1380,7 @@ def split_postings_kernel_phase(eng, one, seed: int, ref,
     n_alt, n_w = spec[0].numel(), spec[3].numel()
     lr, hr = spec[0][spec[0] != nl], spec[1][spec[1] != H.shape[0] - 1]
     b, why = bound(torch.unique(hr).numel() * E * 4 +
-                   torch.unique(lr).numel() * 2 * P * 4 + n_alt * 8 +
+                   torch.unique(lr).numel() * lay.words * 4 + n_alt * 8 +
                    n_w * 13 + 4 + 2 * torch.unique(spec[3]).numel() * E * 4,
                    (n_alt * 3 + 3 * n_w) * E + n_alt * P)
     scratch = acc_c.clone()
@@ -1386,7 +1396,8 @@ def split_postings_kernel_phase(eng, one, seed: int, ref,
     args = (acc_c, d["slot_of"], d["lengths"], eng.thr, eng.k, K_KEEP, plan)
     thr_t = torch.tensor(np.float32(eng.thr), device=dev)
     Kk = min(K_KEEP, E)
-    one_wire = K.finalize_postings_wire(one.pairs, d["lrows"], *args)
+    one_wire = K.finalize_postings_wire(one.pairs, d["lrows"], *args,
+                                        layout=lay)
     counts = eng._light_counts[host["lrows"]].sum(axis=1)
     n_b = counts[counts > 1].astype(np.float64)
     sort_ops = float((n_b * np.ceil(np.log2(n_b))).sum())
@@ -1396,15 +1407,16 @@ def split_postings_kernel_phase(eng, one, seed: int, ref,
     def plain_wire(**source):
         return K.pack_wire(*K.finalize_postings(
             None, source.pop("lrows", None), acc_c, d["slot_of"],
-            d["lengths"], thr_t, eng.k, K_KEEP, light_parts=tables,
-            **source), wide=eng.wide)
+            d["lengths"], thr_t, eng.k, K_KEEP, layout=lay,
+            light_parts=tables, **source), wide=eng.wide)
     r1 = {
         "finalize_postings_wire_routed": (
-            lambda: K.finalize_postings_wire_routed(parts, routed, *args),
+            lambda: K.finalize_postings_wire_routed(parts, routed, *args,
+                                                    layout=lay),
             lambda: plain_wire(routed_lrows=tuple(routed)), routed.numel()),
         "finalize_postings_wire_parts": (
             lambda: K.finalize_postings_wire_parts(parts, d["lrows"], *args,
-                                                   miss=nl),
+                                                   miss=nl, layout=lay),
             lambda: plain_wire(lrows=d["lrows"]), d["lrows"].numel())}
     for name, (run, plain, n_rows) in r1.items():
         got, want = run(), plain()
@@ -1416,7 +1428,8 @@ def split_postings_kernel_phase(eng, one, seed: int, ref,
         diff = same_placements(res, ref_res)
         check(diff is None, f"R1 {name} vs its plain version: {diff}")
         fin = np.isfinite(ref_res.top_scores)
-        b, why = bound(distinct * 2 * P * 4 + n_rows * 4 + B_POSTINGS * 8 +
+        b, why = bound(distinct * lay.words * 4 + n_rows * 4 +
+                       B_POSTINGS * 8 +
                        n_slots * E * 4 + got.numel() * 4,
                        sort_ops + n_slots * E)
         out[name] = dict(
@@ -1442,14 +1455,15 @@ def split_postings_kernel_phase(eng, one, seed: int, ref,
     runs = [uniq[a:c].long() for a, c in zip(bounds[:-1], bounds[1:])]
     got = K.gather_compact_(parts, uniq, uniq_off)
     want = K.gather_compact(tables, tuple(runs))
-    wire = K.finalize_postings_wire(got, inv, *args, miss=src[1])
+    wire = K.finalize_postings_wire(got, inv, *args, miss=src[1],
+                                    layout=lay)
     torch.cuda.synchronize()
     check(torch.equal(got, want), "G1 gather_compact: rows differ from the "
           "plain version")
     check(torch.equal(wire, one_wire), "P3 on G1's compact table: wire "
           "differs from the one-table P3's")
     U = uniq.numel()
-    nbytes = U * 4 + uniq_off.numel() * 4 + 2 * U * 2 * P * 4
+    nbytes = U * 4 + uniq_off.numel() * 4 + 2 * U * lay.words * 4
     b, why = bound(nbytes, 0)
     t = timed(lambda: K.gather_compact_(parts, uniq, uniq_off))
     out["gather_compact"] = dict(
@@ -1629,8 +1643,8 @@ def kmer_sharded_phase(db, mesh, seed: int, ref, n_batches: int = 10,
     results = [ksp.score(c, ln) for c, ln in coded]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    for name, n in launches(("accumulate_rows_range",
-                             "finalize_wire")).items():
+    launched = launches(("accumulate_rows_range", "finalize_wire"))
+    for name, n in launched.items():
         check(n > 0, f"k-mer-sharded phase: kernel {name} was never "
               "launched")
     codes, lens = coded[1]
@@ -1659,7 +1673,7 @@ def kmer_sharded_phase(db, mesh, seed: int, ref, n_batches: int = 10,
         "single_compact_reads_per_s": n_batches * B_KERNEL / single_dt,
         "setup_s": setup_s, "batches": n_batches, "batch_size": B_KERNEL,
         "mesh": dict(mesh.shape), "shard_rows": per + 1,
-        "launches": launches, "host_steps_s": steps}
+        "launches": launched, "host_steps_s": steps}
 
 
 def sharded_place_phase(db, mesh, work: Path, n_reads: int, seed: int,

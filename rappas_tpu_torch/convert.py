@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 from rappas_tpu_torch.alphabet import get_alphabet
-from rappas_tpu_torch.db import PhyloKmerDB
+from rappas_tpu_torch.db import LightLayout, PhyloKmerDB
 from rappas_tpu_torch.tree import parse_newick
 
 
@@ -197,7 +197,8 @@ def direct_split_tables(db: PhyloKmerDB, device, precision: str,
 
 class PostingsState(NamedTuple):
     """The postings layout of a DB: device tables and host lookups."""
-    light_parts: tuple         # int32[H_i, 2P] parts of pairs[nl + 1, 2P]
+    layout: LightLayout        # the light rows' words
+    light_parts: tuple         # int32[H_i, w] parts of pairs[nl + 1, w]
     light_slow: bool           # one part, past the part budget
     heavy_dense: torch.Tensor  # f32[nh + 1, E] on the device
     light_counts: np.ndarray   # int32[nl + 1] real postings per row
@@ -222,19 +223,23 @@ def postings_device_tables(db: PhyloKmerDB, width: int, device,
     1110-1166``), the light table height-split by :func:`light_parts`
     when ``part_bytes`` is given (one part when it is None).
 
-    ``pairs[r]`` holds light k-mer ``r``'s postings as P edge ids then P
-    bit-cast f32 deltas (pads: ``LIGHT_PAD_EDGE`` and 0.0; the last row
-    is all pads, the miss row); ``heavy_dense`` holds the k-mers with
-    more than ``width`` postings as dense rows (last row zero).  ``rof``
-    maps a k-mer index to its encoded row (``r < nl`` light row ``r``,
-    ``nl`` miss, ``nl + 1 + h`` heavy row ``h``; index ``S^k`` is the
-    miss target of invalid windows) when it takes at most
+    ``pairs[r]`` holds light k-mer ``r``'s P postings in the
+    ``LightLayout.of(width, n_edge_slots)`` row of ``w`` words: below
+    65,535 edge slots P u16 edge ids in ``ceil(P / 2)`` words (pads
+    ``0xFFFF``), else P int32 ids (pads ``LIGHT_PAD_EDGE``), then P
+    bit-cast f32 deltas (pads 0.0); the last row is all pads, the miss
+    row.  The rows are packed on the host and uploaded once, so no wider
+    copy of the table reaches the device.  ``heavy_dense`` holds the
+    k-mers with more than ``width`` postings as dense rows (last row
+    zero).  ``rof`` maps a k-mer index to its encoded row (``r < nl``
+    light row ``r``, ``nl`` miss, ``nl + 1 + h`` heavy row ``h``; index
+    ``S^k`` is the miss target of invalid windows) when it takes at most
     ``direct_index_limit`` bytes, else None (the host searches the
     sorted keys instead)."""
     pt = db.postings_tables(width)
     nl, nh = pt.light_keys.shape[0], pt.heavy_keys.shape[0]
-    pairs = np.ascontiguousarray(np.concatenate(
-        [pt.light_edges, pt.light_deltas.view(np.int32)], axis=1))
+    layout = LightLayout.of(width, db.n_edge_slots)
+    pairs = layout.pack(pt.light_edges, pt.light_deltas)
     light_counts = (pt.light_deltas > 0).sum(1).astype(np.int32)
     space = db.alphabet.n_states ** db.k
     rof = None
@@ -245,6 +250,7 @@ def postings_device_tables(db: PhyloKmerDB, width: int, device,
     parts, slow = ([pairs], False) if part_bytes is None else \
         light_parts(pairs, part_bytes, max_parts)
     return PostingsState(
+        layout=layout,
         light_parts=tuple(torch.from_numpy(p).to(device) for p in parts),
         light_slow=slow,
         heavy_dense=torch.from_numpy(pt.heavy_dense).to(device),

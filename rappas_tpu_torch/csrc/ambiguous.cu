@@ -13,14 +13,14 @@
 // P2 replaces alt_delta_rows_postings (:950) + ambiguous_contrib (:967) +
 // the scatter of window contributions into the dense slots (:1433-1438):
 // an alternative's row is heavy_dense[alt_hrows[i]] plus the scatter of
-// its light row's postings (pads carry LIGHT_PAD_EDGE and match no
-// column), and window w adds into acc_c[win_dest[w]] with win_dest = the
-// slot of the window's read.  Under edge-range sharding
-// (rappas_tpu/parallel/postings_sharded.py:170-180, the block of _step_amb
-// :223) acc_c holds the columns of one shard's edges, offset .. offset + E
-// - 1, and a posting adds into column edge - offset when that lies in
-// [0, E) (JAX clips instead; its out-of-range postings are pads with zero
-// deltas, so both add nothing there).
+// its light row's postings (light.cuh: u16 or int32 edge ids, a template
+// argument of every instance; pads match no column), and window w adds
+// into acc_c[win_dest[w]] with win_dest = the slot of the window's read.
+// Under edge-range sharding (rappas_tpu/parallel/postings_sharded.py: 170-180,
+// the block of _step_amb :223) acc_c holds the columns of one shard's edges,
+// offset .. offset + E - 1, and a posting adds into column edge - offset when
+// that lies in [0, E) (JAX clips instead; its out-of-range postings are pads
+// with zero deltas, so both add nothing there).
 //
 // A1 ambiguous_pass_split replaces alt_delta_rows_split (:931) + :967 +
 // :1005: K4 on the split direct table (f32 or uint16), an alternative's
@@ -79,6 +79,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "light.cuh"
 #include "loads.cuh"
 #include "parts.cuh"
 
@@ -230,25 +231,30 @@ int launch_direct(Rows rows, int E, float scale, int vec, int group,
 
 // ---- postings (P2, P2 with an edge offset, A1 over parts) -------------- //
 
-// P2's light row of an alternative: row r of one light table
+// P2's light row of an alternative: row r of one light table of w-word
+// rows, u16 edge ids when Narrow
+template <bool Narrow>
 struct OneLight {
+  static constexpr bool kNarrow = Narrow;
   const int32_t* pairs;
-  int P;
+  int w;
   __device__ void stage(int64_t*) {}
   __device__ const int32_t* row(int r) const {
-    return pairs + static_cast<int64_t>(r) * 2 * P;
+    return pairs + static_cast<int64_t>(r) * w;
   }
 };
 
 // A1's: global row r of a split light table, in its part
+template <bool Narrow>
 struct PartLight {
+  static constexpr bool kNarrow = Narrow;
   Parts parts;
-  int P;
+  int w;
   __device__ void stage(int64_t* s_meta) { parts = stage_parts(parts, s_meta); }
   __device__ const int32_t* row(int r) const {
     const int p = parts.part_of(r);
     const int64_t local = clip(r - parts.first(p), parts.height(p) - 1);
-    return static_cast<const int32_t*>(parts.base(p)) + local * 2 * P;
+    return static_cast<const int32_t*>(parts.base(p)) + local * w;
   }
 };
 
@@ -258,25 +264,32 @@ struct PartLight {
 // read from the light rows when the window has more than kStage pairs
 template <class Light>
 struct Postings {
+  using L = LightRow<Light::kNarrow>;
   Light light;
   const int32_t* alt_lrows;  // the window's first alternative's
   int P, E, offset, n;       // n = n_alt * P pairs
   const int* s_col;          // null: not staged
   const float* s_delta;
 
-  __device__ int column(int edge) const {
+  __device__ int column(uint32_t edge) const {
     const int64_t c = static_cast<int64_t>(edge) - offset;
-    return (c >= 0 && c < E) ? static_cast<int>(c) : -1;
+    return (edge != L::kPad && c >= 0 && c < E) ? static_cast<int>(c) : -1;
   }
   __device__ const int32_t* row(int j) const {
     return light.row(__ldg(alt_lrows + j / P));
   }
+  // pair j read from its light row
+  __device__ int load_col(int j) const {
+    return column(L::edge(row(j), j % P));
+  }
+  __device__ float load_delta(int j) const {
+    return __uint_as_float(L::delta(row(j), P, j % P));
+  }
   __device__ int col(int j) const {
-    return s_col != nullptr ? s_col[j] : column(__ldg(row(j) + j % P));
+    return s_col != nullptr ? s_col[j] : load_col(j);
   }
   __device__ float delta(int j) const {
-    return s_delta != nullptr ? s_delta[j]
-                              : __int_as_float(__ldg(row(j) + P + j % P));
+    return s_delta != nullptr ? s_delta[j] : load_delta(j);
   }
 };
 
@@ -376,9 +389,8 @@ ambiguous_postings_kernel(const float* __restrict__ H, int E, int nh,
     heavy = __any_sync(0xffffffffu, heavy);
     if (post.s_col != nullptr) {
       for (int j = lane; j < post.n; j += 32) {
-        const int32_t* r = post.row(j);
-        s_col[warp][j] = post.column(__ldg(r + j % P));
-        s_delta[warp][j] = __int_as_float(__ldg(r + P + j % P));
+        s_col[warp][j] = post.load_col(j);
+        s_delta[warp][j] = post.load_delta(j);
       }
       __syncwarp();
     }
@@ -446,12 +458,11 @@ ambiguous_postings_kernel(const float* __restrict__ H, int E, int nh,
 }
 
 template <class Light>
-int launch_postings(const float* H, int E, int nh, Light light, int P,
-                    const int32_t* alt_lrows, const int32_t* alt_hrows,
-                    int offset, const int32_t* win_off,
-                    const int32_t* win_slot, const float* win_inv_w,
-                    const uint8_t* win_is_mean, int n_win, float* acc_c,
-                    cudaStream_t stream) {
+int launch_light(const float* H, int E, int nh, Light light, int P,
+                 const int32_t* alt_lrows, const int32_t* alt_hrows,
+                 int offset, const int32_t* win_off, const int32_t* win_slot,
+                 const float* win_inv_w, const uint8_t* win_is_mean,
+                 int n_win, float* acc_c, cudaStream_t stream) {
   if (P < 0 || nh < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n_win > 0 && E > 0)
     ambiguous_postings_kernel<Light>
@@ -459,6 +470,24 @@ int launch_postings(const float* H, int E, int nh, Light light, int P,
             H, E, nh, light, P, alt_lrows, alt_hrows, offset, win_off,
             win_slot, win_inv_w, win_is_mean, n_win, acc_c);
   return static_cast<int>(cudaGetLastError());
+}
+
+// launch_light with the row source Light<Narrow>{src, w} of the rows' edge
+// width (narrow: u16 ids)
+template <template <bool> class Light, class Src>
+int launch_postings(const float* H, int E, int nh, Src src, int P,
+                    int narrow, const int32_t* alt_lrows,
+                    const int32_t* alt_hrows, int offset,
+                    const int32_t* win_off, const int32_t* win_slot,
+                    const float* win_inv_w, const uint8_t* win_is_mean,
+                    int n_win, float* acc_c, cudaStream_t stream) {
+  if (narrow)
+    return launch_light(H, E, nh, Light<true>{src, LightRow<true>::words(P)},
+                        P, alt_lrows, alt_hrows, offset, win_off, win_slot,
+                        win_inv_w, win_is_mean, n_win, acc_c, stream);
+  return launch_light(H, E, nh, Light<false>{src, LightRow<false>::words(P)},
+                      P, alt_lrows, alt_hrows, offset, win_off, win_slot,
+                      win_inv_w, win_is_mean, n_win, acc_c, stream);
 }
 
 }  // namespace
@@ -491,19 +520,22 @@ int rp_ambiguous_pass(const void* D, int u16, int E, float scale,
 }
 
 // P2.  H: f32[nh + 1, E] heavy dense table (row nh zero); pairs:
-// int32[nl + 1, 2P]; alt_lrows / alt_hrows: int32[n_alt] light row (nl =
-// miss) and heavy row (nh = the zero row) per alternative; offset: global
+// int32[nl + 1, w] light rows of P postings (light.cuh: w = ceil(P / 2) +
+// P with u16 edge ids when narrow, 2P with int32 ones otherwise);
+// alt_lrows / alt_hrows: int32[n_alt] light row (nl = miss) and heavy row
+// (nh = the zero row) per alternative; offset: global
 // id of column 0 (postings of edges outside offset .. offset + E - 1 add
 // nothing); acc_c: f32[n_slots, E], updated in place.
 int rp_ambiguous_postings(const float* H, int E, int nh, const int32_t* pairs,
-                          int P, const int32_t* alt_lrows,
+                          int P, int narrow, const int32_t* alt_lrows,
                           const int32_t* alt_hrows, const int32_t* win_off,
                           const int32_t* win_slot, const float* win_inv_w,
                           const uint8_t* win_is_mean, int n_win, int offset,
                           float* acc_c, cudaStream_t stream) {
-  return launch_postings(H, E, nh, OneLight{pairs, P}, P, alt_lrows,
-                         alt_hrows, offset, win_off, win_slot, win_inv_w,
-                         win_is_mean, n_win, acc_c, stream);
+  return launch_postings<OneLight>(H, E, nh, pairs, P, narrow, alt_lrows,
+                                   alt_hrows, offset, win_off, win_slot,
+                                   win_inv_w, win_is_mean, n_win, acc_c,
+                                   stream);
 }
 
 // A1, K4 on a split direct table.  meta: int64[3, n] (parts.cuh, n <=
@@ -529,11 +561,12 @@ int rp_ambiguous_pass_split(const int64_t* meta, int n, int u16, int E,
 }
 
 // A1, P2 on a split light table.  meta: int64[3, n] (n <= kMaxParts) of
-// the light parts, int32[H_i, 2P]; alt_lrows: global light rows (nl =
-// miss, the last part's last row); the rest as P2's at offset 0.
+// the light parts, int32[H_i, w] (w and narrow as P2's); alt_lrows:
+// global light rows (nl = miss, the last part's last row); the rest as
+// P2's at offset 0.
 int rp_ambiguous_postings_parts(const float* H, int E, int nh,
                                 const int64_t* meta, int n, int P,
-                                const int32_t* alt_lrows,
+                                int narrow, const int32_t* alt_lrows,
                                 const int32_t* alt_hrows,
                                 const int32_t* win_off,
                                 const int32_t* win_slot,
@@ -542,9 +575,10 @@ int rp_ambiguous_postings_parts(const float* H, int E, int nh,
                                 float* acc_c, cudaStream_t stream) {
   if (n < 1 || n > kMaxParts)
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_postings(H, E, nh, PartLight{Parts{meta, n}, P}, P,
-                         alt_lrows, alt_hrows, 0, win_off, win_slot,
-                         win_inv_w, win_is_mean, n_win, acc_c, stream);
+  return launch_postings<PartLight>(H, E, nh, Parts{meta, n}, P, narrow,
+                                    alt_lrows, alt_hrows, 0, win_off,
+                                    win_slot, win_inv_w, win_is_mean, n_win,
+                                    acc_c, stream);
 }
 
 }  // extern "C"

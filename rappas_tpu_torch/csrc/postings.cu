@@ -44,9 +44,11 @@
 //
 // P3 replaces light_gather (single part, :654-672) + the rest of
 // finalize_postings_local (:684-904) + pack_wire (:68).  For read b with
-// light rows lrows[b, :W] (rows of pairs[nl + 1, 2P]: P edge ids, then P
-// bit-cast f32 deltas; pads carry LIGHT_PAD_EDGE; row `miss` is all pads)
-// and dense row acc_c[slot_of[b]] (none when slot_of[b] < 0):
+// light rows lrows[b, :W] (rows of pairs[nl + 1, w] as light.cuh lays
+// them out: P edge ids, u16 below 65,535 edge slots and int32 at or above
+// (a template argument of every instance), then P bit-cast f32 deltas;
+// row `miss` is all pads) and dense row acc_c[slot_of[b]] (none when
+// slot_of[b] < 0):
 //
 //   1. gather the read's real (edge, delta) postings;
 //   2. sort them by (edge, delta bits): one 64-bit key each, so the order
@@ -78,7 +80,8 @@
 // least as exact, so the two agree within that bound.
 //
 // What bounds it on an H100: barriers and scans, not bytes.  The bytes
-// (the gathered light rows, each read once, and the dense rows of the
+// (the gathered light rows, each read once, 6 B a posting with u16 ids
+// and 8 B with int32 ones, and the dense rows of the
 // reads that have a slot) take about 0.03 ms for 8,192 config-5 reads
 // (about 308 real postings each, at most 663).  A design of one 256-thread
 // block per read pays per read a shared atomic per posting, a bitonic sort
@@ -91,7 +94,8 @@
 // blocks of one or two warps, each with its own shared-memory region (so
 // no warp waits long for a slower read of its block):
 //   * the gather walks the read's row slots, a lane per light row (16-byte
-//     loads of its P edge ids and P deltas where aligned), and compacts
+//     loads of its edge ids, 8 u16 or 4 int32 a load, and its deltas
+//     where aligned), and compacts
 //     the real postings with a warp prefix sum of the lanes' counts: no
 //     shared atomic;
 //   * the same canonical sort of the 64-bit (edge, delta bits) keys, the
@@ -144,8 +148,9 @@
 // one part).  What bounds it: bytes (each unique row read once, at random,
 // and written once, in order).  Design: rows, not words.  A block is
 // kGatherThreads threads in (lanes x rows) -- one lane per load of a row,
-// 16-byte loads where the row bytes (8P) allow it, else 8 bytes (chosen
-// from w at launch) -- and each thread first finds its kRowsInFlight
+// 16-byte loads where the row's w words allow it, else 8 or 4 bytes
+// (chosen from w at launch; a copy is the same whatever the edge ids'
+// width) -- and each thread first finds its kRowsInFlight
 // rows' parts and source addresses, then issues all their loads before
 // any store.  A row's part is a binary search over uniq_off
 // staged in shared memory with the part bases (at most kMaxParts parts;
@@ -157,6 +162,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "light.cuh"
 #include "parts.cuh"
 #include "topk.cuh"
 
@@ -164,7 +170,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr uint32_t kPadEdge = 0x7fffffffu;  // db.LIGHT_PAD_EDGE
+constexpr uint32_t kPadEdge = 0x7fffffffu;  // past any edge id
 constexpr uint64_t kEmpty = ~0ull;          // sort padding, past any key
 
 // the warp path: the largest region a read may take (kernels.WARP_PAIRS),
@@ -277,19 +283,19 @@ __device__ void block_best(float& v, int& i, float* red_v, int* red_i) {
 }
 
 // Where P3 finds read b's light postings: width() slots per read, slot s
-// holding one light row of 2P words (P edge ids, then P bit-cast deltas),
-// or none (null).
+// holding one light row of w words (light.cuh: P edge ids, then P
+// bit-cast deltas), or none (null).
 //
 // P3: rows of one light table; row `miss` (all pads) holds none.
 struct OneTable {
   const int32_t* pairs;
-  int P, miss;
+  int w, miss;
   const int32_t* lrows;  // [B, W]
   int W;
   __device__ int width() const { return W; }
   __device__ const int32_t* row(int b, int s) const {
     const int r = lrows[static_cast<int64_t>(b) * W + s];
-    return r == miss ? nullptr : pairs + static_cast<int64_t>(r) * 2 * P;
+    return r == miss ? nullptr : pairs + static_cast<int64_t>(r) * w;
   }
 };
 
@@ -298,7 +304,7 @@ struct OneTable {
 // global miss row `miss` (nl, the last part's last row) holds none.
 struct PartRows {
   Parts parts;
-  int P, miss;
+  int w, miss;
   const int32_t* lrows;  // [B, W]
   int W;
   __device__ int width() const { return W; }
@@ -307,7 +313,7 @@ struct PartRows {
     if (r == miss) return nullptr;
     const int p = parts.part_of(r);
     const int64_t local = clip(r - parts.first(p), parts.height(p) - 1);
-    return static_cast<const int32_t*>(parts.base(p)) + local * 2 * P;
+    return static_cast<const int32_t*>(parts.base(p)) + local * w;
   }
 };
 
@@ -316,7 +322,7 @@ struct PartRows {
 // s % W: the windows come part-major, which the sort makes irrelevant.
 struct RoutedRows {
   Parts parts;
-  int P;
+  int w;
   const int32_t* routed;  // [n, B, W]
   int B, W;
   __device__ int width() const { return parts.n * W; }
@@ -325,7 +331,7 @@ struct RoutedRows {
     const int r = routed[(static_cast<int64_t>(p) * B + b) * W + s % W];
     if (r >= parts.height(p)) return nullptr;
     return static_cast<const int32_t*>(parts.base(p)) +
-           static_cast<int64_t>(r) * 2 * P;
+           static_cast<int64_t>(r) * w;
   }
 };
 
@@ -366,7 +372,7 @@ __device__ void write_wire(int32_t* w, const float* cand_v, const int* cand_e,
 
 // the block path: one block per read of the list `reads` (null: read
 // blockIdx.x)
-template <class Rows>
+template <class Rows, bool Narrow>
 __global__ void __launch_bounds__(kThreads)
 finalize_postings_kernel(Rows rows, int P,
                          const float* __restrict__ acc_c, int E,
@@ -399,14 +405,15 @@ finalize_postings_kernel(Rows rows, int P,
   }
 
   // 1. gather the real postings
+  using L = LightRow<Narrow>;
   if (tid == 0) s_n = 0;
   __syncthreads();
   for (int j = tid; j < rows.width() * P; j += kThreads) {
     const int32_t* row = rows.row(b, j / P);
     if (row == nullptr) continue;
-    const uint32_t e = static_cast<uint32_t>(__ldg(row + j % P));
-    if (e == kPadEdge) continue;
-    const uint32_t d = static_cast<uint32_t>(__ldg(row + P + j % P));
+    const uint32_t e = L::edge(row, j % P);
+    if (e == L::kPad) continue;
+    const uint32_t d = L::delta(row, P, j % P);
     const int pos = atomicAdd(&s_n, 1);
     if (pos < region) keys[pos] = (static_cast<uint64_t>(e) << 32) | d;
   }
@@ -543,47 +550,67 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// real postings among four edge ids
-__device__ __forceinline__ int real4(int4 e) {
-  return (static_cast<uint32_t>(e.x) != kPadEdge) +
-         (static_cast<uint32_t>(e.y) != kPadEdge) +
-         (static_cast<uint32_t>(e.z) != kPadEdge) +
-         (static_cast<uint32_t>(e.w) != kPadEdge);
+// a row's ids and deltas come in 16-byte loads when P is a multiple of
+// the ids of one load and the row is aligned (its deltas then are too)
+template <bool Narrow>
+__device__ __forceinline__ bool vector_row(const int32_t* row, int P) {
+  return P % LightRow<Narrow>::kVecIds == 0 && aligned16(row);
 }
 
-// real postings of one light row of 2P words
-__device__ int count_real(const int32_t* row, int P) {
+// real postings among n edge ids
+template <bool Narrow, int N>
+__device__ __forceinline__ int count_ids(const uint32_t* e) {
   int c = 0;
-  if ((P & 3) == 0 && aligned16(row)) {
-    for (int j = 0; j < P; j += 4)
-      c += real4(__ldg(reinterpret_cast<const int4*>(row + j)));
+#pragma unroll
+  for (int t = 0; t < N; ++t) c += e[t] != LightRow<Narrow>::kPad;
+  return c;
+}
+
+// real postings of one light row
+template <bool Narrow>
+__device__ int count_real(const int32_t* row, int P) {
+  using L = LightRow<Narrow>;
+  int c = 0;
+  if (vector_row<Narrow>(row, P)) {
+    for (int j = 0; j < P; j += L::kVecIds) {
+      uint32_t e[L::kVecIds];
+      L::load_ids(row, j, e);
+      c += count_ids<Narrow, L::kVecIds>(e);
+    }
   } else {
-    for (int j = 0; j < P; ++j)
-      c += static_cast<uint32_t>(__ldg(row + j)) != kPadEdge;
+    for (int j = 0; j < P; ++j) c += L::edge(row, j) != L::kPad;
   }
   return c;
 }
 
-__device__ __forceinline__ void put_key(uint64_t*& out, int e, int d) {
-  if (static_cast<uint32_t>(e) != kPadEdge)
-    *out++ = (static_cast<uint64_t>(static_cast<uint32_t>(e)) << 32) |
-             static_cast<uint32_t>(d);
+template <bool Narrow>
+__device__ __forceinline__ void put_key(uint64_t*& out, uint32_t e,
+                                        uint32_t d) {
+  if (e != LightRow<Narrow>::kPad)
+    *out++ = (static_cast<uint64_t>(e) << 32) | d;
 }
 
 // the real postings of one light row as sort keys at out, in row order
+template <bool Narrow>
 __device__ void write_real(const int32_t* row, int P, uint64_t* out) {
-  if ((P & 3) == 0 && aligned16(row)) {
-    for (int j = 0; j < P; j += 4) {
-      const int4 e = __ldg(reinterpret_cast<const int4*>(row + j));
-      const int4 d = __ldg(reinterpret_cast<const int4*>(row + P + j));
-      put_key(out, e.x, d.x);
-      put_key(out, e.y, d.y);
-      put_key(out, e.z, d.z);
-      put_key(out, e.w, d.w);
+  using L = LightRow<Narrow>;
+  if (vector_row<Narrow>(row, P)) {
+    const int32_t* deltas = row + L::edge_words(P);
+    for (int j = 0; j < P; j += L::kVecIds) {
+      uint32_t e[L::kVecIds];
+      L::load_ids(row, j, e);
+#pragma unroll
+      for (int h = 0; h < L::kVecIds; h += 4) {
+        const int4 d = __ldg(reinterpret_cast<const int4*>(deltas + j + h));
+        put_key<Narrow>(out, e[h], d.x);
+        put_key<Narrow>(out, e[h + 1], d.y);
+        put_key<Narrow>(out, e[h + 2], d.z);
+        put_key<Narrow>(out, e[h + 3], d.w);
+      }
     }
   } else {
     for (int j = 0; j < P; ++j)
-      put_key(out, __ldg(row + j), __ldg(row + P + j));
+      put_key<Narrow>(out, L::edge(row, j), L::delta(row, P, j));
   }
 }
 
@@ -667,7 +694,7 @@ __device__ __forceinline__ auto pick(float* cv, int* ce, int add) {
 
 // read b on the warp path, in the warp's region `mine`: keys[cap],
 // tot[cap] (only for K past kLaneTop) and the 2K candidates
-template <class Rows>
+template <class Rows, bool Narrow>
 __device__ void warp_score_read(const Rows& rows, int b, char* mine, int P,
                                 const float* __restrict__ acc_c, int E,
                                 const int32_t* __restrict__ slot_of,
@@ -684,6 +711,8 @@ __device__ void warp_score_read(const Rows& rows, int b, char* mine, int P,
 
   // 1. gather: a lane per row slot, placed by a prefix sum of the counts;
   // the next 32 slots' rows are looked up while these load
+  using L = LightRow<Narrow>;
+  constexpr int kLoads8 = L::words(8) / 4;  // 16-byte loads of a P = 8 row
   const int W = rows.width();
   int n = 0;
   const int32_t* row = lane < W ? rows.row(b, lane) : nullptr;
@@ -691,15 +720,20 @@ __device__ void warp_score_read(const Rows& rows, int b, char* mine, int P,
     const int32_t* next =
         s0 + 32 + lane < W ? rows.row(b, s0 + 32 + lane) : nullptr;
     const bool eight = P == 8 && aligned16(row);
-    int4 q[4];  // a P = 8 row: edge ids 0-3, 4-7, deltas 0-3, 4-7
+    // a P = 8 row in registers: its 8 edge ids (one load of u16 ids, two
+    // of int32 ones), then deltas 0-3 and 4-7 in its last two loads
+    uint4 q[kLoads8];
+    uint32_t e8[8];
     int c = 0;
     if (row != nullptr && eight) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        q[j] = __ldg(reinterpret_cast<const int4*>(row) + j);
-      c = real4(q[0]) + real4(q[1]);
+      for (int j = 0; j < kLoads8; ++j)
+        q[j] = __ldg(reinterpret_cast<const uint4*>(row) + j);
+#pragma unroll
+      for (int j = 0; j < kLoads8 - 2; ++j) L::ids(q[j], e8 + j * L::kVecIds);
+      c = count_ids<Narrow, 8>(e8);
     } else if (row != nullptr) {
-      c = count_real(row, P);
+      c = count_real<Narrow>(row, P);
     }
     int incl = c;
     for (int off = 1; off < 32; off <<= 1) {
@@ -709,16 +743,18 @@ __device__ void warp_score_read(const Rows& rows, int b, char* mine, int P,
     if (row != nullptr && n + incl <= cap) {
       uint64_t* out = keys + n + incl - c;
       if (eight) {
-        put_key(out, q[0].x, q[2].x);
-        put_key(out, q[0].y, q[2].y);
-        put_key(out, q[0].z, q[2].z);
-        put_key(out, q[0].w, q[2].w);
-        put_key(out, q[1].x, q[3].x);
-        put_key(out, q[1].y, q[3].y);
-        put_key(out, q[1].z, q[3].z);
-        put_key(out, q[1].w, q[3].w);
+        const uint4 d0 = q[kLoads8 - 2];
+        const uint4 d1 = q[kLoads8 - 1];
+        put_key<Narrow>(out, e8[0], d0.x);
+        put_key<Narrow>(out, e8[1], d0.y);
+        put_key<Narrow>(out, e8[2], d0.z);
+        put_key<Narrow>(out, e8[3], d0.w);
+        put_key<Narrow>(out, e8[4], d1.x);
+        put_key<Narrow>(out, e8[5], d1.y);
+        put_key<Narrow>(out, e8[6], d1.z);
+        put_key<Narrow>(out, e8[7], d1.w);
       } else {
-        write_real(row, P, out);
+        write_real<Narrow>(row, P, out);
       }
     }
     n += __shfl_sync(kFull, incl, 31);
@@ -866,7 +902,7 @@ __device__ void warp_score_read(const Rows& rows, int b, char* mine, int P,
 
 // the warp path: a warp per read, read b = blockIdx.x * (warps per block)
 // + warp, in its region of `region` bytes
-template <class Rows>
+template <class Rows, bool Narrow>
 __global__ void __launch_bounds__(32 * kMaxWarpReads)
 finalize_postings_warp_kernel(Rows rows, int P,
                               const float* __restrict__ acc_c, int E,
@@ -879,16 +915,17 @@ finalize_postings_warp_kernel(Rows rows, int P,
   const int warp = threadIdx.x >> 5;
   const int b = blockIdx.x * (blockDim.x >> 5) + warp;
   if (b >= B) return;  // whole warps: the path has no block barrier
-  warp_score_read(rows, b, reinterpret_cast<char*>(smem) + warp * region, P,
-                  acc_c, E, slot_of, lengths, thr, k, K, cap, wire_w, wide,
-                  offset, wire, threadIdx.x & 31);
+  warp_score_read<Rows, Narrow>(
+      rows, b, reinterpret_cast<char*>(smem) + warp * region, P, acc_c, E,
+      slot_of, lengths, thr, k, K, cap, wire_w, wide, offset, wire,
+      threadIdx.x & 31);
 }
 
 constexpr int kGatherThreads = 256;
 constexpr int kRowsInFlight = 4;
 
-// T: one load (int4 or int2); blockDim = (lanes, kGatherThreads / lanes):
-// lane x of row slot y copies loads x, x + lanes, ... of rows
+// T: one load (int4, int2 or int); blockDim = (lanes, kGatherThreads /
+// lanes): lane x of row slot y copies loads x, x + lanes, ... of rows
 // blockIdx.x * rows + k * blockDim.y + y
 template <class T>
 __global__ void __launch_bounds__(kGatherThreads)
@@ -957,8 +994,8 @@ void launch_gather(Parts parts, int w, const int32_t* uniq,
 // one P3 call with the row source `rows`: the warp launch over all B
 // reads (warp_cap >= 0: its regions' sort slots), then the block launch
 // over the n_block reads of block_reads (cap sort slots of shared memory,
-// or their scratch regions)
-template <class Rows>
+// or their scratch regions); Narrow: the rows' edge ids are u16
+template <class Rows, bool Narrow>
 int launch_p3(Rows rows, int P, int B, const float* acc_c, int E,
               const int32_t* slot_of, const int32_t* lengths, float thr,
               int k, int K, int warp_cap, int cap,
@@ -982,12 +1019,12 @@ int launch_p3(Rows rows, int P, int B, const float* acc_c, int E,
     const size_t smem = region * wpb;
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          finalize_postings_warp_kernel<Rows>,
+          finalize_postings_warp_kernel<Rows, Narrow>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
     }
     const int nb = static_cast<int>((B + wpb - 1) / wpb);
-    finalize_postings_warp_kernel<Rows>
+    finalize_postings_warp_kernel<Rows, Narrow>
         <<<nb, static_cast<int>(32 * wpb), smem, stream>>>(
             rows, P, acc_c, E, slot_of, lengths, thr, k, K, warp_cap,
             static_cast<int>(region), B, wire_w, wide, offset, wire);
@@ -1000,15 +1037,37 @@ int launch_p3(Rows rows, int P, int B, const float* acc_c, int E,
         static_cast<size_t>(cap) * 12 + static_cast<size_t>(K) * 16;
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
-          finalize_postings_kernel<Rows>,
+          finalize_postings_kernel<Rows, Narrow>,
           cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    finalize_postings_kernel<Rows><<<n_block, kThreads, smem, stream>>>(
+    finalize_postings_kernel<Rows, Narrow>
+        <<<n_block, kThreads, smem, stream>>>(
         rows, P, acc_c, E, slot_of, lengths, thr, k, K, cap, scratch_off,
         scratch_keys, scratch_tot, block_reads, wire_w, wide, offset, wire);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// the words of a light row of P postings with u16 (narrow) or int32 ids
+int row_words(int P, int narrow) {
+  return narrow ? LightRow<true>::words(P) : LightRow<false>::words(P);
+}
+
+// one P3 call: launch_p3's instance for the rows' edge width
+template <class Rows>
+int launch_p3_of(int narrow, Rows rows, int P, int B, const float* acc_c,
+                 int E, const int32_t* slot_of, const int32_t* lengths,
+                 float thr, int k, int K, int warp_cap, int cap,
+                 const int64_t* scratch_off, uint64_t* scratch_keys,
+                 float* scratch_tot, const int32_t* block_reads, int n_block,
+                 int wire_w, int wide, int offset, int32_t* wire,
+                 cudaStream_t stream) {
+  const auto launch =
+      narrow ? &launch_p3<Rows, true> : &launch_p3<Rows, false>;
+  return launch(rows, P, B, acc_c, E, slot_of, lengths, thr, k, K, warp_cap,
+                cap, scratch_off, scratch_keys, scratch_tot, block_reads,
+                n_block, wire_w, wide, offset, wire, stream);
 }
 
 }  // namespace
@@ -1033,7 +1092,9 @@ int rp_dense_side(const float* H, int E, const int32_t* hrows,
   return static_cast<int>(cudaGetLastError());
 }
 
-// P3.  pairs: int32[R, 2P] (row miss all pads, skipped; -1: none); lrows:
+// P3.  pairs: int32[R, w] light rows of P postings (light.cuh: w = ceil(P
+// / 2) + P with u16 edge ids when narrow, 2P with int32 ones otherwise;
+// row miss all pads, skipped; -1: none); lrows:
 // int32[B, W]; acc_c: f32[n_slots, E]; slot_of: int32[B] (-1: no slot);
 // lengths: int32[B]; the plan (kernels.postings_plan): warp_cap, the sort
 // slots of a warp-path region (a power of two up to kWarpMaxPairs; -1: no
@@ -1044,7 +1105,7 @@ int rp_dense_side(const float* H, int E, const int32_t* hrows,
 // wire_w and wide as the caller's kernels.wire_format gives them (as K3's;
 // K at most E, wide from the global edge count); offset: the global edge
 // id of acc_c's column 0.
-int rp_finalize_postings(const int32_t* pairs, int P, int miss,
+int rp_finalize_postings(const int32_t* pairs, int P, int narrow, int miss,
                          const int32_t* lrows, int B, int W,
                          const float* acc_c, int E, const int32_t* slot_of,
                          const int32_t* lengths, float thr, int k, int K,
@@ -1053,18 +1114,21 @@ int rp_finalize_postings(const int32_t* pairs, int P, int miss,
                          const int32_t* block_reads, int n_block,
                          int wire_w, int wide, int offset, int32_t* wire,
                          cudaStream_t stream) {
-  return launch_p3(OneTable{pairs, P, miss, lrows, W}, P, B, acc_c, E,
-                   slot_of, lengths, thr, k, K, warp_cap, cap, scratch_off,
-                   scratch_keys, scratch_tot, block_reads, n_block, wire_w,
-                   wide, offset, wire, stream);
+  return launch_p3_of(narrow, OneTable{pairs, row_words(P, narrow), miss,
+                                       lrows, W},
+                      P, B, acc_c, E, slot_of, lengths, thr, k, K, warp_cap,
+                      cap, scratch_off, scratch_keys, scratch_tot,
+                      block_reads, n_block, wire_w, wide, offset, wire,
+                      stream);
 }
 
-// R1.  meta: int64[3, n] (parts.cuh) of the light parts, each int32[H_i,
-// 2P]; routed = 1: rows int32[n, B, W] part-local rows (pads >= H_i),
-// miss unused; routed = 0: rows int32[B, W] global rows, miss the global
+// R1.  meta: int64[3, n] (parts.cuh) of the light parts, each int32[H_i, w] (w
+// and narrow as P3's); routed = 1: rows int32[n, B, W] part-local rows (pads >=
+// H_i), miss unused; routed = 0: rows int32[B, W] global rows, miss the global
 // miss row (or -1).  The rest as P3's.
 int rp_finalize_postings_split(int routed, const int64_t* meta, int n, int P,
-                               int miss, const int32_t* rows, int B, int W,
+                               int narrow, int miss, const int32_t* rows,
+                               int B, int W,
                                const float* acc_c, int E,
                                const int32_t* slot_of, const int32_t* lengths,
                                float thr, int k, int K, int warp_cap, int cap,
@@ -1074,33 +1138,37 @@ int rp_finalize_postings_split(int routed, const int64_t* meta, int n, int P,
                                int wire_w, int wide, int offset,
                                int32_t* wire, cudaStream_t stream) {
   const Parts parts{meta, n};
+  const int w = row_words(P, narrow);
   if (routed)
-    return launch_p3(RoutedRows{parts, P, rows, B, W}, P, B, acc_c, E,
-                     slot_of, lengths, thr, k, K, warp_cap, cap, scratch_off,
-                     scratch_keys, scratch_tot, block_reads, n_block, wire_w,
-                     wide, offset, wire, stream);
-  return launch_p3(PartRows{parts, P, miss, rows, W}, P, B, acc_c, E, slot_of,
-                   lengths, thr, k, K, warp_cap, cap, scratch_off,
-                   scratch_keys, scratch_tot, block_reads, n_block, wire_w,
-                   wide, offset, wire, stream);
+    return launch_p3_of(narrow, RoutedRows{parts, w, rows, B, W}, P, B,
+                        acc_c, E, slot_of, lengths, thr, k, K, warp_cap, cap,
+                        scratch_off, scratch_keys, scratch_tot, block_reads,
+                        n_block, wire_w, wide, offset, wire, stream);
+  return launch_p3_of(narrow, PartRows{parts, w, miss, rows, W}, P, B, acc_c,
+                      E, slot_of, lengths, thr, k, K, warp_cap, cap,
+                      scratch_off, scratch_keys, scratch_tot, block_reads,
+                      n_block, wire_w, wide, offset, wire, stream);
 }
 
 // G1.  meta: int64[3, n] (n <= kMaxParts) of the light parts, rows of w
-// = 2P int32 words, every part's base aligned to 16 bytes when w % 4 ==
-// 0, else to 8; uniq: int32[U] part-local rows, part
+// int32 words (either edge width: the rows are copied whole), every
+// part's base aligned to 16 bytes when w % 4 == 0, else to 8 when w % 2
+// == 0; uniq: int32[U] part-local rows, part
 // p's at uniq_off[p] .. uniq_off[p+1] (uniq_off: int32[n + 1]); out:
 // int32[U, w], written.
 int rp_gather_compact(const int64_t* meta, int n, int w, const int32_t* uniq,
                       const int32_t* uniq_off, int U, int32_t* out,
                       cudaStream_t stream) {
-  if (n < 1 || n > kMaxParts || w < 2 || w % 2)
+  if (n < 1 || n > kMaxParts || w < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (U > 0) {
     const Parts parts{meta, n};
     if (w % 4 == 0)
       launch_gather<int4>(parts, w, uniq, uniq_off, U, out, stream);
-    else
+    else if (w % 2 == 0)
       launch_gather<int2>(parts, w, uniq, uniq_off, U, out, stream);
+    else
+      launch_gather<int>(parts, w, uniq, uniq_off, U, out, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,6 +61,59 @@ DELTA_TINY = np.float32(1e-30)
 #: (:meth:`PhyloKmerDB.postings_tables`)
 LIGHT_PAD_EDGE = np.int32(np.iinfo(np.int32).max)
 
+#: edge ids take u16 below this many edge slots and int32 at or above it,
+#: in light rows (:class:`LightLayout`) and on the wire
+#: (``place.kernels.wire_format``); 65535 is the u16 pad or "no edge"
+WIDE_EDGES = 65535
+
+
+class LightLayout(typing.NamedTuple):
+    """How a row of the postings layout's light table lies in its int32
+    words on the device: ``P`` postings, their edge ids first, then their
+    P bit-cast f32 deltas.  The ids take two u16 a word (low half first;
+    ``0xFFFF`` a pad, the odd tail half-word too) when ``narrow``, one
+    int32 each (``LIGHT_PAD_EDGE`` a pad) otherwise.  :meth:`of` takes
+    the wire's rule: narrow below :data:`WIDE_EDGES` edge slots."""
+    P: int
+    narrow: bool
+
+    @classmethod
+    def of(cls, P: int, n_edges: int) -> "LightLayout":
+        return cls(int(P), n_edges < WIDE_EDGES)
+
+    @property
+    def edge_words(self) -> int:
+        """The words of the edge ids: where the deltas start."""
+        return (self.P + 1) // 2 if self.narrow else self.P
+
+    @property
+    def words(self) -> int:
+        return self.edge_words + self.P
+
+    @property
+    def edge_bytes(self) -> int:
+        return 2 if self.narrow else 4
+
+    @property
+    def pad_word(self) -> int:
+        """An id word of pads (two u16 pads when narrow), as int32."""
+        return -1 if self.narrow else int(LIGHT_PAD_EDGE)
+
+    def pack(self, edges: np.ndarray, deltas: np.ndarray) -> np.ndarray:
+        """Light rows int32[n, words] from :class:`PostingsTables`' edge
+        ids int32[n, P] (pads ``LIGHT_PAD_EDGE``) and f32 deltas [n, P]."""
+        out = np.empty((edges.shape[0], self.words), np.int32)
+        if self.narrow:
+            ids = np.full((edges.shape[0], 2 * self.edge_words), 0xFFFF,
+                          np.uint16)
+            ids[:, :self.P] = np.where(edges == LIGHT_PAD_EDGE, 0xFFFF,
+                                       edges)
+            out[:, :self.edge_words] = ids.view(np.int32)
+        else:
+            out[:, :self.P] = edges
+        out[:, self.edge_words:] = deltas.view(np.int32)
+        return out
+
 
 @dataclasses.dataclass
 class PhyloKmerDB:
@@ -263,11 +316,12 @@ class PhyloKmerDB:
         lists are short.  Here k-mers with <= ``width`` postings (the
         "light" ones, typically the vast majority on big sparse DBs) are
         stored as fixed-width ``[n_light + 1, width]`` edge/delta tables
-        costing 8 bytes per posting slot; the few k-mers with longer
-        lists ("heavy", conserved k-mers hitting many edges) go to a
-        small dense matrix ``[n_heavy + 1, E]``.  Both tables carry a
-        trailing miss row.  Pad slots in the light tables (unused posting
-        slots and the miss row) are ``(LIGHT_PAD_EDGE, 0.0)``: the int32
+        (8 bytes per posting slot here; 6 on the device below
+        :data:`WIDE_EDGES` edge slots, :class:`LightLayout`); the few
+        k-mers with longer lists ("heavy", conserved k-mers hitting many
+        edges) go to a small dense matrix ``[n_heavy + 1, E]``.  Both
+        tables carry a trailing miss row.  Pad slots in the light tables
+        (unused posting slots and the miss row) are ``(LIGHT_PAD_EDGE, 0.0)``: the int32
         sentinel edge sorts pads to the TAIL of each read's edge-sorted
         posting run, so (a) segment presence is just
         ``edge != LIGHT_PAD_EDGE`` -- no separate exactness pass -- and
@@ -318,10 +372,12 @@ class PhyloKmerDB:
 
 
 class PostingsTables(typing.NamedTuple):
-    """Device layout produced by :meth:`PhyloKmerDB.postings_tables`."""
+    """The host tables of :meth:`PhyloKmerDB.postings_tables`.  The
+    device's light table packs ``light_edges`` and ``light_deltas`` into
+    rows of :class:`LightLayout` (``convert.postings_device_tables``)."""
     width: int
     light_keys: np.ndarray    # int64[nl] sorted
-    light_edges: np.ndarray   # int32[nl+1, width], last row zeros (miss)
+    light_edges: np.ndarray   # int32[nl+1, width], last row pads (miss)
     light_deltas: np.ndarray  # f32[nl+1, width]
     heavy_keys: np.ndarray    # int64[nh] sorted
     heavy_dense: np.ndarray   # f32[nh+1, E], last row zeros (miss)

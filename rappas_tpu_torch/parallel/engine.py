@@ -74,6 +74,7 @@ class ShardedEngine(PlacementEngine):
             self._postings = PostingsShardedPlacement(
                 db, mesh, keep_at_most=keep_at_most,
                 postings_width=postings_width)
+            self.light_layout = self._postings.light_layout
             self.wire_k = self._postings.wire_k
         else:
             shards = column_shards(db, table, self.mp)

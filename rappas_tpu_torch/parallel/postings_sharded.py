@@ -19,6 +19,9 @@ partitioned by **edge range** over the ``mp`` mesh axis
   scores never need a cross-shard sum) and sums the shards' ``|L|``, on
   every process of the row.
 
+Each shard's light table holds global edge ids in the single-device
+engine's rows (``LightLayout.of``: u16 ids below 65,535 edge slots).
+
 Reads stay data-parallel over ``dp``.  The host computes the batch's
 k-mer indices once and takes each shard's encoded rows with one fancy
 index into that shard's direct row table; IUPAC ambiguity windows (the
@@ -31,8 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rappas_tpu_torch.db import (DELTA_TINY, LIGHT_PAD_EDGE, PhyloKmerDB,
-                                 build_csr)
+from rappas_tpu_torch.db import (DELTA_TINY, LIGHT_PAD_EDGE, LightLayout,
+                                 PhyloKmerDB, build_csr)
 from rappas_tpu_torch.parallel.mesh import Mesh, PendingSlices, dp_slices
 from rappas_tpu_torch.place import kernels
 from rappas_tpu_torch.place.engine import (BatchResult, alt_rows_of,
@@ -149,6 +152,8 @@ class PostingsShardedPlacement:
         self.thr = float(np.float32(db.thr_log10))
         bounds, t = shard_db_by_edge(db, mesh.shape["mp"], postings_width)
         self._bounds = bounds
+        #: the shards' light rows, by the single-device engine's rule
+        self.light_layout = LightLayout.of(postings_width, db.n_edge_slots)
         E, W = db.n_edge_slots, t["heavy_dense"].shape[2]
         self.n_edges = E
         # each shard sends its min(K, W) best, the merge keeps K of them
@@ -160,13 +165,16 @@ class PostingsShardedPlacement:
         for j in range(mesh.shape["mp"]):
             nl = int(t["nl"][j])
             nh = t["heavy_keys"][j].shape[0]
-            pairs = np.ascontiguousarray(t["light_pairs"][j, :nl + 1])
+            wide = t["light_pairs"][j, :nl + 1]
+            edges = wide[:, :postings_width]
+            pairs = self.light_layout.pack(
+                edges, wide[:, postings_width:].view(np.float32))
             heavy = np.ascontiguousarray(t["heavy_dense"][j, :nh + 1])
             cols = mesh.column(j)
             self._shards.append(dict(
                 offset=int(bounds[j]), nl=nl, nh=nh, rof=t["rof"][j],
-                light_counts=(pairs[:, :postings_width] != LIGHT_PAD_EDGE)
-                .sum(axis=1).astype(np.int32),
+                light_counts=(edges != LIGHT_PAD_EDGE).sum(axis=1)
+                .astype(np.int32),
                 pairs=mesh.put(pairs, cols),
                 heavy_dense=mesh.put(heavy, cols)))
 
@@ -204,11 +212,13 @@ class PostingsShardedPlacement:
                         kernels.ambiguous_postings_(
                             acc_c, H, pairs, t["alt_lrows"], t["alt_hrows"],
                             t["win_off"], t["win_slot"], t["win_inv_w"],
-                            t["win_is_mean"], sh["offset"])
+                            t["win_is_mean"], sh["offset"],
+                            layout=self.light_layout)
                     wires.append(kernels.finalize_postings_wire(
                         pairs, t["lrows"], acc_c, t["slot_of"],
                         t["lengths"], self.thr, self.k, self.keep_at_most,
-                        plan, sh["offset"], self.n_edges))
+                        plan, sh["offset"], self.n_edges,
+                        layout=self.light_layout))
             lead = mesh.lead(d)
             with mesh.on(lead):
                 wire = kernels.merge_candidates_wire(

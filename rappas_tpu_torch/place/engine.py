@@ -51,8 +51,10 @@ Postings (large trees, protein; ``convert.postings_device_tables``;
 a light-dominated DB, or at the DB's own light width, :func:`light_width`,
 when that makes it a small share of the compact table):
 k-mers with at most ``postings_width`` postings live in one light table
-``pairs[nl + 1, 2P]`` (edge ids, then bit-cast deltas), the others in a
-dense ``heavy_dense[nh + 1, E]``.  The host maps every window to an
+``pairs[nl + 1, w]`` (P edge ids, then P bit-cast deltas: ``w = ceil(P /
+2) + P`` words with u16 ids below 65535 edge slots, ``2P`` with int32 ids
+at or above, ``db.LightLayout``), the others in a dense
+``heavy_dense[nh + 1, E]``.  The host maps every window to an
 encoded row and left-packs each read's light hits in one native sweep
 (``native/keyprobe.cpp``, built with g++ at first use: a direct index,
 or a key probe for big k-mer spaces), and gives each read
@@ -63,9 +65,9 @@ with dense content (heavy hits, ambiguity windows) one slot.  Then:
 * P3 ``finalize_postings_wire`` -- per read, sort and sum the light
   postings, join the slot's dense row, top-K and ``|L|`` into the wire.
 
-The wire carries edge ids as u16 below 65535 edge slots and as int32 at
-or above (``kernels.WIDE_EDGES``).  On ``device="cpu"`` the wrappers
-compute their plain PyTorch versions.
+The wire, like the light rows, carries edge ids as u16 below 65535 edge
+slots and as int32 at or above (``kernels.WIDE_EDGES``).  On
+``device="cpu"`` the wrappers compute their plain PyTorch versions.
 
 Height-split tables (one device; JAX's rules, the H100's budgets): a
 light table past ``LIGHT_PART_BYTES`` lives as up to ``MAX_LIGHT_PARTS``
@@ -112,7 +114,7 @@ import torch
 from rappas_tpu_torch import native
 from rappas_tpu_torch.convert import (device_tables, direct_split_tables,
                                       postings_device_tables)
-from rappas_tpu_torch.db import PhyloKmerDB
+from rappas_tpu_torch.db import LightLayout, PhyloKmerDB
 from rappas_tpu_torch.place import kernels
 from rappas_tpu_torch.utils import count, span, tracing_on
 
@@ -510,15 +512,18 @@ def postings_batch(rof: np.ndarray, nl: int, light_counts: np.ndarray,
 def light_width(lens: np.ndarray, n_edges: int) -> tuple[int, int]:
     """The postings layout's light width for keys of ``lens`` postings on
     ``n_edges`` slots, and its device bytes there: the W that minimises
-    ``(nl(W) + 1) * 8W + (nh(W) + 1) * 4E``, where the ``nl(W)`` keys of
-    at most W postings are light rows of W (edge, delta) pairs and the
-    other ``nh(W)`` dense f32 rows, each table with its miss row.  Between
-    two key lengths the bytes only grow with W, so W is 0 or a key
-    length; a tie takes the smaller."""
+    ``(nl(W) + 1) * 4w(W) + (nh(W) + 1) * 4E``, where the ``nl(W)`` keys of
+    at most W postings are light rows of ``w(W)`` words (W edge ids and W
+    deltas, :class:`~rappas_tpu_torch.db.LightLayout`: ``ceil(W / 2) + W``
+    below 65535 slots, ``2W`` at or above) and the other ``nh(W)`` dense
+    f32 rows, each table with its miss row.  Between two key lengths the
+    bytes only grow with W, so W is 0 or a key length; a tie takes the
+    smaller."""
     counts = np.bincount(lens, minlength=1)
     widths = np.flatnonzero(np.r_[1, counts[1:]])
     nl = np.cumsum(counts)[widths]
-    nbytes = (nl + 1) * 8 * widths + (len(lens) - nl + 1) * 4 * n_edges
+    words = np.array([LightLayout.of(w, n_edges).words for w in widths])
+    nbytes = (nl + 1) * 4 * words + (len(lens) - nl + 1) * 4 * n_edges
     best = int(np.argmin(nbytes))
     return int(widths[best]), int(nbytes[best])
 
@@ -565,7 +570,7 @@ class PlacementEngine:
     #: the method's own dense builds (PERF.md §4: 44.5 postings a key on
     #: 119 slots, 227.4 on 299, where postings saves under 1.5x) and
     #: takes postings for the 4,000-taxon k=10 DB (45 a key on 8,000
-    #: slots: 0.38 GB against 33.55 GB).  The share weighs the tables
+    #: slots: 0.29 GB against 33.55 GB).  The share weighs the tables
     #: alone: P3's per-batch scratch, 12 B a sort slot for reads past
     #: ``kernels.SMEM_PAIRS`` postings, also grows with the width (0.81
     #: GB for 1,024 reads of 1,450 bp at width 45) and is not counted
@@ -576,8 +581,9 @@ class PlacementEngine:
     #: engine reads/s, CLI 30,145 against 24,293)
     LIGHT_PART_BYTES = DIRECT_BYTE_LIMIT
     #: the two-stage path's caps on a batch's unique light rows and on
-    #: their compact table's bytes (2P int32 words a row): config 5's
-    #: 8,192-read batches hold 352,879-359,369 unique rows (23 MB), so
+    #: their compact table's bytes (the light rows' words: 16 at width 8
+    #: with int32 edge ids, 12 with u16 ones): config 5's 8,192-read
+    #: batches hold 352,879-359,369 unique rows (23 MB at 16 words), so
     #: both admit batches up to twice that; past them a batch takes the
     #: select fallback (63,815 engine reads/s on row config 5, ahead of
     #: the two-stage path's 53,972)
@@ -644,6 +650,7 @@ class PlacementEngine:
                   sum(t.numel() * t.element_size() for t in held))
             if table == "postings":
                 count("engine.postings_width", postings_width)
+                count("engine.edge_id_bytes", self.light_layout.edge_bytes)
             self._init_host_codec()
             self._stream = self._gather_stream = None
             if self.device.type == "cuda":
@@ -689,6 +696,7 @@ class PlacementEngine:
         self.light_parts, self.heavy_dense = ps.light_parts, \
             ps.heavy_dense
         self.postings_width = postings_width
+        self.light_layout = ps.layout
         self._light_slow = ps.light_slow
         #: the light table when it is one part
         self.pairs = self.light_parts[0] \
@@ -724,10 +732,11 @@ class PlacementEngine:
                                                         keep_at_most)
         self.thr = float(np.float32(db.thr_log10))
         #: the height-split direct table (None: whole), and the light
-        #: table's parts and width (set by the postings layout)
+        #: table's parts, width and row layout (set by the postings layout)
         self.direct_parts = None
         self.light_parts = ()
         self.postings_width = None
+        self.light_layout = None
         #: part-routed windows on a split light table; the software
         #: pipeline of the two-stage path, its tail and the lock that
         #: serialises the tail's hand-off between the issuing thread and a
@@ -1215,10 +1224,12 @@ class PlacementEngine:
                         dev["win_is_mean"])
                 if len(self.light_parts) > 1:
                     kernels.ambiguous_postings_parts_(
-                        acc_c, self.heavy_dense, self._light, *spec)
+                        acc_c, self.heavy_dense, self._light, *spec,
+                        layout=self.light_layout)
                 else:
                     kernels.ambiguous_postings_(acc_c, self.heavy_dense,
-                                                self.pairs, *spec)
+                                                self.pairs, *spec,
+                                                layout=self.light_layout)
         return dev, acc_c, plan
 
     def _postings_wire(self, src: tuple, dev: dict, acc_c, plan,
@@ -1229,21 +1240,23 @@ class PlacementEngine:
         light table."""
         args = (acc_c, dev["slot_of"], dev["lengths"], self.thr, self.k,
                 self.keep_at_most, plan)
+        layout = self.light_layout
         kind = src[0]
         if kind == "routed":
             return kernels.finalize_postings_wire_routed(
-                self._light, dev["routed"], *args)
+                self._light, dev["routed"], *args, layout=layout)
         if kind == "parts":
             return kernels.finalize_postings_wire_parts(
-                self._light, dev["lrows"], *args, miss=self._nl)
+                self._light, dev["lrows"], *args, miss=self._nl,
+                layout=layout)
         if kind == "compact":
             if compact is None:
                 compact = kernels.gather_compact_(self._light, dev["uniq"],
                                                   dev["uniq_off"])
             return kernels.finalize_postings_wire(
-                compact, dev["lrows"], *args, miss=src[1])
+                compact, dev["lrows"], *args, miss=src[1], layout=layout)
         return kernels.finalize_postings_wire(self.pairs, dev["lrows"],
-                                              *args)
+                                              *args, layout=layout)
 
     def _light_source(self, host: dict):
         """Where P3 reads this batch's light rows
@@ -1277,7 +1290,7 @@ class PlacementEngine:
         B = lrows.shape[0]
         uniq, inv = _fast_unique_inverse(lrows.ravel())
         U = uniq.shape[0]
-        # the compact [U, 2P] table must stay within the two-stage caps
+        # the compact [U, w] table must stay within the two-stage caps
         compact_ok = (U <= self.TWO_STAGE_MAX_UNIQUE and
                       U * parts[0].shape[1] * 4 <= self.TWO_STAGE_MAX_BYTES)
         if not compact_ok and nparts > 1 and B >= 2 * self.MIN_SPLIT_B:

@@ -10,6 +10,7 @@ Two parts:
   :func:`ambiguous_contrib`, :func:`ambiguous_pass`; compact:
   :func:`kmer_indices64`, :func:`compact_rows`; postings:
   :func:`gather_rows`, :func:`scatter_slots`, :func:`light_gather`,
+  :func:`light_postings` (a light row's postings, u16 or int32 edge ids),
   :func:`alt_delta_rows_postings`, :func:`finalize_postings`; sharded:
   :func:`accumulate_range`, :func:`merge_candidates`; height-split
   tables: :func:`routed_light_gather`, :func:`gather_compact`,
@@ -50,15 +51,12 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from rappas_tpu_torch.db import DELTA_TINY, LIGHT_PAD_EDGE
+from rappas_tpu_torch.db import (DELTA_TINY, LIGHT_PAD_EDGE, WIDE_EDGES,
+                                 LightLayout)
 from rappas_tpu_torch.utils import count
 
 LOG2_10 = float(np.float32(np.log2(10.0)))
 INV_LOG2_10 = float(np.float32(1.0 / np.log2(10.0)))
-
-#: wire rows carry edge ids as u16 below this many edge slots, as int32
-#: at or above it (65535 is the u16 "no edge" mark)
-WIDE_EDGES = 65535
 
 
 # ====================================================================== #
@@ -339,20 +337,35 @@ def light_gather(parts, lrows: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def routed_light_gather(parts: tuple, routed) -> torch.Tensor:
-    """[B, sum(W_p), 2P] window gather with per-part routing
+def light_postings(g: torch.Tensor, layout: LightLayout):
+    """The postings of light rows ``g`` int32[..., words] of ``layout``:
+    (edge ids int64[..., P], pads ``LIGHT_PAD_EDGE``; deltas f32[...,
+    P])."""
+    ew = layout.edge_words
+    d = g[..., ew:].contiguous().view(torch.float32)
+    if not layout.narrow:
+        return g[..., :layout.P].to(torch.int64), d
+    w = g[..., :ew].to(torch.int64) & 0xFFFFFFFF
+    e = torch.stack([w & 0xFFFF, w >> 16], dim=-1).reshape(
+        *g.shape[:-1], 2 * ew)[..., :layout.P]
+    return torch.where(e == 0xFFFF, int(LIGHT_PAD_EDGE), e), d
+
+
+def routed_light_gather(parts: tuple, routed,
+                        layout: LightLayout) -> torch.Tensor:
+    """[B, sum(W_p), words] window gather with per-part routing
     (``rappas_tpu/place/engine.py:609-629``): ``routed[p]`` holds part
     ``p``'s part-LOCAL rows [B, W_p], pad slots ``>= H_p``, which become
-    the sentinel edge ``LIGHT_PAD_EDGE`` and a zero delta."""
+    rows of pad edges and zero deltas (light rows of ``layout``)."""
     gs = []
+    ew = layout.edge_words
     for p, r in zip(parts, routed):
         H = p.shape[0]
         g = light_gather(p, r.clamp_max(H - 1))
-        P = g.shape[-1] // 2
         pad = (r >= H)[..., None]
         gs.append(torch.cat([
-            torch.where(pad, int(LIGHT_PAD_EDGE), g[..., :P]),
-            torch.where(pad, 0, g[..., P:])], dim=-1))
+            torch.where(pad, layout.pad_word, g[..., :ew]),
+            torch.where(pad, 0, g[..., ew:])], dim=-1))
     return torch.cat(gs, dim=1)
 
 
@@ -368,22 +381,21 @@ def gather_compact(parts: tuple, uniq) -> torch.Tensor:
 
 def alt_delta_rows_postings(pairs, heavy_dense: torch.Tensor,
                             alt_lrows: torch.Tensor, alt_hrows: torch.Tensor,
-                            edge_offset: int = 0) -> torch.Tensor:
+                            edge_offset: int = 0, *,
+                            layout: LightLayout) -> torch.Tensor:
     """[n_alt, E] f32 delta rows of the ambiguity alternatives: the heavy
     dense row plus the scattered light postings (misses take the heavy
-    table's zero row and the light table's all-pad row; pad slots carry
-    ``LIGHT_PAD_EDGE`` and drop out of the scatter).  ``pairs`` is the
-    light table or a tuple of its parts (:func:`light_gather`).  Under
+    table's zero row and the light table's all-pad row; pad slots drop
+    out of the scatter).  ``pairs`` is the light table or a tuple of its
+    parts (:func:`light_gather`), rows of ``layout``.  Under
     edge-range sharding the columns are the edges ``edge_offset ..
     edge_offset + E - 1`` (``rappas_tpu/parallel/postings_sharded.py:
     172-177``): a posting adds at column ``edge - edge_offset`` when that
     lies in ``[0, E)``."""
     E = heavy_dense.shape[1]
     dense = heavy_dense.index_select(0, alt_hrows)
-    g = light_gather(pairs, alt_lrows)
-    P = g.shape[1] // 2
-    e = g[:, :P].to(torch.int64) - edge_offset
-    d = g[:, P:].contiguous().view(torch.float32)
+    e, d = light_postings(light_gather(pairs, alt_lrows), layout)
+    e = e - edge_offset
     keep = (e >= 0) & (e < E)
     r = torch.arange(e.shape[0], device=e.device)[:, None].expand_as(e)
     return dense.index_put_((r[keep], e[keep]), d[keep], accumulate=True)
@@ -393,6 +405,7 @@ def finalize_postings(pairs: torch.Tensor | None, lrows: torch.Tensor | None,
                       acc_c: torch.Tensor, slot_of: torch.Tensor,
                       lengths: torch.Tensor, thr: torch.Tensor, k: int,
                       keep_at_most: int, edge_offset: int = 0, *,
+                      layout: LightLayout,
                       light_parts: tuple | None = None,
                       uniq_rows=None, compact_table: torch.Tensor | None = None,
                       routed_lrows=None):
@@ -407,7 +420,7 @@ def finalize_postings(pairs: torch.Tensor | None, lrows: torch.Tensor | None,
     inverse map into it; or ``uniq_rows``, from which that compact table
     is first gathered (:func:`gather_compact`).  A read's postings are
     then the same whatever the source, in another order on the routed
-    one.
+    one.  Every source holds rows of ``layout``.
 
     Read ``b``'s light postings (the rows ``lrows[b]`` of ``pairs``: P
     edge ids, then P bit-cast f32 deltas) are sorted by edge and summed
@@ -428,7 +441,7 @@ def finalize_postings(pairs: torch.Tensor | None, lrows: torch.Tensor | None,
     as global ids; K is ``min(keep_at_most, E)`` of the shard's width."""
     parts = light_parts if light_parts is not None else (pairs,)
     if routed_lrows is not None:
-        g = routed_light_gather(parts, routed_lrows)
+        g = routed_light_gather(parts, routed_lrows, layout)
     elif compact_table is not None:
         g = light_gather(compact_table, lrows)
     elif uniq_rows is not None:
@@ -436,12 +449,12 @@ def finalize_postings(pairs: torch.Tensor | None, lrows: torch.Tensor | None,
     else:
         g = light_gather(parts, lrows)
     B, W = g.shape[:2]
-    P = g.shape[2] // 2
+    P = layout.P
     n_slots, E = acc_c.shape
     K = min(keep_at_most, E)
     dev = g.device
-    e = g[:, :, :P].reshape(B, W * P)
-    d = g[:, :, P:].contiguous().view(torch.float32).reshape(B, W * P)
+    e, d = light_postings(g, layout)
+    e, d = e.reshape(B, W * P), d.reshape(B, W * P)
     if W * P < K:     # a light list shorter than K: pad it with pads
         e = torch.cat([e, torch.full((B, K - W * P), int(LIGHT_PAD_EDGE),
                                      dtype=e.dtype, device=dev)], dim=1)
@@ -1152,7 +1165,8 @@ def ambiguous_postings_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
                         alt_hrows: torch.Tensor, win_off: torch.Tensor,
                         win_slot: torch.Tensor, win_inv_w: torch.Tensor,
                         win_is_mean: torch.Tensor,
-                        edge_offset: int = 0) -> torch.Tensor:
+                        edge_offset: int = 0, *,
+                        layout: LightLayout) -> torch.Tensor:
     """P2 (``csrc/ambiguous.cu``, the postings kernel):
     ``ambiguous_pass(alt_delta_rows_postings(pairs, heavy_dense,
     alt_lrows, alt_hrows), alt_win, win_slot, ...)`` added into ``acc_c``
@@ -1162,24 +1176,24 @@ def ambiguous_postings_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
     (all columns when an alternative is heavy, the row ``heavy_dense``'s
     last, zero row marking a light one), and the adds are atomic, as in
     K4.  ``edge_offset``: the global id of column 0 on an edge-range
-    shard (0 on one device)."""
+    shard (0 on one device); ``pairs`` holds rows of ``layout``."""
     n_win = win_slot.shape[0]
     if not _on_card(acc_c, heavy_dense, pairs, alt_lrows, alt_hrows,
                     win_off, win_slot, win_inv_w, win_is_mean):
         return acc_c.copy_(ambiguous_pass(
             alt_delta_rows_postings(pairs, heavy_dense, alt_lrows,
-                                    alt_hrows, edge_offset),
+                                    alt_hrows, edge_offset, layout=layout),
             _alt_win(win_off), win_slot, win_inv_w, win_is_mean, acc_c))
     E = heavy_dense.shape[1]
     _check(heavy_dense, "heavy_dense", torch.float32, tuple(heavy_dense.shape))
-    _check(pairs, "pairs", torch.int32, tuple(pairs.shape))
+    _check(pairs, "pairs", torch.int32, (pairs.shape[0], layout.words))
     _check_windows(acc_c, E, {"alt_lrows": alt_lrows, "alt_hrows": alt_hrows},
                    win_off, win_slot, win_inv_w, win_is_mean)
     _check(alt_hrows, "alt_hrows", torch.int32, alt_lrows.shape)
     from rappas_tpu_torch._kernels import lib
     _launch("ambiguous_postings", lib().rp_ambiguous_postings,
             heavy_dense.data_ptr(), E, heavy_dense.shape[0] - 1,
-            pairs.data_ptr(), pairs.shape[1] // 2,
+            pairs.data_ptr(), layout.P, int(layout.narrow),
             alt_lrows.data_ptr(), alt_hrows.data_ptr(), win_off.data_ptr(),
             win_slot.data_ptr(), win_inv_w.data_ptr(),
             win_is_mean.data_ptr(), n_win, int(edge_offset), acc_c.data_ptr(),
@@ -1187,11 +1201,20 @@ def ambiguous_postings_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
     return acc_c
 
 
+def _check_light_parts(parts: Parts, layout: LightLayout) -> torch.Tensor:
+    """Checks a split light table's parts against ``layout``; returns the
+    first part."""
+    t0 = _check_parts(parts)
+    _check(t0, "parts[0]", torch.int32, (t0.shape[0], layout.words))
+    return t0
+
+
 def ambiguous_postings_parts_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
                               parts: Parts, alt_lrows: torch.Tensor,
                               alt_hrows: torch.Tensor, win_off: torch.Tensor,
                               win_slot: torch.Tensor, win_inv_w: torch.Tensor,
-                              win_is_mean: torch.Tensor) -> torch.Tensor:
+                              win_is_mean: torch.Tensor, *,
+                              layout: LightLayout) -> torch.Tensor:
     """A1 (``csrc/ambiguous.cu``, P2 with a split light table):
     :func:`ambiguous_postings_` with the light rows ``alt_lrows`` global
     rows of the height-split light table ``parts``
@@ -1202,21 +1225,19 @@ def ambiguous_postings_parts_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
                     win_off, win_slot, win_inv_w, win_is_mean):
         return acc_c.copy_(ambiguous_pass(
             alt_delta_rows_postings(parts.tables, heavy_dense, alt_lrows,
-                                    alt_hrows),
+                                    alt_hrows, layout=layout),
             _alt_win(win_off), win_slot, win_inv_w, win_is_mean, acc_c))
     E = heavy_dense.shape[1]
-    t0 = _check_parts(parts)
+    _check_light_parts(parts, layout)
     _check(heavy_dense, "heavy_dense", torch.float32, tuple(heavy_dense.shape))
-    if t0.dtype != torch.int32:
-        raise ValueError(f"parts: want int32 light parts, got {t0.dtype}")
     _check_windows(acc_c, E, {"alt_lrows": alt_lrows, "alt_hrows": alt_hrows},
                    win_off, win_slot, win_inv_w, win_is_mean)
     _check(alt_hrows, "alt_hrows", torch.int32, alt_lrows.shape)
     from rappas_tpu_torch._kernels import lib
     _launch("ambiguous_postings_parts", lib().rp_ambiguous_postings_parts,
             heavy_dense.data_ptr(), E, heavy_dense.shape[0] - 1,
-            parts.meta.data_ptr(),
-            len(parts.tables), t0.shape[1] // 2, alt_lrows.data_ptr(),
+            parts.meta.data_ptr(), len(parts.tables), layout.P,
+            int(layout.narrow), alt_lrows.data_ptr(),
             alt_hrows.data_ptr(), win_off.data_ptr(), win_slot.data_ptr(),
             win_inv_w.data_ptr(), win_is_mean.data_ptr(), n_win,
             acc_c.data_ptr(), _stream(acc_c))
@@ -1226,7 +1247,8 @@ def ambiguous_postings_parts_(acc_c: torch.Tensor, heavy_dense: torch.Tensor,
 def _p3(name: str, fn, head: tuple, B: int, acc_c, slot_of, lengths, thr,
         k, keep_at_most, plan, edge_offset=0, n_edges=None) -> torch.Tensor:
     """Checks and launches one P3 instance; ``head`` its row-source
-    arguments.  Returns the wire."""
+    arguments (the layout's P and edge width among them).  Returns the
+    wire."""
     n_slots, E = acc_c.shape
     K, wide, n_words = wire_format(E if n_edges is None else n_edges,
                                    keep_at_most, E)
@@ -1267,13 +1289,15 @@ def finalize_postings_wire(pairs: torch.Tensor, lrows: torch.Tensor,
                            keep_at_most: int, plan: PostingsPlan,
                            edge_offset: int = 0,
                            n_edges: int | None = None,
-                           miss: int | None = None) -> torch.Tensor:
+                           miss: int | None = None, *,
+                           layout: LightLayout) -> torch.Tensor:
     """P3 (``csrc/postings.cu``): ``pack_wire(*finalize_postings(...))``
     -> int32 [B, words] in the wire of :func:`wire_format`.  On an
     edge-range shard ``acc_c`` holds the edges ``edge_offset ..
     edge_offset + E - 1`` of a DB of ``n_edges`` edge slots (default E):
     the wire carries global ids, K of the shard's width, and is wide when
-    ``n_edges`` is.  ``miss`` (default: the table's last row) is a row of
+    ``n_edges`` is.  ``pairs`` holds light rows of ``layout``.  ``miss``
+    (default: the table's last row) is a row of
     ``pairs`` that holds only pads, which the card skips, or -1 for none;
     on the two-stage path ``pairs`` is the batch's compact table and the
     light miss row sits among its rows, if at all.
@@ -1287,12 +1311,12 @@ def finalize_postings_wire(pairs: torch.Tensor, lrows: torch.Tensor,
     if not _on_card(pairs, lrows, acc_c, slot_of, lengths,
                     *plan.tensors().values()):
         return _p3_plain(acc_c, slot_of, lengths, thr, k, keep_at_most,
-                         edge_offset, n_edges, pairs, lrows)
-    _check(pairs, "pairs", torch.int32, tuple(pairs.shape))
+                         edge_offset, n_edges, pairs, lrows, layout=layout)
+    _check(pairs, "pairs", torch.int32, (pairs.shape[0], layout.words))
     _check(lrows, "lrows", torch.int32, (B, W))
     from rappas_tpu_torch._kernels import lib
     return _p3("finalize_postings_wire", lib().rp_finalize_postings,
-               (pairs.data_ptr(), pairs.shape[1] // 2,
+               (pairs.data_ptr(), layout.P, int(layout.narrow),
                 pairs.shape[0] - 1 if miss is None else int(miss),
                 lrows.data_ptr(), B, W),
                B, acc_c, slot_of, lengths, thr, k, keep_at_most, plan,
@@ -1303,7 +1327,8 @@ def finalize_postings_wire_routed(parts: Parts, routed: torch.Tensor,
                                   acc_c: torch.Tensor, slot_of: torch.Tensor,
                                   lengths: torch.Tensor, thr: float, k: int,
                                   keep_at_most: int,
-                                  plan: PostingsPlan) -> torch.Tensor:
+                                  plan: PostingsPlan, *,
+                                  layout: LightLayout) -> torch.Tensor:
     """R1 (``csrc/postings.cu``, P3 with a routed row source):
     ``finalize_postings_routed`` + ``pack_wire``
     (``rappas_tpu/place/engine.py:609-651``) -> the wire, one device.
@@ -1315,15 +1340,15 @@ def finalize_postings_wire_routed(parts: Parts, routed: torch.Tensor,
     if not _on_card(parts.meta, routed, acc_c, slot_of, lengths,
                     *plan.tensors().values()):
         return _p3_plain(acc_c, slot_of, lengths, thr, k, keep_at_most, 0,
-                         None, None, None, light_parts=parts.tables,
+                         None, None, None, layout=layout,
+                         light_parts=parts.tables,
                          routed_lrows=tuple(routed))
-    t0 = _check_parts(parts)
-    _check(t0, "parts[0]", torch.int32, tuple(t0.shape))
+    _check_light_parts(parts, layout)
     _check(routed, "routed", torch.int32, (len(parts.tables), B, W))
     from rappas_tpu_torch._kernels import lib
     return _p3("finalize_postings_wire_routed",
                lib().rp_finalize_postings_split,
-               (1, parts.meta.data_ptr(), n, t0.shape[1] // 2, -1,
+               (1, parts.meta.data_ptr(), n, layout.P, int(layout.narrow), -1,
                 routed.data_ptr(), B, W),
                B, acc_c, slot_of, lengths, thr, k, keep_at_most, plan)
 
@@ -1332,7 +1357,8 @@ def finalize_postings_wire_parts(parts: Parts, lrows: torch.Tensor,
                                  acc_c: torch.Tensor, slot_of: torch.Tensor,
                                  lengths: torch.Tensor, thr: float, k: int,
                                  keep_at_most: int, plan: PostingsPlan,
-                                 miss: int = -1) -> torch.Tensor:
+                                 miss: int = -1, *,
+                                 layout: LightLayout) -> torch.Tensor:
     """R1 (``csrc/postings.cu``, P3 with a part-select row source): the
     select fallback, ``light_gather`` over the parts +
     ``finalize_postings_v2`` with ``uniq_rows=None`` + ``pack_wire``
@@ -1344,22 +1370,23 @@ def finalize_postings_wire_parts(parts: Parts, lrows: torch.Tensor,
     if not _on_card(parts.meta, lrows, acc_c, slot_of, lengths,
                     *plan.tensors().values()):
         return _p3_plain(acc_c, slot_of, lengths, thr, k, keep_at_most, 0,
-                         None, None, lrows, light_parts=parts.tables)
-    t0 = _check_parts(parts)
-    _check(t0, "parts[0]", torch.int32, tuple(t0.shape))
+                         None, None, lrows, layout=layout,
+                         light_parts=parts.tables)
+    _check_light_parts(parts, layout)
     _check(lrows, "lrows", torch.int32, (B, W))
     from rappas_tpu_torch._kernels import lib
     return _p3("finalize_postings_wire_parts",
                lib().rp_finalize_postings_split,
-               (0, parts.meta.data_ptr(), len(parts.tables), t0.shape[1] // 2,
-                int(miss), lrows.data_ptr(), B, W),
+               (0, parts.meta.data_ptr(), len(parts.tables), layout.P,
+                int(layout.narrow), int(miss), lrows.data_ptr(), B, W),
                B, acc_c, slot_of, lengths, thr, k, keep_at_most, plan)
 
 
 def gather_compact_(parts: Parts, uniq: torch.Tensor,
                     uniq_off: torch.Tensor) -> torch.Tensor:
     """G1 (``csrc/postings.cu``): the batch-unique compact table int32[U,
-    2P] of ``gather_compact`` (``rappas_tpu/place/engine.py:557-570``):
+    w] of ``gather_compact`` (``rappas_tpu/place/engine.py:557-570``),
+    whole rows of the parts' ``w`` words whatever their layout:
     ``uniq`` int32[U] holds part ``i``'s part-LOCAL rows at ``uniq_off[i]
     .. uniq_off[i + 1]`` (``uniq_off`` int32[n_parts + 1]); each is copied
     from its own part, in order."""
@@ -1373,11 +1400,11 @@ def gather_compact_(parts: Parts, uniq: torch.Tensor,
     _check(uniq, "uniq", torch.int32, (U,))
     _check(uniq_off, "uniq_off", torch.int32, (len(parts.tables) + 1,))
     row_bytes = 4 * t0.shape[1]
-    load = 16 if row_bytes % 16 == 0 else 8
-    if row_bytes % 8 or any(t.data_ptr() % load for t in parts.tables):
-        raise ValueError(f"parts: want rows of 2P words copied in {load}-"
-                         f"byte loads, every part on a {load}-byte boundary"
-                         f"; got rows of {row_bytes} bytes")
+    load = next(b for b in (16, 8, 4) if row_bytes % b == 0)
+    if any(t.data_ptr() % load for t in parts.tables):
+        raise ValueError(f"parts: want rows copied in {load}-byte loads, "
+                         f"every part on a {load}-byte boundary; got rows "
+                         f"of {row_bytes} bytes")
     out = torch.empty((U, t0.shape[1]), dtype=torch.int32, device=t0.device)
     from rappas_tpu_torch._kernels import lib
     _launch("gather_compact", lib().rp_gather_compact, parts.meta.data_ptr(),

@@ -11,11 +11,13 @@ them (``build_csr``), the DB saved and loaded, the engine made (its
 tables built); and at the run's end, the judging included.  The step
 whose reading first reaches the peak is the step that set it.  Then
 
-    setup_counters: {"engine.table_bytes": ..., "engine.postings_width": ...}
+    setup_counters: {"engine.table_bytes": ..., "engine.postings_width": ...,
+                     "engine.edge_id_bytes": ...}
 
 the engine's counters as it is made (the harness's window starts its
 counters anew): its tables' device bytes and, on the postings layout,
-the light width it took.  On the card:
+the light width it took and the bytes of an edge id in its light rows
+(2 below 65,535 edge slots, else 4).  On the card:
 
     python3 scripts/setup_rss.py --workload <cell> --seed <n> \\
         --seconds <s> --trace <0|1>

@@ -25,7 +25,8 @@ bitwise against its sums in CSR order (no atomics,
 import numpy as np
 import pytest
 import torch
-from torch_cases import k3_rows, shard_wires
+from torch_cases import (LIGHT_OPS, k3_rows, light_case, light_op,
+                         shard_wires)
 
 from chip_smoke import inorder_slot_sums
 from rappas_tpu_torch import utils
@@ -254,9 +255,10 @@ def _postings_kernels_vs_plain(db, mat, lens, card, width=8, plan=None):
         spec = [dev[n] for n in ("alt_lrows", "alt_hrows", "win_off",
                                  "win_slot", "win_inv_w", "win_is_mean")]
         got = T.ambiguous_postings_(acc_c.clone(), eng.heavy_dense,
-                                    eng.pairs, *spec)
+                                    eng.pairs, *spec, layout=eng.light_layout)
         rows = T.alt_delta_rows_postings(eng.pairs, eng.heavy_dense,
-                                         spec[0], spec[1])
+                                         spec[0], spec[1],
+                                         layout=eng.light_layout)
         alt_win = torch.repeat_interleave(
             torch.arange(spec[3].shape[0], device=card),
             (spec[2][1:] - spec[2][:-1]).long())
@@ -267,9 +269,11 @@ def _postings_kernels_vs_plain(db, mat, lens, card, width=8, plan=None):
         assert torch.equal(got > 0, want > 0)
         acc_c = got
     args = (eng.pairs, dev["lrows"], acc_c, dev["slot_of"], dev["lengths"])
-    wire = T.finalize_postings_wire(*args, eng.thr, eng.k, 7, plan.to(card))
+    wire = T.finalize_postings_wire(*args, eng.thr, eng.k, 7, plan.to(card),
+                                    layout=eng.light_layout)
     want = T.pack_wire(*T.finalize_postings(
-        *args, torch.tensor(np.float32(eng.thr)), eng.k, 7), wide=eng.wide)
+        *args, torch.tensor(np.float32(eng.thr)), eng.k, 7,
+        layout=eng.light_layout), wide=eng.wide)
     torch.cuda.synchronize()
     K = min(7, eng.n_edges)
     _same_placements(unpack_wire(wire.cpu().numpy(), K, eng.wide),
@@ -347,10 +351,13 @@ def test_wide_wire_on_card(card):
     slot_of = torch.from_numpy(slot_of).to(card)
     acc_c = acc[:n_slots].contiguous()
     args = (pairs, lrows, acc_c, slot_of, lens)
+    wide = T.LightLayout.of(P, E)
+    assert not wide.narrow
     wire = T.finalize_postings_wire(*args, -4.0, 8, 7,
-                                    T.postings_plan(np.full(B, 20 * P)))
+                                    T.postings_plan(np.full(B, 20 * P)),
+                                    layout=wide)
     want = T.pack_wire(*T.finalize_postings(
-        *args, torch.tensor(np.float32(-4.0)), 8, 7), wide=True)
+        *args, torch.tensor(np.float32(-4.0)), 8, 7, layout=wide), wide=True)
     torch.cuda.synchronize()
     _same_placements(unpack_wire(wire.cpu().numpy(), 7, True),
                      unpack_wire(want.cpu().numpy(), 7, True))
@@ -397,17 +404,21 @@ def test_merge_candidates_wire_matches_plain_on_card(card, mp, K_in, keep,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("narrow", [False, True], ids=["int32", "u16"])
 @pytest.mark.parametrize("n_parts, P, runs", [
     (1, 8, "all"), (2, 8, "all"), (32, 8, "empty"), (1, 7, "all"),
     (2, 7, "empty"), (32, 7, "empty"), (2, 8, "none"), (32, 7, "none")])
-def test_gather_compact_cases_on_card(card, n_parts, P, runs):
+def test_gather_compact_cases_on_card(card, n_parts, P, runs, narrow):
     """G1 against its plain version, rows bitwise: one, 2 and 32 parts,
-    every third run empty ("empty") or all of them ("none": U = 0), P = 7
-    (56-byte rows: the 8-byte loads) and P = 8 (16-byte loads)."""
+    every third run empty ("empty") or all of them ("none": U = 0), rows
+    of int32 edge ids, P = 7 (56-byte rows: the 8-byte loads) and P = 8
+    (16-byte loads), and of u16 ones, P = 7 (44-byte rows: the 4-byte
+    loads) and P = 8 (48-byte rows: 16-byte loads)."""
     rng = np.random.default_rng(60 + n_parts + P)
+    w = T.LightLayout(P, narrow).words
     heights = rng.integers(1000, 40000, n_parts)
     tables = tuple(torch.from_numpy(
-        rng.integers(-2 ** 31, 2 ** 31, (h, 2 * P)).astype(np.int32))
+        rng.integers(-2 ** 31, 2 ** 31, (h, w)).astype(np.int32))
         .to(card) for h in heights)
     uniq = []
     for p, h in enumerate(heights):
@@ -422,7 +433,7 @@ def test_gather_compact_cases_on_card(card, n_parts, P, runs):
     want = T.gather_compact(tables, tuple(torch.from_numpy(u).to(card)
                                           for u in uniq))
     torch.cuda.synchronize()
-    assert got.shape == (int(off[-1]), 2 * P)
+    assert got.shape == (int(off[-1]), w)
     assert torch.equal(got, want)
 
 
@@ -516,21 +527,28 @@ def test_split_postings_kernels_match_plain_on_card(card):
     acc_c = T.dense_side(H, dev["hrows"], dev["hoff"])
     spec = [dev[n] for n in ("alt_lrows", "alt_hrows", "win_off",
                              "win_slot", "win_inv_w", "win_is_mean")]
-    got = T.ambiguous_postings_parts_(acc_c.clone(), H, eng._light, *spec)
+    lay = eng.light_layout
+    assert lay.narrow
+    got = T.ambiguous_postings_parts_(acc_c.clone(), H, eng._light, *spec,
+                                      layout=lay)
     alt_win = torch.repeat_interleave(
         torch.arange(spec[3].shape[0], device=card),
         (spec[2][1:] - spec[2][:-1]).long())
     want = T.ambiguous_pass(T.alt_delta_rows_postings(
-        eng.light_parts, H, spec[0], spec[1]), alt_win, *spec[3:], acc_c)
+        eng.light_parts, H, spec[0], spec[1], layout=lay), alt_win,
+        *spec[3:], acc_c)
     torch.cuda.synchronize()
     assert torch.allclose(got, want, atol=2e-4, rtol=0)
     assert torch.equal(got > 0, want > 0)
     args = (got, dev["slot_of"], dev["lengths"], eng.thr, eng.k, 7, plan)
-    one_wire = T.finalize_postings_wire(one.pairs, dev["lrows"], *args)
+    one_wire = T.finalize_postings_wire(one.pairs, dev["lrows"], *args,
+                                        layout=lay)
     parts_wire = T.finalize_postings_wire_parts(eng._light, dev["lrows"],
-                                                *args, miss=eng._nl)
+                                                *args, miss=eng._nl,
+                                                layout=lay)
     routed = torch.from_numpy(eng._route_windows(host["lrows"])).to(card)
-    routed_wire = T.finalize_postings_wire_routed(eng._light, routed, *args)
+    routed_wire = T.finalize_postings_wire_routed(eng._light, routed, *args,
+                                                  layout=lay)
     eng.enable_routed_windows(False)
     eng.TWO_STAGE_MAX_BYTES = 1 << 30   # a compact budget for every row
     src = eng._light_source(host)
@@ -542,14 +560,15 @@ def test_split_postings_kernels_match_plain_on_card(card):
     want_c = T.gather_compact(eng.light_parts, tuple(
         uniq[a:b] for a, b in zip(bounds[:-1], bounds[1:])))
     inv = torch.from_numpy(host["lrows"]).to(card)
-    compact_wire = T.finalize_postings_wire(compact, inv, *args, miss=src[1])
+    compact_wire = T.finalize_postings_wire(compact, inv, *args, miss=src[1],
+                                            layout=lay)
     torch.cuda.synchronize()
     assert torch.equal(compact, want_c)
     for wire in (parts_wire, routed_wire, compact_wire):
         assert torch.equal(wire, one_wire)
     plain = T.pack_wire(*T.finalize_postings(
         None, None, got, dev["slot_of"], dev["lengths"],
-        torch.tensor(np.float32(eng.thr)), eng.k, 7,
+        torch.tensor(np.float32(eng.thr)), eng.k, 7, layout=lay,
         light_parts=eng.light_parts, routed_lrows=tuple(routed)))
     _same_placements(unpack_wire(routed_wire.cpu().numpy(), 7),
                      unpack_wire(plain.cpu().numpy(), 7))
@@ -773,7 +792,8 @@ def test_p3_paths_on_card(card, case):
     ties (edge asc); K larger than a read's candidates; K = E and K = 16
     with a small E (the scanning rounds past a lane's registers); the
     wide wire; an edge offset; and one call that mixes warp-path,
-    block-path and scratch reads."""
+    block-path and scratch reads.  Below 65,535 edge slots the same rows
+    packed with u16 edge ids give the same wire words."""
     from rappas_tpu_torch.place.engine import route_rows
     rng = np.random.default_rng(71 + len(case))
     counts = [0, 1, 31, 32, 33, 663, 2, 5, 300, 64]
@@ -805,13 +825,24 @@ def test_p3_paths_on_card(card, case):
         assert paths == {"warp": B - 3, "block": 2, "scratch": 1}
     else:
         assert paths["warp"] == B
+    wide = T.LightLayout(8, False)
     want = T.finalize_postings_wire(*cpu, thr, k, keep, plan, offset,
-                                    n_edges, miss)
+                                    n_edges, miss, layout=wide)
     dev = [t.to(card) for t in cpu]
     got = T.finalize_postings_wire(*dev, thr, k, keep, plan.to(card), offset,
-                                   n_edges, miss)
+                                   n_edges, miss, layout=wide)
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+    layouts = [(wide, pairs)]
+    if n_edges < T.WIDE_EDGES:
+        narrow = T.LightLayout(8, True)
+        packed = narrow.pack(pairs[:, :8], pairs[:, 8:].view(np.float32))
+        got = T.finalize_postings_wire(
+            torch.from_numpy(packed).to(card), *dev[1:], thr, k, keep,
+            plan.to(card), offset, n_edges, miss, layout=narrow)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+        layouts.append((narrow, packed))
     K, wide, _ = T.wire_format(n_edges, keep, acc_c.shape[1])
     res = unpack_wire(want.numpy(), K, wide)
     assert (res.n_matched >= 0).all()
@@ -824,16 +855,40 @@ def test_p3_paths_on_card(card, case):
     # R1 over 3 parts of the same table: the wire bitwise P3's
     cuts = np.array([0, pairs.shape[0] // 3, 2 * pairs.shape[0] // 3,
                      pairs.shape[0]])
-    tables = tuple(torch.from_numpy(pairs[a:c].copy()).to(card)
-                   for a, c in zip(cuts[:-1], cuts[1:]))
-    parts = T.make_parts(tables, np.diff(cuts))
     routed = torch.from_numpy(route_rows(lrows, cuts, drop=miss)).to(card)
     args = (dev[2], dev[3], dev[4], thr, k, keep, plan.to(card))
-    for wire in (T.finalize_postings_wire_routed(parts, routed, *args),
-                 T.finalize_postings_wire_parts(parts, dev[1], *args,
-                                                miss=miss)):
+    for lay, table in layouts:
+        tables = tuple(torch.from_numpy(table[a:c].copy()).to(card)
+                       for a, c in zip(cuts[:-1], cuts[1:]))
+        parts = T.make_parts(tables, np.diff(cuts))
+        for wire in (T.finalize_postings_wire_routed(parts, routed, *args,
+                                                     layout=lay),
+                     T.finalize_postings_wire_parts(parts, dev[1], *args,
+                                                    miss=miss, layout=lay)):
+            torch.cuda.synchronize()
+            assert torch.equal(wire.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", LIGHT_OPS)
+@pytest.mark.parametrize("P", [45, 8])
+def test_light_readers_on_narrow_rows_on_card(card, P, op):
+    """Every reader of a light row on the card (P3, R1 routed and
+    part-select, P3 on G1's compact table, P2, A1), on rows of u16 and of
+    int32 edge ids, odd and even P, against the plain version on the
+    int32 rows: wire words bitwise (quarter deltas), accumulators within
+    2e-4 (atomic add order) with the same hit set."""
+    case = light_case(P, seed=P)
+    want = light_op(op, case, T.LightLayout(P, False), "cpu")
+    for narrow in (True, False):
+        got = light_op(op, case, T.LightLayout(P, narrow), card)
         torch.cuda.synchronize()
-        assert torch.equal(wire.cpu(), want)
+        got = got.cpu()
+        if op in ("p2", "a1"):
+            assert float((got - want).abs().max()) <= 2e-4, narrow
+            assert torch.equal(got > 0, want > 0), narrow
+        else:
+            assert torch.equal(got, want), narrow
 
 
 # ---- the ambiguity kernels (csrc/ambiguous.cu) ------------------------ #
@@ -889,7 +944,8 @@ def test_ambiguous_postings_windows_on_card(card, case):
     odd E, light-only windows, windows with a heavy alternative, a
     20-alternative window, a window past the staging, duplicate edges in
     a light row, mean and max mode; on the shard, postings outside its
-    edges add nothing."""
+    edges add nothing.  The kernel reads the rows with int32 edge ids and
+    packed with u16 ones alike."""
     rng = np.random.default_rng(81 + len(case))
     P, nl, nh, n_win, n_slots = 8, 500, 12, 60, 9
     n_edges, E, offset = (401, 200, 150) if case == "offset" else \
@@ -905,23 +961,30 @@ def test_ambiguous_postings_windows_on_card(card, case):
         is_mean)]
     Hd = torch.from_numpy(H).to(card)
     acc = torch.from_numpy(acc0).to(card)
-    if case == "parts":
-        cuts = [0, 170, 333, nl + 1]
-        tables = tuple(torch.from_numpy(pairs[a:b].copy()).to(card)
-                       for a, b in zip(cuts[:-1], cuts[1:]))
-        light = tables
-        got = T.ambiguous_postings_parts_(acc.clone(), Hd, T.make_parts(
-            tables, np.diff(cuts)), *spec)
-    else:
-        light = torch.from_numpy(pairs).to(card)
-        got = T.ambiguous_postings_(acc.clone(), Hd, light, *spec, offset)
-    want = T.ambiguous_pass(
-        T.alt_delta_rows_postings(light, Hd, spec[0], spec[1], offset),
-        torch.from_numpy(alt_win).to(card), spec[3], spec[4], spec[5], acc)
-    torch.cuda.synchronize()
-    assert float((got - want).abs().max()) <= 2e-4
-    assert torch.equal(got > 0, want > 0)
-    assert bool((got > acc).any())
+    want = None
+    for lay in (T.LightLayout(P, False), T.LightLayout(P, True)):
+        table = lay.pack(pairs[:, :P], pairs[:, P:].view(np.float32))
+        if case == "parts":
+            cuts = [0, 170, 333, nl + 1]
+            tables = tuple(torch.from_numpy(table[a:b].copy()).to(card)
+                           for a, b in zip(cuts[:-1], cuts[1:]))
+            light = tables
+            got = T.ambiguous_postings_parts_(acc.clone(), Hd, T.make_parts(
+                tables, np.diff(cuts)), *spec, layout=lay)
+        else:
+            light = torch.from_numpy(table).to(card)
+            got = T.ambiguous_postings_(acc.clone(), Hd, light, *spec,
+                                        offset, layout=lay)
+        if want is None:               # the int32 rows' plain version
+            want = T.ambiguous_pass(
+                T.alt_delta_rows_postings(light, Hd, spec[0], spec[1],
+                                          offset, layout=lay),
+                torch.from_numpy(alt_win).to(card), spec[3], spec[4],
+                spec[5], acc)
+        torch.cuda.synchronize()
+        assert float((got - want).abs().max()) <= 2e-4, lay
+        assert torch.equal(got > 0, want > 0), lay
+        assert bool((got > acc).any())
     if case == "offset":           # some postings fall outside the shard
         e = pairs[lrows[lrows < nl], :P]
         assert ((e < offset) | ((e >= offset + E) & (e != _PAD))).any()

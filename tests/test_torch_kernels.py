@@ -19,7 +19,7 @@ from rappas_tpu_torch import utils
 from rappas_tpu_torch.db import DELTA_TINY
 from rappas_tpu_torch.place import kernels as T
 from rappas_tpu_torch.place.engine import pack_reads, window_offsets
-from torch_cases import k3_rows
+from torch_cases import LIGHT_OPS, k3_rows, light_case, light_op
 
 
 def _codes(rng, B, L, k, n_states=4, amb=0.0, short=True):
@@ -319,6 +319,8 @@ def _jax_postings(pairs, lrows, rows, reads, slots, uniq, lens, thr, k,
 
 
 def _port_postings(pairs, lrows, rows, slots, uniq, lens, thr, k, keep):
+    """P3's plain version on ``pairs``, a light table of :func:`_pairs`'s
+    int32 edge ids."""
     B = lrows.shape[0]
     acc_c = T.scatter_slots(torch.from_numpy(rows),
                             torch.from_numpy(slots.astype(np.int64)),
@@ -327,7 +329,9 @@ def _port_postings(pairs, lrows, rows, slots, uniq, lens, thr, k, keep):
     slot_of[uniq] = np.arange(uniq.size, dtype=np.int32)
     args = (torch.from_numpy(pairs), torch.from_numpy(lrows), acc_c,
             torch.from_numpy(slot_of), torch.from_numpy(lens))
-    out = T.finalize_postings(*args, torch.tensor(np.float32(thr)), k, keep)
+    out = T.finalize_postings(*args, torch.tensor(np.float32(thr)), k, keep,
+                              layout=T.LightLayout(pairs.shape[1] // 2,
+                                                   False))
     return tuple(x.numpy() for x in out), args
 
 
@@ -442,9 +446,11 @@ def test_ambiguity_postings_plain_versions_match_jax(mean):
     j_rows = np.asarray(J.alt_delta_rows_postings(
         (jnp.asarray(pairs),), jnp.asarray(H), jnp.asarray(alt_lrows),
         jnp.asarray(alt_hrows)))
+    wide = T.LightLayout(P, False)
     t_rows = T.alt_delta_rows_postings(
         torch.from_numpy(pairs), torch.from_numpy(H),
-        torch.from_numpy(alt_lrows), torch.from_numpy(alt_hrows))
+        torch.from_numpy(alt_lrows), torch.from_numpy(alt_hrows),
+        layout=wide)
     assert np.array_equal(t_rows.numpy(), j_rows)
     win_slot = np.sort(rng.integers(0, 6, n_win)).astype(np.int32)
     inv_w = (1.0 / W).astype(np.float32)
@@ -460,7 +466,7 @@ def test_ambiguity_postings_plain_versions_match_jax(mean):
         torch.from_numpy(alt_lrows), torch.from_numpy(alt_hrows),
         torch.from_numpy(window_offsets(alt_win, n_win)),
         torch.from_numpy(win_slot), torch.from_numpy(inv_w),
-        torch.from_numpy(is_mean.astype(np.uint8)))
+        torch.from_numpy(is_mean.astype(np.uint8)), layout=wide)
     assert out is acc_c
     assert np.allclose(acc_c.numpy(), want, atol=2e-4, rtol=0)
     assert np.array_equal(acc_c.numpy() > 0, want > 0)
@@ -480,7 +486,8 @@ def test_finalize_postings_wire_cpu_round_trip(E):
                                k, keep)
     plan = T.postings_plan(np.full(B, 6 * 8), smem_pairs=16, warp_pairs=0)
     assert plan.scratch_off.device.type == "cpu"
-    wire = T.finalize_postings_wire(*args, thr, k, keep, plan)
+    wire = T.finalize_postings_wire(*args, thr, k, keep, plan,
+                                    layout=T.LightLayout(8, False))
     _, wide, n_words = T.wire_format(E, keep)
     assert wide == (E >= T.WIDE_EDGES)
     assert wire.shape == (B, n_words)
@@ -495,6 +502,28 @@ def test_finalize_postings_wire_cpu_round_trip(E):
     bad[2, -1] = -1                     # a read P3 could not sort
     with pytest.raises(RuntimeError, match="read 2"):
         unpack_wire(bad, keep, wide)
+
+
+@pytest.mark.parametrize("op", LIGHT_OPS)
+@pytest.mark.parametrize("narrow", [True, False], ids=["u16", "int32"])
+@pytest.mark.parametrize("P", [45, 8])
+def test_light_readers_on_narrow_and_wide_rows(P, narrow, op):
+    """Every reader of a light row (P3 on one table, R1 routed and
+    part-select over 3 parts, P3 on G1's compact table, P2, A1 over 3
+    parts), its plain version on rows of u16 or int32 edge ids, odd and
+    even P: the wire words or the slot accumulator equal the one-table
+    P3's or P2's on int32 rows exactly (quarter deltas: every sum
+    exact)."""
+    case = light_case(P, seed=P)
+    ref = light_op("p2" if op in ("p2", "a1") else "p3", case,
+                   T.LightLayout(P, False), "cpu")
+    got = light_op(op, case, T.LightLayout(P, narrow), "cpu")
+    assert torch.equal(got, ref)
+    if op in ("p2", "a1"):
+        assert bool((got > torch.from_numpy(case["acc_c"])).any())
+    else:
+        _, _, n_matched = T.wire_fields(got, 7)
+        assert bool((n_matched[1:] > 0).all()) and int(n_matched[0]) >= 0
 
 
 def test_postings_plan():
@@ -717,7 +746,8 @@ def test_sparse_window_scoring(offset):
     t = [torch.from_numpy(x) for x in (pairs, H, alt_lrows, alt_hrows)]
     got = _sparse_contrib(*t, win_off, torch.from_numpy(inv_w), is_mean,
                           offset)
-    rows = T.alt_delta_rows_postings(*t, offset)
+    rows = T.alt_delta_rows_postings(*t, offset,
+                                     layout=T.LightLayout(P, False))
     want = T.ambiguous_contrib(rows, torch.from_numpy(alt_win),
                                torch.from_numpy(inv_w),
                                torch.from_numpy(is_mean))

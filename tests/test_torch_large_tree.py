@@ -136,14 +136,15 @@ def _deployment(n_per_key=45, E=8000, k=10):
 
 def test_resolve_table_takes_postings_for_the_deployment(monkeypatch):
     """Past the compact line the deployment takes postings at its own
-    light width, 45, with no heavy keys: 0.38 GB against the compact
-    table's 33.55 GB."""
+    light width, 45, with no heavy keys: 0.29 GB (light rows of 23 words
+    of u16 edge ids and 45 of deltas) against the compact table's 33.55
+    GB."""
     db = _deployment()
     assert (db.n_kmers + 1) * db.n_edge_slots * 4 == 33_554_464_000
     budget = PlacementEngine.DIRECT_BYTE_LIMIT
     assert 33_554_464_000 > PlacementEngine.AUTO_COMPACT_BYTES
     assert light_width(np.diff(db.offsets), db.n_edge_slots) == \
-        (45, (4 ** 10 + 1) * 8 * 45 + 4 * 8000)
+        (45, (4 ** 10 + 1) * 4 * (23 + 45) + 4 * 8000) == (45, 285_244_944)
     assert PlacementEngine.resolve_layout(db, "auto", "f32", budget) == \
         ("postings", 45)
     # past the card's budget: postings at the same width
@@ -158,8 +159,8 @@ def test_resolve_table_takes_postings_for_the_deployment(monkeypatch):
     # u16 never takes postings
     assert PlacementEngine.resolve_table(db, "auto", "u16", budget) == \
         "compact"
-    # a share under the deployment's 1.13% keeps compact
-    monkeypatch.setattr(PlacementEngine, "AUTO_POSTINGS_SHARE", 0.011)
+    # a share under the deployment's 0.85% keeps compact
+    monkeypatch.setattr(PlacementEngine, "AUTO_POSTINGS_SHARE", 0.0084)
     assert PlacementEngine.resolve_table(db, "auto", "f32", budget) == \
         "compact"
 
@@ -211,9 +212,10 @@ def test_place_queries_takes_postings_past_the_line(tmp_path, monkeypatch,
     assert eng.postings_width == 45 and eng.heavy_dense.shape[0] == 1
     tot = utils.trace_totals()["counters"]
     assert tot["engine.postings_width"] == 45
+    assert tot["engine.edge_id_bytes"] == 2
     lens = np.diff(eng.db.offsets)
     assert tot["engine.table_bytes"] == light_width(lens, E)[1] == \
-        (n + 1) * 8 * 45 + 4 * E
+        (n + 1) * 4 * (23 + 45) + 4 * E
     assert run["failure"] is None
     c1 = cell.load_spec("c1-16s-k8.miseq240")["limits"]
     correct, rows = cell.verdict(run["numbers"], c1, run["failure"])
@@ -402,7 +404,8 @@ def test_p3_at_the_deployment_widths_on_card(card):
     """P3 on a 1,024-read batch at the deployment's widths (231 windows x
     45 postings a read, E = 8,000): every read on the block path in shared
     memory, the wire bitwise the plain version's (quarter deltas: every
-    sum exact)."""
+    sum exact), on the light rows the deployment takes (u16 edge ids, 68
+    words) and on rows of int32 ids (90 words) alike."""
     from rappas_tpu_torch.place.engine import unpack_wire
     rng = np.random.default_rng(45)
     pairs, lrows, miss = _p3_c5_inputs(rng, 1024)
@@ -414,12 +417,22 @@ def test_p3_at_the_deployment_widths_on_card(card):
     slot_of = np.full(B, -1, np.int32)
     lens = np.full(B, 240, np.int32)
     cpu = [torch.from_numpy(a) for a in (pairs, lrows, acc_c, slot_of, lens)]
-    want = T.finalize_postings_wire(*cpu, thr, k, keep, plan, 0, E, miss)
-    dev = [t.to(card) for t in cpu]
-    got = T.finalize_postings_wire(*dev, thr, k, keep, plan.to(card), 0, E,
-                                   miss)
-    torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want)
+    wide = T.LightLayout(45, False)
+    want = T.finalize_postings_wire(*cpu, thr, k, keep, plan, 0, E, miss,
+                                    layout=wide)
+    narrow = T.LightLayout.of(45, E)
+    assert narrow.narrow and narrow.words == 68
+    packed = narrow.pack(pairs[:, :45], pairs[:, 45:].view(np.float32))
+    for lay, table in ((narrow, packed), (wide, pairs)):
+        dev = [torch.from_numpy(table).to(card)] + [t.to(card)
+                                                    for t in cpu[1:]]
+        got = T.finalize_postings_wire(*dev, thr, k, keep, plan.to(card), 0,
+                                       E, miss, layout=lay)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), lay
+    assert torch.equal(T.finalize_postings_wire(
+        torch.from_numpy(packed), *cpu[1:], thr, k, keep, plan, 0, E, miss,
+        layout=narrow), want)
     K, wide, _ = T.wire_format(E, keep)
     res = unpack_wire(want.numpy(), K, wide)
     assert (res.n_matched > 0).all() and (res.top_edges >= 0).all()

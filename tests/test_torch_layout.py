@@ -25,6 +25,8 @@ from rappas_tpu.db import build_csr
 from rappas_tpu.place.engine import PlacementEngine as JaxEngine
 from rappas_tpu.tree import parse_newick
 from rappas_tpu_torch.alphabet import AA, DNA
+from rappas_tpu_torch.db import LightLayout
+from rappas_tpu_torch.place import engine as port_engine
 from rappas_tpu_torch.place.engine import PlacementEngine, light_width
 from test_engine import batch_of, compare, synthetic_db
 from test_torch_engine import port_db, same_as_jax
@@ -87,7 +89,7 @@ GRID = [
     ("config4", (AA, 8, 150, 500_000), "f32", "postings",
      {"AUTO_COMPACT_BYTES": 1 << 62}, "postings"),
     # heavy-dominated past the line (keys past int32): postings at width
-    # 4 takes 23% of the compact table's bytes
+    # 4 takes 22% of the compact table's bytes
     ("config4_heavy", (AA, 8, 150, 500_000, 0.3), "f32", "postings",
      {"AUTO_POSTINGS_SHARE": 0.2}, "compact"),
     ("config4_u16", (AA, 8, 150, 500_000), "u16", "compact",
@@ -96,7 +98,7 @@ GRID = [
      {"AUTO_COMPACT_BYTES": 1 << 20}, "postings"),
     ("k12_E1000", (DNA, 12, 1000, 2_010_000, 0.88), "f32", "postings",
      {"AUTO_COMPACT_BYTES": 9 * GiB}, "compact"),
-    # heavy-dominated past the line: postings at width 40 takes 8% of
+    # heavy-dominated past the line: postings at width 40 takes 6% of
     # the compact table's bytes
     ("k12_E1000_heavy", (DNA, 12, 1000, 2_010_000, 0.3), "f32",
      "postings", {"AUTO_POSTINGS_SHARE": 0.05}, "compact"),
@@ -109,10 +111,10 @@ GRID = [
     ("aa6", (AA, 6, 150, 2_000_000), "f32", "compact",
      {"AUTO_COMPACT_BYTES": GiB}, "postings"),
     # the 4,000-taxon k=10 deployment (c5): every 10-mer a key with 45
-    # postings on 8,000 slots, postings at width 45 1.13% of compact
+    # postings on 8,000 slots, postings at width 45 0.85% of compact
     ("c5", (DNA, 10, 8000, 4 ** 10, 1.0, 45), "f32", "postings",
-     {"AUTO_POSTINGS_SHARE": 0.01}, "compact"),
-    # heavy-dominated and dense (21% of compact at its own width): past
+     {"AUTO_POSTINGS_SHARE": 0.008}, "compact"),
+    # heavy-dominated and dense (20% of compact at its own width): past
     # the line with no share, only a compact table past the card's
     # budget gives postings
     ("dense_past_budget", (DNA, 12, 300, 2_010_000, 0.3), "f32", "compact",
@@ -167,11 +169,16 @@ def _lengths(name):
     return lens, 8000
 
 
-def _brute_width(lens, E):
-    """The postings layout's least bytes over every width 0 .. max."""
+def _brute_width(lens, E, row_bytes=None):
+    """The postings layout's least bytes over every width 0 .. max, a
+    light row of width W taking ``row_bytes(W)`` (default: its
+    ``LightLayout``'s words)."""
     ws = np.arange(int(lens.max()) + 1)
+    if row_bytes is None:
+        row_bytes = np.vectorize(lambda w: 4 * LightLayout.of(w, E).words)
     nl = (lens[None, :] <= ws[:, None]).sum(axis=1)
-    return int(((nl + 1) * 8 * ws + (lens.size - nl + 1) * 4 * E).min())
+    return int(((nl + 1) * row_bytes(ws) + (lens.size - nl + 1) * 4 *
+                E).min())
 
 
 #: (name, layout past the line, the light width, heavy keys left)
@@ -218,6 +225,40 @@ def test_past_the_budget_takes_the_own_width(name):
     assert resolve(db, **consts) == "compact"
     assert resolve(db, layout=True, DIRECT_BYTE_LIMIT=1 << 20, **consts) \
         == ("postings", light_width(lens, E)[0])
+
+
+def _int32_width(lens, E):
+    """:func:`light_width` with light rows of int32 edge ids (8 bytes a
+    posting, the layout at 65,535 edge slots and above)."""
+    counts = np.bincount(lens, minlength=1)
+    widths = np.flatnonzero(np.r_[1, counts[1:]])
+    nl = np.cumsum(counts)[widths]
+    nbytes = (nl + 1) * 8 * widths + (len(lens) - nl + 1) * 4 * E
+    best = int(np.argmin(nbytes))
+    assert nbytes[best] == _brute_width(lens, E, lambda w: 8 * w)
+    return int(widths[best]), int(nbytes[best])
+
+
+#: the DB shapes above in f32 (the grid's and the dense builds')
+SHAPES = [(row[0], row[1]) for row in GRID if row[2] == "f32"] + \
+    [(name, None) for name, *_ in SHARE]
+
+
+@pytest.mark.parametrize("name, dims", SHAPES, ids=[n for n, _ in SHAPES])
+def test_u16_rows_keep_the_layouts(name, dims, monkeypatch):
+    """Light rows with u16 edge ids (6 bytes a posting below 65,535 edge
+    slots, in place of 8) move no layout or width of these shapes: the
+    rule with the light rows at 8 bytes a posting chooses the same, at
+    the compact line and past it (the dense builds: past it, patched to
+    0)."""
+    if dims is None:
+        lens, E = _lengths(name)
+        db, consts = of_lengths(DNA, 10, E, lens), {"AUTO_COMPACT_BYTES": 0}
+    else:
+        db, consts = shape(*dims), {}
+    got = resolve(db, layout=True, **consts)
+    monkeypatch.setattr(port_engine, "light_width", _int32_width)
+    assert resolve(db, layout=True, **consts) == got
 
 
 def test_light_width_of_no_keys():
@@ -279,7 +320,8 @@ def ddb():
 
 
 def _pairs_bytes(db):
-    return (db.postings_tables(8).light_keys.shape[0] + 1) * 64
+    return (db.postings_tables(8).light_keys.shape[0] + 1) * 4 * \
+        LightLayout.of(8, db.n_edge_slots).words
 
 
 def _source(engine, reads):

@@ -219,7 +219,8 @@ def test_finalize_postings_offset_matches_jax(pdb, tpdb, mp, j):
     te, ts, lwr, nm = T.finalize_postings(
         torch.from_numpy(pairs), torch.from_numpy(host["lrows"]), acc_c,
         torch.from_numpy(slot_of), torch.from_numpy(lens),
-        torch.tensor(thr), tpdb.k, 7, int(bounds[j]))
+        torch.tensor(thr), tpdb.k, 7, int(bounds[j]),
+        layout=T.LightLayout(4, False))
     # JAX: the same heavy rows as (row, read) dense sources
     read_of_slot = np.flatnonzero(slot_of >= 0)
     dense_reads = np.repeat(read_of_slot, np.diff(hoff)).astype(np.int32)
@@ -238,7 +239,7 @@ def test_finalize_postings_offset_matches_jax(pdb, tpdb, mp, j):
         torch.from_numpy(pairs), torch.from_numpy(host["lrows"]), acc_c,
         torch.from_numpy(slot_of), torch.from_numpy(lens), float(thr),
         tpdb.k, 7, T.postings_plan(np.zeros(len(reads))), int(bounds[j]),
-        tpdb.n_edge_slots)
+        tpdb.n_edge_slots, layout=T.LightLayout(4, False))
     K, wide, _ = T.wire_format(tpdb.n_edge_slots, 7, H.shape[1])
     we, ws, wn = T.wire_fields(wire, K, wide)
     assert np.array_equal(we.numpy(), te.numpy())
@@ -260,7 +261,8 @@ def test_ambiguous_postings_offset_matches_jax(pdb, tpdb, mp, j):
     lr, hr = host["alt_lrows"], host["alt_hrows"]
     got = T.alt_delta_rows_postings(torch.from_numpy(pairs),
                                     torch.from_numpy(H), torch.from_numpy(lr),
-                                    torch.from_numpy(hr), off)
+                                    torch.from_numpy(hr), off,
+                                    layout=T.LightLayout(4, False))
     g = jnp.asarray(pairs)[lr]
     P = g.shape[1] // 2
     W = H.shape[1]

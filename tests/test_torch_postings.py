@@ -16,8 +16,10 @@ from rappas_tpu.place.engine import PlacementEngine as JaxEngine
 from rappas_tpu.tree import parse_newick
 from rappas_tpu_torch import native, utils
 from rappas_tpu_torch.convert import postings_device_tables
+from rappas_tpu_torch.db import LIGHT_PAD_EDGE, LightLayout
 from rappas_tpu_torch.place import engine as port_engine
 from rappas_tpu_torch.place.engine import PlacementEngine
+from rappas_tpu_torch.place.kernels import light_postings
 from test_engine import batch_of, compare, synthetic_db
 from test_torch_engine import port_db, same_as_jax
 
@@ -73,11 +75,18 @@ def with_db_kmers(db, reads, n=4):
 
 def test_postings_device_tables_match_jax(db, tdb):
     """The tables carried to the device are bitwise the JAX engine's (a
-    DB whose light table JAX does not split)."""
+    DB whose light table JAX does not split), its light table's rows
+    packed with u16 edge ids (40 edge slots)."""
     j = JaxEngine(db, table="postings")
     assert len(j.light_parts) == 1
     ps = postings_device_tables(tdb, 8, "cpu")
-    assert np.array_equal(ps.pairs.numpy(), np.asarray(j.light_parts[0]))
+    jp = np.asarray(j.light_parts[0])
+    assert ps.layout == LightLayout(8, True)
+    assert np.array_equal(ps.pairs.numpy(), ps.layout.pack(
+        jp[:, :8], jp[:, 8:].view(np.float32)))
+    e, d = light_postings(ps.pairs, ps.layout)
+    assert np.array_equal(e.numpy(), jp[:, :8])
+    assert np.array_equal(d.numpy().view(np.int32), jp[:, 8:])
     assert np.array_equal(ps.heavy_dense.numpy().view(np.uint32),
                           np.asarray(j.D).view(np.uint32))
     assert np.array_equal(ps.rof, j._rof_np)
@@ -85,6 +94,46 @@ def test_postings_device_tables_match_jax(db, tdb):
     assert np.array_equal(ps.light_keys, j._light_keys_np)
     assert np.array_equal(ps.heavy_keys, j._heavy_keys_np)
     assert postings_device_tables(tdb, 8, "cpu", 0).rof is None
+
+
+@pytest.mark.parametrize("P", [45, 8])
+@pytest.mark.parametrize("E", [8000, 70000])
+def test_light_rows_by_edge_count(E, P):
+    """Below 65,535 edge slots a light row is ``ceil(P / 2)`` words of u16
+    edge ids (pads 0xFFFF, the odd tail half-word too) and P deltas
+    bit-identical to ``db.postings_tables``'; at or above, P int32 ids
+    (pads ``LIGHT_PAD_EDGE``) and the deltas; ``engine.table_bytes``
+    counts the rows as laid out."""
+    tdb = port_db(skewed_db(seed=P, n_edges=E, n_kmers=120,
+                            heavy_frac=0.2))
+    assert tdb.n_edge_slots == E
+    pt = tdb.postings_tables(P)
+    ps = postings_device_tables(tdb, P, "cpu")
+    narrow = E < 65535
+    assert ps.layout == LightLayout(P, narrow)
+    nl = pt.light_keys.shape[0]
+    pairs = ps.pairs.numpy()
+    ew = (P + 1) // 2 if narrow else P
+    assert pairs.shape == (nl + 1, ew + P)
+    assert np.array_equal(pairs[:, ew:], pt.light_deltas.view(np.int32))
+    real = pt.light_edges != LIGHT_PAD_EDGE
+    assert real.any() and (~real).any() and not real[-1].any()
+    if narrow:
+        ids = pairs[:, :ew].copy().view(np.uint16)
+        assert ids.shape == (nl + 1, 2 * ew)
+        assert np.array_equal(ids[:, :P], np.where(real, pt.light_edges,
+                                                   0xFFFF))
+        assert (ids[:, P:] == 0xFFFF).all() and ids.shape[1] - P == P % 2
+    else:
+        assert np.array_equal(pairs[:, :P], pt.light_edges)
+    names = ("engine.table_bytes", "engine.edge_id_bytes")
+    before = [utils.counter(n) for n in names]
+    eng = PlacementEngine(tdb, table="postings", postings_width=P,
+                          device="cpu")
+    got = [utils.counter(n) - b for n, b in zip(names, before)]
+    assert got == [(nl + 1) * (ew + P) * 4 + pt.heavy_dense.nbytes,
+                   2 if narrow else 4]
+    assert eng.light_layout == ps.layout
 
 
 @pytest.mark.parametrize("kw", [{}, {"keep_at_most": 1},

@@ -20,6 +20,7 @@ import torch
 from rappas_tpu.place import engine as J
 from rappas_tpu.place.engine import PlacementEngine as JaxEngine
 from rappas_tpu_torch import convert
+from rappas_tpu_torch.db import LightLayout
 from rappas_tpu_torch.place import kernels as T
 from rappas_tpu_torch.place import engine as port_engine
 from rappas_tpu_torch.place.engine import (PlacementEngine, SplitPending,
@@ -53,16 +54,24 @@ def _pairs_bytes(db):
 #: on these paths: the light part size, the two-stage table's cap, the
 #: direct part size
 PORT_SPLIT = ("LIGHT_PART_BYTES", "TWO_STAGE_MAX_BYTES", "DIRECT_PART_BYTES")
+#: the budgets that weigh light rows, and the port's light row at width 8
+#: over JAX's (u16 edge ids in the port: the postings DBs here have fewer
+#: than 65,535 edge slots)
+LIGHT_BUDGETS = ("LIGHT_PART_BYTES", "TWO_STAGE_MAX_BYTES")
+ROW_WORDS = (LightLayout(8, True).words, 16)
 
 
 def _patch(monkeypatch, **consts):
     """The same engine constants on both packages' engines; JAX's
     ``LIGHT_SPLIT_BYTES`` is set on the port as each budget of
-    :data:`PORT_SPLIT`, so that both take the same path."""
+    :data:`PORT_SPLIT`, a light-row budget in the port's own bytes
+    (:data:`ROW_WORDS`), so that both take the same path."""
     for name, value in consts.items():
         monkeypatch.setattr(JaxEngine, name, value)
         for port in PORT_SPLIT if name == "LIGHT_SPLIT_BYTES" else (name,):
-            monkeypatch.setattr(PlacementEngine, port, value)
+            monkeypatch.setattr(
+                PlacementEngine, port, value * ROW_WORDS[0] // ROW_WORDS[1]
+                if port in LIGHT_BUDGETS else value)
 
 
 def _split(monkeypatch, db, div, **consts):
@@ -93,17 +102,21 @@ def _source(engine, reads):
 
 @pytest.mark.parametrize("div", [2, 4, 5, 0])
 def test_light_parts_match_jax(db, tdb, monkeypatch, div):
-    """The light table's parts are bitwise JAX's, and so are the slow and
-    routed flags (``div`` 0: a budget of 0 bytes, too many parts to cut,
-    one slow table)."""
+    """The light table's parts are bitwise JAX's packed in the port's
+    light rows (u16 edge ids), and so are the slow and routed flags
+    (``div`` 0: a budget of 0 bytes, too many parts to cut, one slow
+    table)."""
     if div:
         _split(monkeypatch, db, div)
     else:
         _patch(monkeypatch, LIGHT_SPLIT_BYTES=0)
     t, j = _engines(db, tdb)
     assert len(t.light_parts) == len(j.light_parts) == (div or 1)
+    assert t.light_layout == LightLayout(8, True)
     for a, b in zip(t.light_parts, j.light_parts):
-        assert np.array_equal(a.numpy(), np.asarray(b))
+        b = np.asarray(b)
+        assert np.array_equal(a.numpy(), t.light_layout.pack(
+            b[:, :8], b[:, 8:].view(np.float32)))
     assert t._light_slow == j._light_slow == (div == 0)
     assert t._routed_windows == j._routed_windows == (div > 1)
     assert (t.pairs is None) == (div > 1)
@@ -395,7 +408,8 @@ def test_light_gather_and_routing_match_jax():
     assert np.array_equal(routed, np.stack(j_routed))
     want = np.asarray(J.routed_light_gather(
         jp, tuple(jnp.asarray(r) for r in j_routed)))
-    got = T.routed_light_gather(tp, tuple(torch.from_numpy(routed)))
+    got = T.routed_light_gather(tp, tuple(torch.from_numpy(routed)),
+                                T.LightLayout(8, False))
     assert np.array_equal(got.numpy(), want)
     for n in list(range(1, 70)) + [1000, 65537, 1 << 20]:
         assert port_engine._bucket_size(n) == J._bucket_size(n)
@@ -490,7 +504,7 @@ def test_finalize_postings_row_sources_match_jax(source):
     got = T.finalize_postings(
         None, None if t_lrows is None else torch.from_numpy(t_lrows), acc_c,
         torch.from_numpy(slot_of), torch.from_numpy(lens),
-        torch.tensor(thr), k, keep, **kw)
+        torch.tensor(thr), k, keep, layout=T.LightLayout(8, False), **kw)
     _same_top(tuple(x.numpy() for x in got),
               tuple(np.asarray(x) for x in out))
 
@@ -575,9 +589,11 @@ def test_alt_delta_rows_postings_over_parts_matches_jax():
     tp = tuple(torch.from_numpy(p) for p in parts)
     j_rows = np.asarray(J.alt_delta_rows_postings(
         jp, jnp.asarray(H), jnp.asarray(alt_lrows), jnp.asarray(alt_hrows)))
+    wide = T.LightLayout(P, False)
     t_rows = T.alt_delta_rows_postings(tp, torch.from_numpy(H),
                                        torch.from_numpy(alt_lrows),
-                                       torch.from_numpy(alt_hrows))
+                                       torch.from_numpy(alt_hrows),
+                                       layout=wide)
     assert np.array_equal(t_rows.numpy(), j_rows)
     win_slot = np.sort(rng.integers(0, 5, n_win)).astype(np.int32)
     inv_w = (1.0 / W).astype(np.float32)
@@ -594,6 +610,6 @@ def test_alt_delta_rows_postings_over_parts_matches_jax():
         torch.from_numpy(alt_lrows), torch.from_numpy(alt_hrows),
         torch.from_numpy(window_offsets(alt_win, n_win)),
         torch.from_numpy(win_slot), torch.from_numpy(inv_w),
-        torch.from_numpy(is_mean.astype(np.uint8)))
+        torch.from_numpy(is_mean.astype(np.uint8)), layout=wide)
     assert np.allclose(acc_c.numpy(), want, atol=2e-4, rtol=0)
     assert np.array_equal(acc_c.numpy() > 0, want > 0)
