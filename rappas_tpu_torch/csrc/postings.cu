@@ -98,8 +98,8 @@
 //     where aligned), and compacts
 //     the real postings with a warp prefix sum of the lanes' counts: no
 //     shared atomic;
-//   * the same canonical sort of the 64-bit (edge, delta bits) keys, the
-//     block design's bitonic network with no block barrier: strides below
+//   * the same canonical sort of the 64-bit (edge, delta bits) keys, a
+//     bitonic network with no block barrier: strides below
 //     32 in registers through warp shuffles (sizes 2 .. 32 in one pass
 //     over the keys, then one pass per larger size), strides of 32 and
 //     more in shared memory, __syncwarp between stages -- a third of the
@@ -120,8 +120,10 @@
 // sort region lives in dynamic shared memory, sized per launch for the
 // largest such read, or, for a read whose postings exceed one block's
 // shared memory, in its region of a global scratch buffer (scratch_off[b]
-// .. scratch_off[b + 1]); gather positions come from a shared atomic
-// counter, which the sort by full key makes irrelevant.  The warp launch
+// .. scratch_off[b + 1], as many slots as the read has postings: the
+// network skips the comparators past them, so no pad is stored); gather
+// positions come from a shared atomic counter, which the sort by full key
+// makes irrelevant.  The warp launch
 // writes |L| = -1 for those reads and the block launch overwrites it, so
 // a read that the plan misplaced stays rejected by the host decode.
 //
@@ -419,24 +421,39 @@ finalize_postings_kernel(Rows rows, int P,
   }
   __syncthreads();
   const int n = s_n;
-  int n_sort = n > 0 ? 1 : 0;
-  while (n_sort < n) n_sort <<= 1;
-  if (n_sort > region) {  // the host's plan was wrong for this read
+  if (n > region) {  // the host's plan was wrong for this read
     if (tid == 0) w[wire_w - 1] = -1;
     return;
   }
+  int n_sort = n > 0 ? 1 : 0;
+  while (n_sort < n) n_sort <<= 1;
 
-  // 2. bitonic sort of keys[0 .. n_sort), ascending
-  for (int i = n + tid; i < n_sort; i += kThreads) keys[i] = kEmpty;
-  __syncthreads();
+  // 2. sort keys[0 .. n) ascending: the bitonic network of n_sort keys in
+  // the form whose every comparator puts the smaller key at the lower
+  // index (a merge's first step pairs each key with its mirror in the
+  // block).  The n_sort - n keys past n would all be kEmpty, and no such
+  // comparator moves a kEmpty down or anything else up past n, so the
+  // comparators that reach past n are skipped and those keys never exist:
+  // a read's region holds its n postings, not n_sort.  Comparator t's
+  // lower key grows with t, so each step stops at the first t past the
+  // last comparator below n: the end of the size-block that holds key
+  // n - 1 (a first step), or the last lower key below n - stride
   for (int size = 2; size <= n_sort; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      for (int t = tid; t < n_sort / 2; t += kThreads) {
-        const int lo = 2 * t - (t & (stride - 1));
-        const int hi = lo + stride;
+      const int m = n - stride;  // >= 1: stride < n
+      const int t_end = 2 * stride == size
+                            ? (n + size - 1) / size * stride
+                            : m / (2 * stride) * stride +
+                                  min(m % (2 * stride), stride);
+      for (int t = tid; t < t_end; t += kThreads) {
+        const int j = t & (stride - 1);
+        const int lo = 2 * t - j;
+        const int hi = 2 * stride == size ? lo + size - 1 - 2 * j
+                                          : lo + stride;
+        if (hi >= n) continue;
         const uint64_t a = keys[lo];
         const uint64_t c = keys[hi];
-        if ((a > c) == ((lo & size) == 0)) {
+        if (a > c) {
           keys[lo] = c;
           keys[hi] = a;
         }
@@ -624,8 +641,8 @@ __device__ __forceinline__ uint64_t exchange(uint64_t v, int i, int size,
   return (v < o) == keep_min ? v : o;
 }
 
-// ascending bitonic sort of keys[0 .. n), n <= cap, in a warp: the block
-// design's network, so the same sorted array.  Strides below 32 run in
+// ascending bitonic sort of keys[0 .. n), n <= cap, in a warp: the same
+// sorted array as the block design's.  Strides below 32 run in
 // registers, a key per lane at a time through warp shuffles (all of sizes
 // 2 .. 32 in one pass, then one pass per larger size); strides of 32 and
 // more compare-exchange in shared memory, neighbouring lanes on

@@ -39,8 +39,11 @@ from rappas_tpu_torch.db import (DELTA_TINY, LIGHT_PAD_EDGE, LightLayout,
 from rappas_tpu_torch.parallel.mesh import Mesh, PendingSlices, dp_slices
 from rappas_tpu_torch.place import kernels
 from rappas_tpu_torch.place.engine import (BatchResult, alt_rows_of,
-                                           fetch_wire, host_kmer_indices,
-                                           postings_batch, stage)
+                                           count_p3, fetch_wire,
+                                           host_kmer_indices,
+                                           light_row_tally, postings_batch,
+                                           stage)
+from rappas_tpu_torch.utils import tracing_on
 
 
 def shard_db_by_edge(db: PhyloKmerDB, mp: int, width: int = 8):
@@ -174,7 +177,7 @@ class PostingsShardedPlacement:
             self._shards.append(dict(
                 offset=int(bounds[j]), nl=nl, nh=nh, rof=t["rof"][j],
                 light_counts=(edges != LIGHT_PAD_EDGE).sum(axis=1)
-                .astype(np.int32),
+                .astype(np.int32), light_counts_on={},
                 pairs=mesh.put(pairs, cols),
                 heavy_dense=mesh.put(heavy, cols)))
 
@@ -196,16 +199,21 @@ class PostingsShardedPlacement:
             if not cols:
                 continue
             amb = slice_ambiguities(amb_host, sl.start, sl.stop)
-            wires = []
+            wires, tally = [], []
             for j, dev in cols:
                 sh = self._shards[j]
                 host, plan = postings_batch(
                     sh["rof"][kidx[sl]], sh["nl"], sh["light_counts"],
                     lengths[sl], amb, None if amb is None else alt_rows_of(
                         sh["rof"][amb[0]], sh["nl"], sh["nh"]))
+                count_p3(plan, lengths[sl], host["lrows"])
                 H, pairs = sh["heavy_dense"][dev], sh["pairs"][dev]
                 with mesh.on(dev):
                     t = stage(host, dev)
+                    if tracing_on():
+                        tally.extend(light_row_tally(
+                            t["lrows"], sh["nl"], sh["light_counts"],
+                            sh["light_counts_on"]))
                     plan = plan.staged(t)
                     acc_c = kernels.dense_side(H, t["hrows"], t["hoff"])
                     if "win_off" in t:
@@ -224,8 +232,10 @@ class PostingsShardedPlacement:
                 wire = kernels.merge_candidates_wire(
                     torch.stack(mesh.gather(wires, d)), self._k_shard,
                     self.wire_k, self.wide)
-                parts.append(fetch_wire(wire, mesh.stream(lead),
-                                        self.wire_k, self.wide))
+                part = fetch_wire(wire, mesh.stream(lead), self.wire_k,
+                                  self.wide)
+                part.tally = tuple(tally) or None
+                parts.append(part)
         return PendingSlices(parts)
 
     def score(self, codes: np.ndarray, lengths: np.ndarray,

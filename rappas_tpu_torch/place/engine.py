@@ -171,9 +171,10 @@ def unpack_wire(words, K: int, wide: bool = False) -> BatchResult:
 class PendingBatch:
     """Handle for a scored batch: its wire words (a pinned host copy
     while the D2H copy may be in flight) and the CUDA event recorded after
-    that copy, or a finished :class:`BatchResult`.  ``tally``, a counter's
-    ``(name, n, per)``, adds ``n * per`` to it once the event has passed
-    (``n`` a 0-d tensor that the device fills before the event)."""
+    that copy, or a finished :class:`BatchResult`.  ``tally``, counters'
+    ``(name, n, per)``, adds each ``n * per`` to its counter once the
+    event has passed (``n`` a 0-d tensor that the device fills before the
+    event)."""
 
     def __init__(self, out, wire: int = 0, event=None, wide: bool = False,
                  tally=None):
@@ -190,8 +191,8 @@ class PendingBatch:
             if self._event is not None:
                 self._event.synchronize()
         if self.tally is not None:
-            name, n, per = self.tally
-            count(name, int(n) * per)
+            for name, n, per in self.tally:
+                count(name, int(n) * per)
             self.tally = None
         with span("engine.unpack"):
             return unpack_wire(self._out.numpy(), self._wire, self._wide)
@@ -504,9 +505,58 @@ def postings_batch(rof: np.ndarray, nl: int, light_counts: np.ndarray,
     else:
         lrows = np.ascontiguousarray(full[:, :W])
     host["lrows"] = lrows
-    plan = kernels.postings_plan(pairs)
+    with span("engine.plan"):
+        plan = kernels.postings_plan(pairs)
     host.update((n, t.numpy()) for n, t in plan.tensors().items())
     return host, plan
+
+
+def count_p3(plan: kernels.PostingsPlan, lengths: np.ndarray,
+             lrows: np.ndarray) -> None:
+    """The counters of one P3 launch over reads of ``lengths`` from its
+    host plan: reads per path, the batcher's pad rows (length 0) left out
+    (``engine.p3_reads_warp``, ``engine.p3_reads_block``,
+    ``engine.p3_reads_scratch``), the global scratch's bytes
+    (``engine.p3_scratch_bytes``, an int64 key and an f32 total a sort
+    slot), the real light postings P3 gathers (``engine.p3_postings``)
+    and the row slots it is handed (``engine.p3_row_slots``, ``lrows``
+    int32[B, W]); in traced runs only, since ``paths`` reads the plan's
+    tensors back on the host."""
+    if not tracing_on():
+        return
+    for path, n in plan.paths(lengths.shape[0], lengths > 0).items():
+        count(f"engine.p3_reads_{path}", n)
+    count("engine.p3_scratch_bytes", plan.n_scratch * 12)
+    count("engine.p3_postings", plan.postings)
+    count("engine.p3_row_slots", lrows.size)
+
+
+def _on_host(n: torch.Tensor) -> torch.Tensor:
+    """A 0-d count on the card copied to pinned host memory without a
+    wait (a count on the CPU as it is)."""
+    if n.device.type != "cuda":
+        return n
+    host = torch.empty((), dtype=n.dtype, pin_memory=True)
+    return host.copy_(n, non_blocking=True)
+
+
+def light_row_tally(lrows: torch.Tensor, nl: int, counts: np.ndarray,
+                    on: dict) -> tuple:
+    """The tally (:class:`PendingBatch`) of counters
+    ``engine.p3_light_rows`` and ``engine.p3_row_postings``: the distinct
+    light rows of P3's staged ``lrows`` (``nl`` the miss row) and their
+    real postings (``counts`` int32[nl + 1] a row, copied to ``lrows``'s
+    device at the first call and kept in ``on`` by device), counted on
+    the device (a traced run's: on the host it took 14-32 ms a 1,024-read
+    batch of full-length reads)."""
+    if lrows.device not in on:
+        on[lrows.device] = torch.from_numpy(counts).to(lrows.device)
+    counts = on[lrows.device]
+    seen = torch.zeros(nl + 1, dtype=torch.bool, device=lrows.device)
+    seen[lrows.reshape(-1).long()] = True
+    seen[nl] = False
+    return (("engine.p3_light_rows", _on_host(seen.sum()), 1),
+            ("engine.p3_row_postings", _on_host((counts * seen).sum()), 1))
 
 
 def light_width(lens: np.ndarray, n_edges: int) -> tuple[int, int]:
@@ -571,8 +621,8 @@ class PlacementEngine:
     #: 119 slots, 227.4 on 299, where postings saves under 1.5x) and
     #: takes postings for the 4,000-taxon k=10 DB (45 a key on 8,000
     #: slots: 0.29 GB against 33.55 GB).  The share weighs the tables
-    #: alone: P3's per-batch scratch, 12 B a sort slot for reads past
-    #: ``kernels.SMEM_PAIRS`` postings, also grows with the width (0.81
+    #: alone: P3's per-batch scratch, 12 B a posting of the reads past
+    #: ``kernels.SMEM_PAIRS`` postings, also grows with the width (0.80
     #: GB for 1,024 reads of 1,450 bp at width 45) and is not counted
     AUTO_POSTINGS_SHARE = 0.25
     #: the light table's part size: a light table that fits one table's
@@ -704,6 +754,7 @@ class PlacementEngine:
         self._light = kernels.make_parts(
             self.light_parts, [p.shape[0] for p in self.light_parts])
         self._light_counts = ps.light_counts
+        self._light_counts_on = {}      # by device, for traced runs
         self._light_keys_np = ps.light_keys
         self._heavy_keys_np = ps.heavy_keys
         self._rof_np = ps.rof
@@ -914,12 +965,8 @@ class PlacementEngine:
         n = self.D.shape[0] - 1
         seen = torch.zeros(n + 1, dtype=torch.bool, device=rows.device)
         seen[rows.reshape(-1).long()] = True
-        distinct = seen[:n].sum()
-        if rows.device.type == "cuda":
-            host = torch.empty((), dtype=torch.int64, pin_memory=True)
-            distinct = host.copy_(distinct, non_blocking=True)
-        return ("engine.c1_row_bytes", distinct,
-                self.D.shape[1] * self.D.element_size())
+        return (("engine.c1_row_bytes", _on_host(seen[:n].sum()),
+                 self.D.shape[1] * self.D.element_size()),)
 
     def dense_inputs(self, codes: np.ndarray, matrix: np.ndarray,
                      lengths: np.ndarray) -> dict:
@@ -1193,6 +1240,7 @@ class PlacementEngine:
                         lengths: np.ndarray):
         with span("engine.inputs"):
             host, plan = self.postings_inputs(codes, matrix, lengths)
+            lrows = host["lrows"]       # before the row source rewrites it
             src = self._light_source(host)
         if src is None:
             # too many batch-unique rows for one compact table: halve the
@@ -1201,13 +1249,21 @@ class PlacementEngine:
             return SplitPending(
                 self._score_postings(codes[:h], matrix[:h], lengths[:h]),
                 self._score_postings(codes[h:], matrix[h:], lengths[h:]))
+        count_p3(plan, lengths, lrows)
         with self._on_stream():
             dev, acc_c, plan = self._postings_dense(host, plan)
+            # a traced run counts the light rows P3 reads from the table
+            tally = (light_row_tally(dev["lrows"], self._nl,
+                                     self._light_counts,
+                                     self._light_counts_on)
+                     if tracing_on() and src[0] == "table" else None)
             with span("engine.launch"):
                 if src[0] == "compact" and self._pp_enabled:
                     return self._pp_submit(dev, acc_c, plan, src[1])
                 wire = self._postings_wire(src, dev, acc_c, plan)
-            return fetch_wire(wire, self._stream, self.wire_k, self.wide)
+            pending = fetch_wire(wire, self._stream, self.wire_k, self.wide)
+            pending.tally = tally
+            return pending
 
     def _postings_dense(self, host: dict, plan):
         """Stage a postings batch and run its dense side on the engine's

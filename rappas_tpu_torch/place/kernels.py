@@ -1064,12 +1064,14 @@ class PostingsPlan(NamedTuple):
     reads that do not fit, in their regions of a global scratch of
     ``n_scratch`` slots at ``scratch_off`` int64[B + 1] (an empty range:
     shared memory; None: no read in the scratch).  The tensors lie where
-    P3 runs."""
+    P3 runs.  ``postings``: the real light postings of the batch's reads,
+    which P3 gathers."""
     warp_pairs: int
     smem_pairs: int
     scratch_off: torch.Tensor | None
     n_scratch: int
     block_reads: torch.Tensor | None
+    postings: int = 0
 
     #: the plan's tensors, by the names under which the engine stages them
     ARRAYS = ("scratch_off", "block_reads")
@@ -1088,14 +1090,21 @@ class PostingsPlan(NamedTuple):
         arrays (:func:`rappas_tpu_torch.place.engine.stage`)."""
         return self._replace(**{n: dev[n] for n in self.ARRAYS if n in dev})
 
-    def paths(self, B: int) -> dict:
+    def paths(self, B: int, live=None) -> dict:
         """Reads per path of a batch of ``B``: ``warp``, ``block`` (shared
-        memory) and ``scratch``."""
-        n_block = 0 if self.block_reads is None else len(self.block_reads)
-        n_scratch = 0 if self.scratch_off is None else int(
-            (self.scratch_off[1:] > self.scratch_off[:-1]).sum())
-        return {"warp": B - n_block, "block": n_block - n_scratch,
-                "scratch": n_scratch}
+        memory) and ``scratch``; of the reads ``live`` (bool[B]) only, if
+        given."""
+        block = np.zeros(B, bool)
+        if self.block_reads is not None:
+            block[self.block_reads.cpu().numpy()] = True
+        scratch = np.zeros(B, bool)
+        if self.scratch_off is not None:
+            so = self.scratch_off.cpu().numpy()
+            scratch = so[1:] > so[:-1]
+        live = np.ones(B, bool) if live is None else np.asarray(live, bool)
+        return {"warp": int(np.count_nonzero(live & ~block)),
+                "block": int(np.count_nonzero(live & block & ~scratch)),
+                "scratch": int(np.count_nonzero(live & scratch))}
 
 
 def _pow2(n):
@@ -1108,15 +1117,18 @@ def _pow2(n):
 def postings_plan(pairs_per_read, smem_pairs: int = SMEM_PAIRS,
                   warp_pairs: int = WARP_PAIRS) -> PostingsPlan:
     """P3's plan from each read's count of real light postings: a read
-    sorts a power-of-two region at least that large, on the warp path
-    when it fits ``warp_pairs`` slots (0: no warp path), else on the block
-    path, in shared memory when it fits ``smem_pairs`` slots, else in the
-    global scratch (the tensors on the CPU: :meth:`PostingsPlan.to` moves
-    them)."""
+    sorts on the warp path when the power of two at least that large fits
+    ``warp_pairs`` slots (0: no warp path), else on the block path, in
+    shared memory when that power of two fits ``smem_pairs`` slots, else
+    in a region of the global scratch that holds its postings and no more
+    (the block path never stores the sort's pads; the tensors on the CPU:
+    :meth:`PostingsPlan.to` moves them)."""
     if warp_pairs > WARP_PAIRS:
         raise ValueError(f"warp_pairs {warp_pairs} > {WARP_PAIRS}, the "
                          "warp path's largest region")
-    need = _pow2(pairs_per_read)
+    pairs = np.asarray(pairs_per_read, np.int64)
+    need = _pow2(pairs)
+    postings = int(pairs.sum())
     warp = (need <= warp_pairs) & (warp_pairs > 0)
     w_cap = int(need[warp].max()) if warp.any() else -1
     block = ~warp
@@ -1126,11 +1138,11 @@ def postings_plan(pairs_per_read, smem_pairs: int = SMEM_PAIRS,
              if block.any() else None)
     big = block & ~small
     if not big.any():
-        return PostingsPlan(w_cap, cap, None, 0, reads)
+        return PostingsPlan(w_cap, cap, None, 0, reads, postings)
     off = np.zeros(need.shape[0] + 1, np.int64)
-    np.cumsum(np.where(big, need, 0), out=off[1:])
+    np.cumsum(np.where(big, pairs, 0), out=off[1:])
     return PostingsPlan(w_cap, cap, torch.from_numpy(off), int(off[-1]),
-                        reads)
+                        reads, postings)
 
 
 def dense_side(heavy_dense: torch.Tensor, hrows: torch.Tensor,

@@ -529,17 +529,18 @@ def test_light_readers_on_narrow_and_wide_rows(P, narrow, op):
 def test_postings_plan():
     plan = T.postings_plan(np.array([0, 3, 100, 40000, 16384, 16385]))
     assert plan.warp_pairs == 128 and plan.smem_pairs == 16384
-    assert plan.scratch_off.tolist() == [0, 0, 0, 0, 65536, 65536, 98304]
-    assert plan.n_scratch == 98304
+    assert plan.scratch_off.tolist() == [0, 0, 0, 0, 40000, 40000, 56385]
+    assert plan.n_scratch == 56385
     assert plan.block_reads.tolist() == [3, 4, 5]
     assert plan.block_reads.dtype == torch.int32
     assert plan.paths(6) == {"warp": 3, "block": 1, "scratch": 2}
     small = T.postings_plan(np.array([5, 9, 1]))
-    assert small == (16, 0, None, 0, None)
+    assert small == (16, 0, None, 0, None, 15)
+    assert plan.postings == 0 + 3 + 100 + 40000 + 16384 + 16385
     every = T.postings_plan(np.array([5, 9]), smem_pairs=0, warp_pairs=0)
-    assert every.smem_pairs == 0 and every.scratch_off.tolist() == [0, 8, 24]
+    assert every.smem_pairs == 0 and every.scratch_off.tolist() == [0, 5, 14]
     assert every.scratch_off.dtype == torch.int64
-    assert every.to("cpu").scratch_off.tolist() == [0, 8, 24]
+    assert every.to("cpu").scratch_off.tolist() == [0, 5, 14]
     assert every.block_reads.tolist() == [0, 1] and every.warp_pairs == -1
     assert small.to("cpu") is small
     assert T.wire_format(60, 7) == (7, False, 12)
@@ -553,7 +554,7 @@ def test_postings_plan():
     # the threshold: 1024 postings stay on the warp path, 1025 leave it
     ([1024, 1025, 7], T.WARP_PAIRS, (1024, [1], None)),
     # a smaller warp region; the block path in shared memory and scratch
-    ([100, 200, 20000, 3], 128, (128, [1, 2], [0, 0, 0, 32768, 32768])),
+    ([100, 200, 20000, 3], 128, (128, [1, 2], [0, 0, 0, 20000, 20000])),
     # no warp path: every read on the block path, none in the scratch
     ([0, 5, 300], 0, (-1, [0, 1, 2], None)),
 ])

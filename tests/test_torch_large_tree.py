@@ -333,8 +333,8 @@ def _p3_c5_inputs(rng, B, L=240, W=45, E=8000, n_rows=1 << 14):
 def test_postings_plan_at_the_deployment_widths():
     """P3's plan at width 45: a 240 bp read's 231 x 45 postings sort in
     one block's shared memory (no scratch); a 1,024-read batch of 1,450 bp
-    reads (1,441 x 45 = 64,845 postings, a 65,536-slot region each) sorts
-    in a global scratch of 12 bytes a slot, 0.81 GB, far under the
+    reads (1,441 x 45 = 64,845 postings, a region of as many slots each)
+    sorts in a global scratch of 12 bytes a slot, 0.80 GB, far under the
     33.55 GB compact table the layout replaces."""
     pairs, lrows, _ = _p3_c5_inputs(np.random.default_rng(3), 16)
     counts = (pairs[lrows, :45] != LIGHT_PAD_EDGE).sum(axis=(1, 2))
@@ -344,9 +344,9 @@ def test_postings_plan_at_the_deployment_widths():
     assert plan.smem_pairs == 16384 == T.SMEM_PAIRS and plan.n_scratch == 0
     long = T.postings_plan(np.full(1024, (1450 - 10 + 1) * 45))
     assert long.paths(1024) == {"warp": 0, "block": 0, "scratch": 1024}
-    assert long.n_scratch == 1024 * 65536
+    assert long.n_scratch == 1024 * 64845
     # the scratch P3's wrapper allocates: an int64 key and an f32 total
-    assert long.n_scratch * (8 + 4) == 805_306_368
+    assert long.n_scratch * (8 + 4) == 796_815_360
 
 
 @pytest.fixture

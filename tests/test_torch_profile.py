@@ -6,8 +6,21 @@ holds the placements of the same run without the profiler."""
 import json
 import shutil
 
+import pytest
+
+from rappas_tpu_torch import utils
 from rappas_tpu_torch.cli import main as port_main
 from test_torch_imports import _tiny_db
+
+
+@pytest.fixture(autouse=True)
+def _fresh_trace_totals():
+    """``--profile`` turns the program's spans on and the next CLI call
+    off again, keeping their totals: leave none to a later test in this
+    process (the benchmark harness counts its set-up spans from them)."""
+    yield
+    utils.tracing(False)
+    utils.trace_reset()
 
 
 def _traced_and_plain(tmp_path, argv, out_name):
